@@ -1,0 +1,158 @@
+"""die_tpu_torch kernel wrappers, device rules and import hygiene.
+
+On the CPU the wrappers run their kernels' plain versions and launch
+nothing; the entry points refuse to fall back to the CPU silently.  The
+tests marked ``cuda`` hold each hand-written kernel bitwise to its plain
+version on the card (run them there with
+``python -m pytest tests/test_torch_cuda_step.py -m cuda``)."""
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from die_tpu.core.rng import np_fold_in, np_key
+from die_tpu.fast import env as jenv
+
+from die_tpu_torch.core.config import FlowConfig
+from die_tpu_torch.core.rng import as_key_tensor
+from die_tpu_torch.fast import cuda_step
+from die_tpu_torch.fast import env as tenv
+from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+from die_tpu_torch.fast.init import fast_init
+from die_tpu_torch.fast.rollout import (fast_rollout, fast_rollout_auto,
+                                        step_bits, step_keys)
+
+SHAPE = (16, 128)
+
+
+def _keys(seed, n):
+    return np.stack([np_fold_in(np_key(seed), i) for i in range(n)])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+# ---- wrappers on the CPU ---------------------------------------------------------
+
+@pytest.mark.parametrize("dyn", [FastDynamics(), tuned_dynamics(16),
+                                 FastDynamics(agents_born=True)])
+def test_lattice_step_wrapper_on_cpu_is_plain_step(dyn):
+    cuda_step.reset_launches()
+    st = fast_init(_keys(1, 2), SHAPE, dyn, device="cpu")
+    keys = step_keys(as_key_tensor(_keys(2, 2), "cpu"), 0, 1)[0]
+    new, num, gained = cuda_step.lattice_step(dyn, st, keys)
+    ref, rew, rnum, rgained = tenv.fast_step_full(dyn, st,
+                                                  step_bits(dyn, keys, SHAPE))
+    for a, b in zip(new, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(num, rnum) and torch.equal(gained, rgained)
+    assert torch.equal(cuda_step.tree_sum_2d(gained), rew)
+    assert cuda_step.launches == {"lattice_step": 0, "tree_sum_2d": 0}
+
+
+def test_tree_sum_wrapper_on_cpu_matches_jax_fold():
+    cuda_step.reset_launches()
+    a = np.random.RandomState(0).standard_normal((2,) + SHAPE).astype(
+        np.float32)
+    out = cuda_step.tree_sum_2d(torch.from_numpy(a))
+    assert [float(x) for x in out] == [float(jenv.tree_sum_2d(np, x))
+                                       for x in a]
+    assert cuda_step.launches["tree_sum_2d"] == 0
+
+
+def test_rollout_auto_on_cpu_launches_nothing():
+    cuda_step.reset_launches()
+    dyn = FastDynamics()
+    st = fast_init(_keys(3, 2), SHAPE, dyn, device="cpu")
+    a = fast_rollout_auto(dyn, st, _keys(4, 2), 3, device="cpu")
+    b = fast_rollout(dyn, st, _keys(4, 2), 3, device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    assert sum(cuda_step.launches.values()) == 0
+
+
+def test_kernel_support_checks():
+    cuda_step.check_kernel_supported(FastDynamics(), (4, 256, 256))
+    with pytest.raises(ValueError):
+        cuda_step.check_kernel_supported(FastDynamics(), (4, 24, 24))
+    with pytest.raises(ValueError):
+        cuda_step.check_kernel_supported(FastDynamics(), (256, 256))
+    with pytest.raises(NotImplementedError):
+        cuda_step.check_kernel_supported(
+            FastDynamics(flow=FlowConfig(kind="perlin")), (4, 256, 256))
+    with pytest.raises(ValueError):
+        cuda_step.check_kernel_supported(FastDynamics(diffuse_sigma=5.0),
+                                         (4, 256, 256))
+
+
+# ---- device rules -------------------------------------------------------------------
+
+@pytest.mark.parametrize("entry", ["fast_init", "fast_rollout",
+                                   "fast_rollout_auto"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    dyn = FastDynamics()
+    st = fast_init(_keys(5, 1), SHAPE, dyn, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "fast_init":
+            fast_init(_keys(5, 1), SHAPE, dyn)
+        elif entry == "fast_rollout":
+            fast_rollout(dyn, st, _keys(6, 1), 2)
+        else:
+            fast_rollout_auto(dyn, st, _keys(6, 1), 2)
+
+
+# ---- import hygiene ---------------------------------------------------------------
+
+def test_port_imports_no_jax_and_nothing_of_die_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import die_tpu_torch\n"
+        "for m in pkgutil.walk_packages(die_tpu_torch.__path__, "
+        "'die_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m.startswith('jaxlib.')"
+        " or m == 'die_tpu' or m.startswith('die_tpu.')]\n"
+        "mods = [m for m in sys.modules if m.startswith('die_tpu_torch.')]\n"
+        "assert len(mods) >= 15, mods\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+# ---- on the card ---------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyn", [
+    FastDynamics(), FastDynamics(num_dirs=4), tuned_dynamics(16),
+    FastDynamics(agents_born=True, agents_die=True, birth_threshold=0.5),
+    FastDynamics(per_cell_priority=False), FastDynamics(rng_kind="threefry"),
+    FastDynamics(flow=FlowConfig(kind="wave"))])
+def test_kernels_match_plain_on_card(cuda_device, dyn):
+    st = fast_init(_keys(7, 3), SHAPE, dyn, device=cuda_device)
+    cuda_step.reset_launches()
+    out = fast_rollout_auto(dyn, st, _keys(8, 3), 4, device=cuda_device)
+    assert cuda_step.launches == {"lattice_step": 4, "tree_sum_2d": 4}
+    ref = fast_rollout(dyn, st, _keys(8, 3), 4, device=cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(out[0], ref[0]))
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+
+
+@pytest.mark.cuda
+def test_tree_sum_kernel_matches_plain_on_card(cuda_device):
+    x = torch.randn((5, 64, 512), device=cuda_device)
+    assert torch.equal(cuda_step.tree_sum_2d(x), tenv.tree_sum_2d(x))
