@@ -1,20 +1,34 @@
 """Drive die_tpu_torch on one NVIDIA GPU and hold its kernels to their plain
 versions.
 
-    python3 chip_smoke.py                 # full main path: 1024 envs, T=256
-    python3 chip_smoke.py --envs 64 --steps 16   # a shorter run
+    python3 chip_smoke.py                 # full run: 1024 envs, T=256
+    python3 chip_smoke.py --envs 64 --steps 16   # a shorter main path
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
-  2. build the CUDA kernels from ``die_tpu_torch/csrc`` (seconds printed);
+  2. build the CUDA kernels from ``die_tpu_torch/csrc`` (one nvcc per
+     source, all started together; seconds printed);
   3. every kernel against its plain PyTorch version on the card, bitwise:
-     the lattice step (+ reward fold) over 8 configs at 256x256, B=4,
-     8 steps; the reward fold alone on random fields; and a small kernel
-     rollout against the plain rollout on the CPU;
+     the Jones step (K1 + reward fold K2) over 8 configs at 256x256, B=4,
+     8 steps; the reward fold alone on random fields; small kernel
+     rollouts (Jones; ctx with per-env params under perlin flow) against
+     the plain rollouts on the CPU; the learned step (K3)
+     for every rule family with the committed artifacts and with random
+     all-live params, with birth and death, wave flow, perlin flow (B3,
+     shared and per-env fields) and a population of distinct params, at
+     256x256, B=4, 8 steps; and the rule on NaN and +-0.0 food;
   4. the main path: ``fast_init`` + ``fast_rollout_auto`` with
      ``FastDynamics()`` at 256x256, with launch counts read around it,
-     finite rewards and a conserved agent count; then timings (CUDA
-     events) of the rollout, of each kernel and of its plain version.
+     finite rewards and a conserved agent count;
+  5. the learned path, each part with the counts read around it: every
+     committed artifact replayed over the full EVAL_PROTOCOL block through
+     ``learned_fast_rollout_auto`` (bitwise against the plain rollout on
+     the card, mean score beside the JAX package's documented one);
+     ``train_lattice`` at the wide record's configuration (popsize 64 x 16
+     envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed; and the
+     perlin path (Jones at the main path's size, wide at 64x128);
+  6. timings (CUDA events) of the main rollout, of each kernel and of its
+     plain version, with each kernel's bound.
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -22,6 +36,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -160,23 +176,41 @@ def phase_fold_alone(B: int):
 
 
 def phase_cpu_reference():
-    """A small kernel rollout on the card against the plain rollout on the
-    CPU (which the CPU tests hold bitwise to the JAX package's oracle)."""
-    from die_tpu_torch.fast.config import FastDynamics
+    """Small kernel rollouts on the card against the plain rollouts on the
+    CPU (which the CPU tests hold bitwise to the JAX package's oracle): the
+    Jones main config, and the ctx rule with per-env params under perlin
+    flow."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast import learned as L
+    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
     from die_tpu_torch.fast.init import fast_init
     from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
 
-    dyn = FastDynamics()
     shape, B, T = (16, 128), 2, 5
-    st = fast_init(env_keys(1, B), shape, dyn, device="cpu")
-    ref = fast_rollout(dyn, st, env_keys(2, B), T, device="cpu")
-    out = fast_rollout_auto(dyn, st, env_keys(2, B), T, device="cuda")
-    for name, a, b in zip(("state", "rewards", "nums"), out, ref):
-        pairs = zip(a, b) if name == "state" else [(a, b)]
-        for x, y in pairs:
-            if not torch.equal(x.cpu(), y):
-                raise AssertionError(f"card vs CPU rollout: {name} differs")
-    log("card kernel rollout == CPU plain rollout (16x128, 2 envs, 5 steps)")
+    ctx = torch.stack([random_live_params(L.mlp_ctx_param_shape(8), 70 + b)
+                       for b in range(B)]).cpu()
+    cases = [("Jones", FastDynamics(), None),
+             ("ctx perlin", tuned_dynamics(16, flow=FlowConfig(kind="perlin")),
+              ctx)]
+    for label, dyn, params in cases:
+        st = fast_init(env_keys(1, B), shape, dyn, device="cpu")
+        keys = env_keys(2, B)
+        if params is None:
+            ref = fast_rollout(dyn, st, keys, T, device="cpu")
+            out = fast_rollout_auto(dyn, st, keys, T, device="cuda")
+        else:
+            ref = L.learned_fast_rollout(dyn, params, st, keys, T,
+                                         device="cpu")
+            out = L.learned_fast_rollout_auto(dyn, params, st, keys, T,
+                                              device="cuda")
+        for name, a, b in zip(("state", "rewards", "nums"), out, ref):
+            pairs = zip(a, b) if name == "state" else [(a, b)]
+            for x, y in pairs:
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"card vs CPU rollout ({label}): "
+                                         f"{name} differs")
+        log(f"card kernel rollout == CPU plain rollout ({label}, 16x128, "
+            f"{B} envs, {T} steps)")
 
 
 def profile_step(dyn, state, keys0, gained):
@@ -198,7 +232,8 @@ def profile_step(dyn, state, keys0, gained):
 def step_ops_per_cell(dyn) -> int:
     """fp32/int operations a cell of one step does (sensing, move and
     acceptance loops, update, feed, diffusion taps, RNG), counted from
-    fast_step_full; the wave field adds its sincos/sqrt chain."""
+    fast_step_full; the wave field adds its sincos/sqrt chain, a flow field
+    its read and update."""
     n = dyn.num_dirs
     from die_tpu_torch.ops.gaussian import gaussian_taps
 
@@ -207,7 +242,356 @@ def step_ops_per_cell(dyn) -> int:
     ops = 3 * n + 12 + 7 * n + 4 * n + 40 + 4 * taps + 3 * rng
     if dyn.flow.kind == "wave":
         ops += 150
+    elif dyn.flow.kind == "perlin":
+        ops += 3
     return ops
+
+
+def rule_ops_per_cell(dyn, params_shape) -> int:
+    """Operations a cell of the learned rule adds to the step (a multiply-
+    add counts 2): probe trios (3 selects a direction each), layer-1 and
+    head sums, hardtanh, the tie chain; ctx adds 7 depthwise 3x3 sums."""
+    from die_tpu_torch.fast.learned import rule_family
+
+    n = dyn.num_dirs
+    fam = rule_family(params_shape)
+    h = fam.hidden
+    if fam.name == "linear":
+        return 3 * 2 * (6 + 1) + 4
+    ops = 2 * h * (fam.n_feat + 1) + 2 * h + 3 * 2 * (h + 1) + 4
+    if fam.name in ("wide", "ctx"):
+        ops += 2 * 3 * n
+    if fam.name == "ctx":
+        ops += 7 * 2 * 9
+    return ops
+
+
+def bound_ms(cells: int, nbytes: int, ops: int, rate: float):
+    """(bound in ms, what bounds it) for the bytes and operations given."""
+    t_bytes, t_ops = nbytes / rate, cells * ops / FP32_RATE
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---- the learned path ---------------------------------------------------------
+
+ARTIFACTS = {  # file -> (lattice, held-out score documented by the JAX package)
+    "lattice4_linear": (4, 574.6), "lattice8_linear": (8, 361.1),
+    "lattice16_linear": (16, 662.3), "lattice16_linear_r5": (16, 689.0),
+    "lattice16_mlp": (16, 689.9), "lattice4_mlp_wide": (4, 687.7),
+    "lattice8_mlp_wide": (8, 386.5), "lattice16_mlp_wide": (16, 760.14),
+    "lattice16_mlp_ctx": (16, 756.4),
+}
+
+
+def artifact(name):
+    from pathlib import Path
+
+    from die_tpu_torch.fast.convert import load_turn_params
+
+    path = Path(__file__).resolve().parent / "docs" / "artifacts" / \
+        f"{name}.npz"
+    return load_turn_params(path, device="cuda")
+
+
+def random_live_params(shape, seed: int):
+    """Params with every live slot non-zero (uniform in +-[0.05, 0.5]),
+    dead slots zero, from a numpy seed."""
+    import numpy as np
+
+    from die_tpu_torch.fast import learned as L
+
+    fam = L.rule_family(shape)
+    if fam.name == "linear":
+        mask = np.ones(shape, np.float32)
+    elif fam.name == "ctx":
+        mask = L._ctx_live_mask(fam.hidden)
+    else:
+        mask = L._mlp_live_mask(fam.hidden, wide=fam.name == "wide")
+    rs = np.random.RandomState(seed)
+    mag = rs.uniform(0.05, 0.5, shape).astype(np.float32)
+    sign = np.where(rs.uniform(size=shape) < 0.5, -1.0, 1.0).astype(
+        np.float32)
+    return torch.from_numpy(mag * sign * mask).cuda()
+
+
+def learned_cases():
+    """(name, dyn, params [R, C] or [B, R, C] or None for Jones, flow_step
+    offsets per env or None) for the K3/B3 parity phase."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast import learned as L
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics,
+                                           tuned_dynamics)
+
+    perlin = FlowConfig(kind="perlin")
+    wide16 = L.mlp_wide_param_shape(8)
+    cases = []
+    for name, fam_shape in [("lattice8_linear", (3, 7)),
+                            ("lattice16_mlp", L.mlp_param_shape(8)),
+                            ("lattice4_mlp_wide", wide16),
+                            ("lattice8_mlp_wide", wide16),
+                            ("lattice16_mlp_wide", wide16),
+                            ("lattice16_mlp_ctx", L.mlp_ctx_param_shape(8))]:
+        dyn = eval_protocol_dynamics(ARTIFACTS[name][0])
+        cases.append((f"{name} artifact", dyn, artifact(name), None))
+        cases.append((f"{name} random all-live", dyn,
+                      random_live_params(fam_shape, len(cases)), None))
+    cases += [
+        ("wide16 born+die", tuned_dynamics(16, agents_born=True,
+                                           agents_die=True,
+                                           birth_threshold=0.5),
+         random_live_params(wide16, 40), None),
+        ("wide8 born+die", FastDynamics(agents_born=True, agents_die=True,
+                                        birth_threshold=0.5),
+         random_live_params(wide16, 41), None),
+        ("wide16 wave flow", tuned_dynamics(16, flow=FlowConfig(kind="wave")),
+         artifact("lattice16_mlp_wide"), None),
+        ("jones perlin (K1+B3)", FastDynamics(flow=perlin), None, None),
+        ("jones16 perlin per-env steps", tuned_dynamics(16, flow=perlin),
+         None, [0, 3, 7, 100]),
+        ("wide16 perlin (K3+B3)", tuned_dynamics(16, flow=perlin),
+         artifact("lattice16_mlp_wide"), None),
+        ("ctx16 perlin per-env steps", tuned_dynamics(16, flow=perlin),
+         random_live_params(L.mlp_ctx_param_shape(8), 42), [5, 0, 2, 9]),
+        ("population wide16 (4 params)", eval_protocol_dynamics(16),
+         torch.stack([random_live_params(wide16, 50 + i) for i in range(4)]),
+         None),
+        ("population ctx16 (4 params)", eval_protocol_dynamics(16),
+         torch.stack([random_live_params(L.mlp_ctx_param_shape(8), 60 + i)
+                      for i in range(4)]), None),
+    ]
+    return cases
+
+
+def kernel_step(dyn, st, keys_t, params):
+    """One kernel step as the rollouts take it (a shared perlin field when
+    the batch's flow steps agree, else per-env fields in the wrapper)."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.env import flow_field_for
+    from die_tpu_torch.fast.rollout import shared_flow_step
+
+    flow = shared_flow_step(dyn, st)
+    field = None if flow is None else flow_field_for(
+        dyn, tuple(st.occ.shape[-2:]), flow)
+    if params is None:
+        return cuda_step.lattice_step(dyn, st, keys_t, flow_field=field)
+    return cuda_step.learned_lattice_step(dyn, st, keys_t, params,
+                                          flow_field=field)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, with NaN equal to NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(
+        torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
+def phase_learned_parity(B: int, steps: int):
+    """K3 and the flow-field operand (B3) against the plain step on the card,
+    every field, reward and count each step, at 256x256 (real tile edges)."""
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.env import fast_step_full
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.rollout import step_bits, step_keys
+
+    err = 0.0
+    for name, dyn, params, offsets in learned_cases():
+        st_k = fast_init(env_keys(7, B), FIELD, dyn, device="cuda")
+        if offsets is not None:
+            st_k = st_k._replace(flow_step=torch.tensor(
+                offsets, dtype=torch.int32, device="cuda"))
+        st_p = st_k
+        rule = None if params is None else make_turn_rule(params, dyn)
+        keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, steps)
+        turned = 0
+        for t in range(steps):
+            st_k, num_k, gained_k = kernel_step(dyn, st_k, keys[t], params)
+            rew_k = cuda_step.tree_sum_2d(gained_k)
+            prev = st_p
+            st_p, rew_p, num_p, gained_p = fast_step_full(
+                dyn, st_p, step_bits(dyn, keys[t], FIELD), turn_rule=rule)
+            turned += int(((st_p.dir != prev.dir) & (prev.occ > 0)).sum())
+            for f in st_p._fields:
+                a, b = getattr(st_k, f), getattr(st_p, f)
+                if not same(a, b):
+                    raise AssertionError(f"{name} step {t}: {f} differs, "
+                                         f"max abs err {max_err(a, b)}")
+                if f != "flow_step":
+                    err = max(err, max_err(a, b))
+            if not (same(gained_k, gained_p) and same(num_k, num_p)
+                    and same(rew_k, rew_p)):
+                raise AssertionError(f"{name} step {t}: gain, count or "
+                                     f"reward differs")
+        log(f"parity {name}: {steps} steps x {B} envs bitwise equal "
+            f"(agents {int(num_p.sum())}, headings changed {turned})")
+    return err
+
+
+def phase_rule_edges():
+    """The rule's hardtanh and tie chain on NaN and +-0.0 inputs: agent and
+    env food set to NaN, -0.0 and +0.0 on a stripe of cells, one step of
+    K3 (wide and ctx) against the plain step, NaN-aware."""
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.env import fast_step_full
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.rollout import step_bits, step_keys
+
+    dyn = eval_protocol_dynamics(16)
+    shape = (64, 128)
+    st = fast_init(env_keys(3, 2), shape, dyn, device="cuda")
+    af, ef = st.agent_food.clone(), st.env_food.clone()
+    af[:, 10:20, :] = float("nan")
+    af[:, 30:34, :] = -0.0
+    ef[:, 40:44, :] = -0.0
+    ef[:, 50:52, :] = float("nan")
+    st = st._replace(agent_food=af, env_food=ef)
+    keys = step_keys(as_key_tensor(env_keys(4, 2), "cuda"), 0, 2)
+    for name in ("lattice16_mlp_wide", "lattice16_mlp_ctx"):
+        params = artifact(name)
+        sk, sp = st, st
+        for t in range(2):
+            sk, nk, gk = kernel_step(dyn, sk, keys[t], params)
+            sp, _, np_, gp = fast_step_full(
+                dyn, sp, step_bits(dyn, keys[t], shape),
+                turn_rule=make_turn_rule(params, dyn))
+            for f in sp._fields:
+                if not same_bits(getattr(sk, f), getattr(sp, f)):
+                    raise AssertionError(f"rule edges {name}: {f} differs")
+            if not (same_bits(gk, gp) and same(nk, np_)):
+                raise AssertionError(f"rule edges {name}: gain/count differ")
+        log(f"rule edges {name}: NaN and +-0.0 food, 2 steps bitwise equal "
+            f"(NaN cells after: {int(torch.isnan(sk.agent_food).sum())})")
+
+
+def heldout_keys(seed0: int, n: int):
+    return env_keys(seed0, n), env_keys(seed0 + 1, n)
+
+
+def phase_heldout():
+    """Replay every committed artifact over the full EVAL_PROTOCOL block on
+    the card (kernel) and hold it bitwise to the plain rollout on the card;
+    print the mean score beside the JAX package's documented value."""
+    from die_tpu_torch.core.mathx import tree_sum_1d
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import (learned_fast_rollout,
+                                            learned_fast_rollout_auto)
+
+    n, size = EVAL_PROTOCOL["full_seeds"], (EVAL_PROTOCOL["size"],) * 2
+    steps, seed0 = EVAL_PROTOCOL["steps"], EVAL_PROTOCOL["seed0"]
+    ikeys, rkeys = heldout_keys(seed0, n)
+    scores = {}
+    for name, (dirs, documented) in ARTIFACTS.items():
+        dyn = eval_protocol_dynamics(dirs)
+        params = artifact(name)
+        st = fast_init(ikeys, size, dyn, device="cuda")
+        out = learned_fast_rollout_auto(dyn, params, st, rkeys, steps,
+                                        device="cuda")
+        ref = learned_fast_rollout(dyn, params, st, rkeys, steps,
+                                   device="cuda")
+        for a, b in zip(list(out[0]) + list(out[1:]),
+                        list(ref[0]) + list(ref[1:])):
+            if not same(a, b):
+                raise AssertionError(f"held-out {name}: kernel rollout "
+                                     f"differs from the plain rollout")
+        totals = tree_sum_1d(out[1])
+        if not bool(torch.isfinite(totals).all()):
+            raise AssertionError(f"held-out {name}: scores not finite")
+        mean = float(totals.double().mean())
+        scores[name] = {"dirs": dirs, "mean": mean, "documented": documented,
+                        "seeds": n}
+        log(f"held-out {name} ({dirs} dirs, {n} seeds from {seed0}, "
+            f"{size[0]}x{size[1]}, {steps} steps): {mean:.4f} on the card, "
+            f"documented {documented} (JAX package); kernel == plain")
+    return scores
+
+
+def phase_train(gens: int):
+    """train_lattice at the wide record's configuration (warm CMAES s0.1,
+    64 x 16 envs per generation, CRN, seed 52), timed per generation."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.fast.learned import LatticeTrainConfig, train_lattice
+    from die_tpu_torch.learn.es import CMAES
+
+    dyn = eval_protocol_dynamics(16)
+    cfg = LatticeTrainConfig(field_size=(64, 128), epochs=gens,
+                             epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
+                             envs_per_eval=16, seed=52)
+    warm = artifact("lattice16_mlp_wide")
+    stamps = []
+
+    def log_fn(epoch, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"  generation {epoch}: best {m['best']:.4f} mean "
+            f"{m['mean']:.4f}")
+
+    cuda_step.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, es_state, history = train_lattice(
+        dyn, cfg, log_fn=log_fn, params_init=warm, common_random_envs=True,
+        searcher_fn=lambda d: CMAES(d, popsize=64, stdev_init=0.1),
+        device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(cuda_step.launches)
+    log(f"learned path (train_lattice) launches: {counts}")
+    if counts["lattice_step_learned_wide"] < 1 or counts["tree_sum_2d"] < 1:
+        raise AssertionError("train_lattice did not run through K3 and K2")
+    if tuple(best.shape) != tuple(warm.shape) or len(history) != gens:
+        raise AssertionError("train_lattice result has the wrong shape")
+    if not all(math.isfinite(h["best"]) and math.isfinite(h["mean"])
+               for h in history):
+        raise AssertionError("train_lattice fitnesses are not finite")
+    per_gen = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    envs = cfg.popsize * cfg.envs_per_eval
+    steady = per_gen[1:] or per_gen
+    rate = envs * cfg.epoch_iters * len(steady) / sum(steady)
+    log(f"train: {gens} generations of {envs} envs x {cfg.epoch_iters} "
+        f"steps at {cfg.field_size}; seconds per generation "
+        f"{[round(x, 4) for x in per_gen]}; {rate:.1f} train env-steps/s "
+        f"after the first generation")
+    return rate, counts, per_gen
+
+
+def phase_perlin_path(B: int, steps: int):
+    """Drive both perlin forms through the entry points: the Jones main
+    config with perlin flow (K1+B3) and the wide rule with perlin flow
+    (K3+B3), counts read around the run."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import learned_fast_rollout_auto
+    from die_tpu_torch.fast.rollout import fast_rollout_auto
+
+    perlin = FlowConfig(kind="perlin")
+    dyn = FastDynamics(flow=perlin)
+    st = fast_init(env_keys(20, B), FIELD, dyn, device="cuda")
+    dyn16 = tuned_dynamics(16, flow=perlin)
+    st16 = fast_init(env_keys(22, B), (64, 128), dyn16, device="cuda")
+    cuda_step.reset_launches()
+    _, rew, _ = fast_rollout_auto(dyn, st, env_keys(21, B), steps,
+                                  device="cuda")
+    _, rew16, _ = learned_fast_rollout_auto(
+        dyn16, artifact("lattice16_mlp_wide"), st16, env_keys(23, B), steps,
+        device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(cuda_step.launches)
+    log(f"perlin path launches: {counts}")
+    for k in ("lattice_step_perlin", "lattice_step_learned_perlin"):
+        if counts[k] < 1:
+            raise AssertionError(f"{k} was not launched on the perlin path")
+    if not (bool(torch.isfinite(rew).all())
+            and bool(torch.isfinite(rew16).all())):
+        raise AssertionError("perlin path rewards are not finite")
+    return counts, st
 
 
 def main():
@@ -216,6 +600,8 @@ def main():
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--parity-envs", type=int, default=4)
     ap.add_argument("--parity-steps", type=int, default=8)
+    ap.add_argument("--train-gens", type=int, default=3)
+    ap.add_argument("--perlin-steps", type=int, default=16)
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one step")
     args = ap.parse_args()
@@ -233,6 +619,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"device {kind} (count {torch.cuda.device_count()}); nvidia-smi: "
@@ -242,11 +629,9 @@ def main():
     secs = cuda_step.build()
     log(f"build: {secs:.1f} s")
     for name, out in cuda_step.build_log.items():
-        regs = [int(w) for line in out.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:])
-                if nxt == "registers"]
-        spills = sum("0 bytes spill stores" not in line
-                     for line in out.splitlines() if "spill stores" in line)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", out)]
+        spills = sum(int(n) > 0
+                     for n in re.findall(r"(\d+) bytes spill stores", out))
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {spills} with spills")
 
@@ -254,6 +639,8 @@ def main():
     k1_err, k2_err = phase_parity(args.parity_envs, args.parity_steps)
     k2_err = max(k2_err, phase_fold_alone(args.parity_envs))
     phase_cpu_reference()
+    k3_err = phase_learned_parity(args.parity_envs, args.parity_steps)
+    phase_rule_edges()
 
     # ---- 4. the main path
     dyn = FastDynamics()
@@ -273,7 +660,7 @@ def main():
     torch.cuda.synchronize()
     counts = dict(cuda_step.launches)
     log(f"main path launches: {counts}")
-    for name in cuda_step.SOURCES:
+    for name in ("lattice_step", "tree_sum_2d"):
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
     if tuple(rewards.shape) != (B, T) or not bool(torch.isfinite(rewards).all()):
@@ -286,8 +673,21 @@ def main():
     log(f"main path ok: mean reward/step {float(rewards.mean()):.6f}, "
         f"agents/env {float(n0.float().mean()):.1f}")
 
+    # ---- 5. the learned path: held-out replay (serving), training, perlin
+    cuda_step.reset_launches()
+    scores = phase_heldout()
+    torch.cuda.synchronize()
+    serve_counts = dict(cuda_step.launches)
+    log(f"held-out replay launches: {serve_counts}")
+    for fam in ("linear", "mlp", "wide", "ctx"):
+        if serve_counts[f"lattice_step_learned_{fam}"] < 1:
+            raise AssertionError(f"K3 ({fam}) was not launched in the "
+                                 f"held-out replay")
+    train_rate, train_counts, per_gen = phase_train(args.train_gens)
+    perlin_counts, pstate = phase_perlin_path(B, args.perlin_steps)
+
     # timing: whole rollout, then each kernel and its plain version at the
-    # main path's shapes (these launches are outside the counted run)
+    # main path's shapes (these launches are outside the counted runs)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     fast_rollout_auto(dyn, state, rkeys, 4, device="cuda")
@@ -324,8 +724,7 @@ def main():
     rate = mem_rate(kind)
     cells = B * FIELD[0] * FIELD[1]
     k1_bytes = cells * F32_BYTES * (5 + 6) + B * 4 + B * 8
-    k1_ops = cells * step_ops_per_cell(dyn)
-    k1_bound = max(k1_bytes / rate, k1_ops / FP32_RATE) * 1e3
+    k1_bound, k1_by = bound_ms(cells, k1_bytes, step_ops_per_cell(dyn), rate)
     k2_bytes = cells * F32_BYTES + B * 4
     k2_bound = max(k2_bytes / rate, cells / FP32_RATE) * 1e3
     log(f"lattice_step: {k1_ms:.4f} ms/launch (bound {k1_bound:.4f} ms, "
@@ -334,16 +733,13 @@ def main():
     log(f"tree_sum_2d: {k2_ms:.4f} ms/launch (bound {k2_bound:.4f} ms); "
         f"plain {k2_plain_ms:.4f} ms; torch.sum {k2_lib_ms:.4f} ms")
 
-    record = {"kernels": [
+    kernels = [
         {"name": "lattice_step", "route": "cuda",
          "source": "die_tpu_torch/csrc/lattice_step.cu",
          "replaces": "die_tpu/fast/pallas_step.py:162",
          "launches": counts["lattice_step"], "match": True,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound,
-         "bound_by": "bytes" if k1_bytes / rate >= k1_ops / FP32_RATE
-         else "operations",
-         "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "tree_sum_2d", "route": "cuda",
          "source": "die_tpu_torch/csrc/tree_sum_2d.cu",
          "replaces": "die_tpu/fast/env.py:193",
@@ -351,13 +747,127 @@ def main():
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": k2_lib_ms},
-    ], "env_steps_per_s": B * T / roll_s, "envs": B, "steps": T}
+    ]
+    kernels += time_learned(B, rate, serve_counts, train_counts, k3_err)
+    kernels += time_perlin(rate, pstate, perlin_counts, k1_err)
+
+    record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
+              "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
+              "train_seconds_per_generation": per_gen,
+              "heldout": scores,
+              "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+LEARNED_TIMING = {  # family -> artifact timed at the training shape
+    "linear": "lattice16_linear", "mlp": "lattice16_mlp",
+    "wide": "lattice16_mlp_wide", "ctx": "lattice16_mlp_ctx",
+}
+
+
+def time_learned(B, rate, serve_counts, train_counts, k3_err):
+    """K3 per family at the training shape (B = 1024 envs x 64x128, 16
+    dirs): ms per launch, bound and the plain step's time."""
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.env import fast_step_full
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.rollout import step_bits, step_keys
+
+    shape = (64, 128)
+    dyn = eval_protocol_dynamics(16)
+    st = fast_init(env_keys(30, B), shape, dyn, device="cuda")
+    keys0 = step_keys(as_key_tensor(env_keys(31, B), "cuda"), 0, 1)[0]
+    cells = B * shape[0] * shape[1]
+    out = []
+    for fam, name in LEARNED_TIMING.items():
+        params = artifact(name)
+        ms = time_ms(lambda: cuda_step.learned_lattice_step(
+            dyn, st, keys0, params), 20)
+        rule = make_turn_rule(params, dyn)
+        plain = time_ms(lambda: fast_step_full(
+            dyn, st, step_bits(dyn, keys0, shape), turn_rule=rule), 3,
+            warmup=1)
+        nbytes = cells * F32_BYTES * (5 + 6) + B * 12 + params.numel() * 4
+        ops = step_ops_per_cell(dyn) + rule_ops_per_cell(dyn, params.shape)
+        bound, by = bound_ms(cells, nbytes, ops, rate)
+        key = f"lattice_step_learned_{fam}"
+        launches = serve_counts[key] + train_counts[key]
+        log(f"{key} ({name}, {ops} ops/cell): {ms:.4f} ms/launch at "
+            f"{B} x {shape[0]}x{shape[1]} (bound {bound:.4f} ms by {by}); "
+            f"plain {plain:.3f} ms; learned-path launches {launches}")
+        out.append({"name": key, "route": "cuda",
+                    "source": "die_tpu_torch/csrc/lattice_step_learned.cu",
+                    "replaces": "die_tpu/fast/pallas_step.py:199",
+                    "launches": launches, "match": True,
+                    "max_abs_err": k3_err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+    return out
+
+
+def time_perlin(rate, state, perlin_counts, err):
+    """K1 with the perlin flow field (B3) at the main path's 1024 x 256^2,
+    and K3 (wide) with it at the training shape."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+    from die_tpu_torch.fast.env import fast_step_full, flow_field_for
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.rollout import step_bits, step_keys
+
+    perlin = FlowConfig(kind="perlin")
+    out = []
+    for key, dyn, shape, params in [
+            ("lattice_step_perlin", FastDynamics(flow=perlin), FIELD, None),
+            ("lattice_step_learned_perlin", tuned_dynamics(16, flow=perlin),
+             (64, 128), artifact("lattice16_mlp_wide"))]:
+        B = state.occ.shape[0]
+        st = state if shape == FIELD else fast_init(
+            env_keys(32, B), shape, dyn, device="cuda")
+        keys0 = step_keys(as_key_tensor(env_keys(33, B), "cuda"), 0, 1)[0]
+        field = flow_field_for(dyn, shape, st.flow_step[0])
+        rule = None if params is None else make_turn_rule(params, dyn)
+        if params is None:
+            ms = time_ms(lambda: cuda_step.lattice_step(
+                dyn, st, keys0, flow_field=field), 20)
+        else:
+            ms = time_ms(lambda: cuda_step.learned_lattice_step(
+                dyn, st, keys0, params, flow_field=field), 20)
+        field_ms = time_ms(lambda: flow_field_for(dyn, shape,
+                                                  st.flow_step[0]), 20)
+        plain = time_ms(lambda: fast_step_full(
+            dyn, st, step_bits(dyn, keys0, shape), turn_rule=rule,
+            flow_field=field), 3, warmup=1)
+        cells = B * shape[0] * shape[1]
+        nbytes = cells * F32_BYTES * (5 + 6) + B * 12 + \
+            shape[0] * shape[1] * 4
+        ops = step_ops_per_cell(dyn) + (
+            0 if params is None else rule_ops_per_cell(dyn, params.shape))
+        bound, by = bound_ms(cells, nbytes, ops, rate)
+        log(f"{key}: {ms:.4f} ms/launch at {B} x {shape[0]}x{shape[1]} "
+            f"(bound {bound:.4f} ms by {by}); the shared flow field "
+            f"{field_ms:.4f} ms a step (eager torch); plain {plain:.3f} ms; "
+            f"perlin-path launches {perlin_counts[key]}")
+        out.append({"name": key, "route": "cuda",
+                    "source": "die_tpu_torch/csrc/" + (
+                        "lattice_step.cu" if params is None
+                        else "lattice_step_learned.cu"),
+                    "replaces": "die_tpu/fast/pallas_step.py:" + (
+                        "180" if params is None else "224"),
+                    "launches": perlin_counts[key], "match": True,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None,
+                    "flow_field_ms": field_ms})
+    return out
 
 
 if __name__ == "__main__":

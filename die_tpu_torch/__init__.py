@@ -4,7 +4,9 @@ A port of the JAX package ``die_tpu`` that imports neither JAX nor
 ``die_tpu``.  Entry points (``fast_init``, ``fast_rollout``,
 ``fast_rollout_auto``) run on CUDA unless the caller passes
 ``device="cpu"``; on CUDA the main path runs through the hand-written
-kernels of ``fast/cuda_step.py``.
+kernels of ``fast/cuda_step.py``.  The learned-rule leg is in
+``fast/learned.py`` (``learned_fast_rollout_auto``, ``train_lattice``) with
+the searchers of ``learn/es.py`` and ``fast/convert.py::load_turn_params``.
 """
 from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
 from die_tpu_torch.fast.env import FastEnvState, fast_step_full

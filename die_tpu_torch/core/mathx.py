@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PI", "rsqrt", "sqrt", "sincos", "round3", "tree_sum", "f32"]
+__all__ = ["PI", "rsqrt", "sqrt", "sincos", "round3", "tree_sum",
+           "tree_sum_1d", "f32", "log1m_sq", "erfinv", "normal_from_uniform"]
 
 
 def f32(x) -> float:
@@ -76,7 +77,12 @@ def round3(u: torch.Tensor) -> torch.Tensor:
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Order-pinned fp32 sum over the trailing two axes: pairwise fold over
     the zero-padded pow2 flat length (one sum per leading index)."""
-    flat = x.reshape(x.shape[:-2] + (-1,))
+    return tree_sum_1d(x.reshape(x.shape[:-2] + (-1,)))
+
+
+def tree_sum_1d(flat: torch.Tensor) -> torch.Tensor:
+    """The same pinned fold over the last axis only (the JAX package's
+    ``tree_sum`` of a vector, once per leading index)."""
     n = flat.shape[-1]
     pow2 = 1 if n == 0 else 1 << (n - 1).bit_length()
     if pow2 != n:
@@ -86,3 +92,67 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
         pow2 //= 2
         flat = flat[..., :pow2] + flat[..., pow2:]
     return flat[..., 0]
+
+
+# log(1 - x*x) and erfinv (Giles 2010): the normal transform of ES sampling.
+_LOG_P = tuple(f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+))
+_SQRTHF2 = f32(np.float32(0.70710678118654752440) * np.float32(2.0))
+_LN2_LO = f32(-2.12194440e-4)
+_LN2_HI = f32(0.693359375)
+_GILES_A = tuple(f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+))
+_GILES_B = tuple(f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+))
+_SQRT2 = f32(1.4142135623730951)
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of finite normal fp32 x > 0 from exponent/mantissa bits
+    (cephes logf)."""
+    bits = x.contiguous().view(torch.int32)
+    ef = ((bits >> 23) - 127).to(torch.float32)
+    m = ((bits & 0x7FFFFF) | 0x3F800000).view(torch.float32)  # [1, 2)
+    small = m < _SQRTHF2
+    f = torch.where(small, m - 1.0, 0.5 * m - 1.0)
+    ef = torch.where(small, ef, ef + 1.0)
+    z = f * f
+    y = torch.full_like(f, _LOG_P[0])
+    for c in _LOG_P[1:]:
+        y = y * f + c
+    y = y * f * z
+    y = y + ef * _LN2_LO
+    y = y - 0.5 * z
+    return f + y + ef * _LN2_HI
+
+
+def log1m_sq(x: torch.Tensor) -> torch.Tensor:
+    """log(1 - x*x) as log((1 - x) * (1 + x)), for |x| < 1."""
+    return _log_f32((1.0 - x) * (1.0 + x))
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """Inverse error function for |x| < 1 (fp32), never ``torch.erfinv``."""
+    w = -log1m_sq(x)
+    small = w < 5.0
+    wc = w - 2.5
+    pa = torch.full_like(w, _GILES_A[0])
+    for c in _GILES_A[1:]:
+        pa = pa * wc + c
+    wt = sqrt(torch.where(small, torch.full_like(w, 25.0), w)) - 3.0
+    pb = torch.full_like(w, _GILES_B[0])
+    for c in _GILES_B[1:]:
+        pb = pb * wt + c
+    return torch.where(small, pa, pb) * x
+
+
+def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard normals from uniforms in (0, 1): sqrt(2) * erfinv(2u - 1)."""
+    return _SQRT2 * erfinv(2.0 * u - 1.0)

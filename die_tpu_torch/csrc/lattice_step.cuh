@@ -1,0 +1,735 @@
+// lattice_step.cuh: the tiled step kernel of the field-centric lattice
+// engine for a lockstep batch of envs, f32 [B, W, H] per state field (W, H
+// powers of 2), templated on the lattice (N directions) and on the turn
+// rule (FAM).  Two translation units instantiate it, so nvcc builds them in
+// parallel:
+//   lattice_step.cu          FAM = kJones: the Jones argmax (K1), replacing
+//                            die_tpu/fast/pallas_step.py::_multi_step_kernel
+//   lattice_step_learned.cu  FAM = kLinear, kMlp, kWide, kCtx: the learned
+//                            rule of fast/learned.py::make_turn_rule (K3),
+//                            replacing _multi_step_kernel_learned
+// Both take an optional precomputed flow field (f32 [W, H] shared by the
+// batch, or [B, W, H] per env), replacing _multi_step_kernel_perlin and
+// _multi_step_kernel_perlin_learned (B3).  One step per launch (K = 1).
+// The plain twin is die_tpu_torch/fast/env.py::fast_step_full (with the
+// rule of die_tpu_torch/fast/learned.py); the two agree bit for bit.
+//
+// Bound on an H100: bytes for the Jones rule and the small learned rules.
+// A step reads 5 fields and writes 5 fields plus the gain field, 44 bytes a
+// cell (plus the flow field, 4 more, when it is given), against a few
+// hundred fp32/int operations a cell; the wide and ctx rules add two or
+// three probe trios, h*(14..21) multiply-adds and, for ctx, 63 tap
+// multiply-adds a cell, which brings them toward the fp32 operation bound.
+//
+// Design: one block per (2-D tile, env).  The block loads its tile plus a
+// torus halo into shared memory (global indices wrap mod W and mod H), then
+// runs the phases of the step over regions that shrink by each phase's
+// reach:
+//   sense+turn (reach) -> move winner (hop) -> update (hop)
+//   [-> birth winner (hop) -> birth update] -> feed/lifecycle/flow
+//   -> diffuse axis 0 -> diffuse axis 1 (x chem decay) on the tile,
+// so device memory sees each input read once (plus the halo, mostly from
+// L2) and each output written once.  The turn phase's reach is the rule's
+// (turn_reach in fast/cuda_step.py): hop*sense_dist for Jones, linear and
+// MLP; 2*hop*sense_dist for the wide rule's chem probes at 2*sense_dist;
+// max(2*hop*S, hop*S + 1) for ctx, whose depthwise 3x3 taps read the probe
+// fields of the neighbours.  The halo is that reach plus the later phases'
+// (learned_halo_radius), so no tile edge sees a value it did not compute.
+// The ctx rule runs its turn phase in two passes: the (left, fwd, right)
+// probes over margin hop*S into three shared fields that are free during
+// the turn phase, then the rule over margin reach; the block keeps ten
+// shared fields (174 KB at halo 17 with 32x32 tiles).  The rule's params
+// (at most kMaxParams floats) are copied once per block into shared memory
+// and read by every thread as broadcasts.  The per-cell u32 bits are
+// generated in-kernel from the cell's global flat index row*H + col
+// (murmur or threefry), halo cells included, so no bit field touches
+// memory.  The agent count is an exact integer sum (one atomic per block);
+// the reward fold is the separate tree_sum_2d kernel, which keeps the
+// reference's pairing order across the whole field.
+#pragma once
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "contract.cuh"
+
+namespace {
+
+// Block shape: threads and the largest tile; -D overrides exist for
+// measuring other shapes without editing the source.
+#ifndef DIE_THREADS
+#define DIE_THREADS 512
+#endif
+#ifndef DIE_TILE_ROWS
+#define DIE_TILE_ROWS 32
+#endif
+#ifndef DIE_TILE_COLS
+#define DIE_TILE_COLS 32
+#endif
+
+constexpr int kMaxTaps = 33;
+constexpr int kThreads = DIE_THREADS;
+constexpr int kFields = 10;            // shared-memory fields of the region
+constexpr int kMaxSmem = 232448 - 1024;  // opt-in limit less static smem
+constexpr int kMaxParams = 1024;       // floats of one env's rule params
+
+// turn rules (make_turn_rule's families)
+constexpr int kJones = 0, kLinear = 1, kMlp = 2, kWide = 3, kCtx = 4;
+// flow kinds the kernel applies
+constexpr int kFlowNone = 0, kFlowWave = 1, kFlowField = 2;
+
+struct Params {
+  int B, W, H, lw, lh;
+  int tr, tc, halo, reach;  // tile rows/cols, halo radius, turn reach
+  int threefry, per_cell_priority, randomize_on_block, agents_born,
+      agents_die, food_infinite, flow_kind, sense_dist, ntaps;
+  int flow_env_stride;      // 0: one flow field for the batch; 1: per env
+  int rows, cols, hidden;   // rule params [rows, cols], hidden units
+  float idle_deposit, deposit_coef, rate_feed, cost_move, cost_deposit,
+      death_threshold, birth_threshold, flow_scale, flow_keep, chem_keep,
+      inv_wm1, inv_hm1;
+  float taps[kMaxTaps];
+};
+
+struct Buffers {
+  const float *occ, *dir, *afood, *efood, *chem;
+  const long long* keys;  // [B, 2] u32 words
+  const float* flow_t;    // [B] flow time (wave flow only)
+  const float* flow_f;    // [W, H] or [B, W, H] flow field (field flow)
+  const float* tparams;   // [P, rows, cols] rule params (learned rules)
+  const int* member;      // [B] row of tparams for each env
+  float *occ_o, *dir_o, *afood_o, *efood_o, *chem_o, *gained_o;
+  int* num_o;             // [B], zeroed by the caller
+};
+
+// Direction tables: (row, col) offsets, counter-clockwise from East.
+__constant__ int kOff4[4][2] = {{0, 1}, {-1, 0}, {0, -1}, {1, 0}};
+__constant__ int kOff8[8][2] = {{0, 1},  {-1, 1}, {-1, 0}, {-1, -1},
+                                {0, -1}, {1, -1}, {1, 0},  {1, 1}};
+__constant__ int kOff16[16][2] = {
+    {0, 1},  {-1, 2}, {-1, 1}, {-2, 1}, {-1, 0}, {-2, -1}, {-1, -1}, {-1, -2},
+    {0, -1}, {1, -2}, {1, -1}, {2, -1}, {1, 0},  {2, 1},   {1, 1},   {1, 2}};
+
+template <int N>
+__device__ __forceinline__ int off_row(int d) {
+  return N == 4 ? kOff4[d][0] : (N == 8 ? kOff8[d][0] : kOff16[d][0]);
+}
+template <int N>
+__device__ __forceinline__ int off_col(int d) {
+  return N == 4 ? kOff4[d][1] : (N == 8 ? kOff8[d][1] : kOff16[d][1]);
+}
+
+template <int N>
+__device__ __forceinline__ float mod_dirs(float a) {
+  return a - (float)N * floorf(a * (1.0f / (float)N));
+}
+
+// bit fields of one draw: (prio, block, birth)
+template <int N>
+__device__ __forceinline__ void carve(uint32_t rand, uint32_t* prio,
+                                      uint32_t* block, uint32_t* birth) {
+  if (N == 16) {
+    *prio = (rand >> 1) & 15u;
+    *block = (rand >> 5) & 15u;
+    *birth = (rand >> 9) & 15u;
+  } else {
+    *prio = (rand >> 1) & 7u;
+    *block = ((rand >> 4) & 7u) & (uint32_t)(N - 1);
+    *birth = (rand >> 7) & (uint32_t)(N - 1);
+  }
+}
+
+// The block's view: region cell (u, v) is global cell (grow, gcol) of env b.
+struct Tile {
+  int b, i0, j0;  // env and the tile's first global row/col
+  int RW, RH;     // region rows/cols (tile + 2 * halo)
+  uint32_t k0, k1;
+  float rot;      // per-step scalar rotation (per-cell priority off)
+};
+
+__device__ __forceinline__ int grow(const Params& p, const Tile& t, int u) {
+  return (t.i0 - p.halo + u) & (p.W - 1);
+}
+__device__ __forceinline__ int gcol(const Params& p, const Tile& t, int v) {
+  return (t.j0 - p.halo + v) & (p.H - 1);
+}
+
+__device__ __forceinline__ uint32_t cell_bits(const Params& p, const Tile& t,
+                                              int u, int v) {
+  const uint32_t count =
+      ((uint32_t)grow(p, t, u) << p.lh) | (uint32_t)gcol(p, t, v);
+  return p.threefry ? die::threefry_bits(t.k0, t.k1, count)
+                    : die::murmur_bits(t.k0, t.k1, count);
+}
+
+template <int N>
+__device__ __forceinline__ float prio_r(const Params& p, const Tile& t,
+                                        uint32_t rand) {
+  if (!p.per_cell_priority) return t.rot;
+  uint32_t prio, block, birth;
+  carve<N>(rand, &prio, &block, &birth);
+  float r = (float)prio;
+  if (N < 8) r = mod_dirs<N>(r);
+  return r;
+}
+
+__device__ float wave_field(const Params& p, int gi, int gj, float t) {
+  const float pi = die::f32_bits(0x40490fdbu);
+  const float c04pi = die::f32_bits(0x3fa0d97cu);
+  const float x = ((float)gj * p.inv_hm1) * 2.0f - 1.0f;
+  const float y = ((float)gi * p.inv_wm1) * 2.0f - 1.0f;
+  const float r = die::c_sqrt(x * x + y * y);
+  const float px = pi * x;
+  const float py = pi * y;
+  float sv, cv;
+  die::c_sincos(px, &sv, &cv);
+  const float cos_x = cv;
+  die::c_sincos(c04pi * y, &sv, &cv);
+  const float sin_04y = sv;
+  const float rwave = r + cos_x + sin_04y;
+  die::c_sincos(pi * (rwave + t), &sv, &cv);
+  const float z_waves = cv;
+  die::c_sincos(px * 3.0f + t, &sv, &cv);
+  const float sin_ix = sv;
+  die::c_sincos(py * 3.0f + t, &sv, &cv);
+  const float cos_iy = cv;
+  const float z_islands = sin_ix + cos_iy;
+  return 0.75f * z_waves + 0.25f * z_islands;
+}
+
+// Calls f(u, v) for every region cell at least m cells inside the region.
+template <typename F>
+__device__ __forceinline__ void for_region(const Tile& t, int m, F f) {
+  const int h = t.RH - 2 * m;
+  const int n = (t.RW - 2 * m) * h;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int du = e / h;
+    f(m + du, m + e - du * h);
+  }
+}
+
+// (left, fwd, right) probes of a shared field at dist cells along the
+// heading dirf (probe_trio): fwd reads direction dirf, left dirf + 1, right
+// dirf - 1; a heading outside {0..N-1} reads nothing and leaves 0.
+template <int N>
+__device__ __forceinline__ void probe_trio(const float* s, int e, int RH,
+                                           float dirf, int dist, float* left,
+                                           float* fwd, float* right) {
+  float f = 0.0f, l = 0.0f, r = 0.0f;
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    const bool is_f = dirf == (float)d;
+    const bool is_l = dirf == (float)((d + N - 1) % N);
+    const bool is_r = dirf == (float)((d + 1) % N);
+    if (is_f || is_l || is_r) {
+      const float pv = s[e + off_row<N>(d) * dist * RH + off_col<N>(d) * dist];
+      if (is_f) f = pv;
+      if (is_l) l = pv;
+      if (is_r) r = pv;
+    }
+  }
+  *left = l;
+  *fwd = f;
+  *right = r;
+}
+
+// hardtanh as min(max(x, -1), 1) with NaN kept (np.maximum/np.minimum
+// propagate NaN; fmaxf/fminf would drop it); -0.0 stays -0.0.
+__device__ __forceinline__ float hardtanh(float x) {
+  const float y = x < -1.0f ? -1.0f : x;
+  return y > 1.0f ? 1.0f : y;
+}
+
+// The pinned tie chain keep >= left >= right: turn right (-1) iff
+// l_right > max(l_keep, l_left) (false when either is NaN, as a NaN max
+// compares false), else left (+1) iff l_left > l_keep, else keep (0).
+__device__ __forceinline__ float decide(float l_left, float l_keep,
+                                        float l_right) {
+  const bool right_wins = (l_right > l_keep) && (l_right > l_left);
+  return right_wins ? -1.0f : (l_left > l_keep ? 1.0f : 0.0f);
+}
+
+// The per-cell MLP: hidden hardtanh units over NF features, then three
+// logits.  Each unit's sum starts from its bias times 1 and adds w*f in
+// feature order; each logit adds its weight times unit h in unit order,
+// which is the reference's order one unit at a time.
+template <int NF>
+__device__ __forceinline__ float mlp_turn(const float* P, int cols,
+                                          int dw_rows, int hidden,
+                                          const float (&feat)[NF]) {
+  const float* head = P + (dw_rows + hidden) * cols;
+  float l0 = head[hidden] * 1.0f;
+  float l1 = head[cols + hidden] * 1.0f;
+  float l2 = head[2 * cols + hidden] * 1.0f;
+  for (int h = 0; h < hidden; ++h) {
+    const float* row = P + (dw_rows + h) * cols;
+    float acc = row[NF] * 1.0f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc = acc + row[f] * feat[f];
+    const float a = hardtanh(acc);
+    l0 = l0 + head[h] * a;
+    l1 = l1 + head[cols + h] * a;
+    l2 = l2 + head[2 * cols + h] * a;
+  }
+  return decide(l0, l1, l2);
+}
+
+// Depthwise 3x3 torus tap sum of one shared field at e with the taps of
+// params row c (du-major from (-1, -1)); the first term is the accumulator.
+__device__ __forceinline__ float depthwise3x3(const float* s, int e, int RH,
+                                              const float* taps) {
+  float acc = taps[0] * s[e - RH - 1];
+  int k = 1;
+#pragma unroll
+  for (int du = -1; du <= 1; ++du)
+#pragma unroll
+    for (int dv = -1; dv <= 1; ++dv) {
+      if (du == -1 && dv == -1) continue;
+      acc = acc + taps[k] * s[e + du * RH + dv];
+      ++k;
+    }
+  return acc;
+}
+
+// Two blocks an SM for the Jones rule (at the default config's halo 7 its
+// 46x46 region fits twice in shared memory), which caps it at 64 registers
+// a thread and measured faster at halo 13 as well; one for the learned
+// rules, whose larger halos leave room for one block only.
+template <int N, int FAM>
+__global__ void __launch_bounds__(kThreads, FAM == kJones ? 2 : 1)
+    k_lattice_step(Params p, Buffers q) {
+  extern __shared__ float sm[];
+  Tile t;
+  t.b = blockIdx.y;
+  const int tiles_c = p.H / p.tc;
+  t.i0 = (blockIdx.x / tiles_c) * p.tr;
+  t.j0 = (blockIdx.x % tiles_c) * p.tc;
+  t.RW = p.tr + 2 * p.halo;
+  t.RH = p.tc + 2 * p.halo;
+  t.k0 = (uint32_t)q.keys[2 * t.b];
+  t.k1 = (uint32_t)q.keys[2 * t.b + 1];
+  t.rot = (float)(die::murmur_finalize(t.k0 ^ t.k1 ^ 0x9E3779B9u) &
+                  (uint32_t)(N - 1));
+  const int RC = t.RW * t.RH;
+  const int RH = t.RH;
+  // region fields; later phases reuse earlier ones in place (noted below)
+  float* s_chem = sm;           // chem, then chem + deposit
+  float* s_occ = sm + RC;       // occ, then post-move, then final occ
+  float* s_dir = sm + 2 * RC;   // dir, then post-move, then final dir
+  float* s_af = sm + 3 * RC;    // agent_food, likewise
+  float* s_ef = sm + 4 * RC;    // env_food (read only)
+  float* s_dirt = sm + 5 * RC;  // turned heading, then birth code
+  float* s_code = sm + 6 * RC;  // neighbour code, then deposit mask
+  float* s_acc = sm + 7 * RC;   // [ctx: left probe], accepted code, then
+                                // birth acceptance
+  float* s_inf = sm + 8 * RC;   // [ctx: fwd probe], incoming food, then
+                                // received flag
+  float* s_tmp = sm + 9 * RC;   // [ctx: right probe], parent food (birth),
+                                // then diffusion
+  float* s_par = sm + kFields * RC;  // rule params [rows, cols]
+  const long long base = (long long)t.b << (p.lw + p.lh);
+  const int hop = N == 16 ? 2 : 1;
+  const int S = p.sense_dist;
+  const float nf = (float)N;
+
+  for_region(t, 0, [&](int u, int v) {
+    const long long g =
+        base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
+    const int e = u * RH + v;
+    s_chem[e] = q.chem[g];
+    s_occ[e] = q.occ[g];
+    s_dir[e] = q.dir[g];
+    s_af[e] = q.afood[g];
+    s_ef[e] = q.efood[g];
+  });
+  if (FAM != kJones) {
+    const int np = p.rows * p.cols;
+    const float* src = q.tparams + (long long)q.member[t.b] * np;
+    for (int i = threadIdx.x; i < np; i += blockDim.x) s_par[i] = src[i];
+  }
+  __syncthreads();
+
+  // ---- 1. sense + turn ------------------------------------------------------
+  // the reach is hop * S but for the wide and ctx rules; written so, the
+  // compiler sees it as such (the margins follow from it)
+  const int m1 = FAM == kWide || FAM == kCtx ? p.reach : hop * S;
+  if (FAM == kCtx) {
+    // pass A: the chem probes at sense_dist, kept for the neighbours' taps
+    for_region(t, hop * S, [&](int u, int v) {
+      const int e = u * RH + v;
+      probe_trio<N>(s_chem, e, RH, s_dir[e], S, &s_acc[e], &s_inf[e],
+                    &s_tmp[e]);
+    });
+    __syncthreads();
+  }
+  for_region(t, m1, [&](int u, int v) {
+    const int e = u * RH + v;
+    const float occ = s_occ[e];
+    const float dirf = s_dir[e];
+    float left, fwd, right;
+    if (FAM == kCtx) {
+      left = s_acc[e];
+      fwd = s_inf[e];
+      right = s_tmp[e];
+    } else {
+      probe_trio<N>(s_chem, e, RH, dirf, S, &left, &fwd, &right);
+    }
+    float turn;
+    if (FAM == kJones) {
+      const uint32_t rand = cell_bits(p, t, u, v);
+      const bool keep = (fwd >= left) && (fwd >= right);
+      const float rand_sign = (float)(rand & 1u) * 2.0f - 1.0f;
+      turn = keep ? 0.0f
+                  : (left > right ? 1.0f : (right > left ? -1.0f : rand_sign));
+    } else if (FAM == kLinear) {
+      const float feat[6] = {left, fwd, right, s_ef[e], s_af[e], s_chem[e]};
+      float lg[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float* row = s_par + a * p.cols;
+        float acc = row[6] * 1.0f;
+#pragma unroll
+        for (int f = 0; f < 6; ++f) acc = acc + row[f] * feat[f];
+        lg[a] = acc;
+      }
+      turn = decide(lg[0], lg[1], lg[2]);
+    } else if (FAM == kMlp) {
+      const float feat[7] = {left, fwd, right, occ, s_af[e], s_ef[e],
+                             s_chem[e]};
+      turn = mlp_turn<7>(s_par, p.cols, 0, p.hidden, feat);
+    } else {
+      float fl, ff, fr, el, ef, er;
+      probe_trio<N>(s_chem, e, RH, dirf, 2 * S, &fl, &ff, &fr);
+      probe_trio<N>(s_ef, e, RH, dirf, S, &el, &ef, &er);
+      if (FAM == kWide) {
+        const float feat[13] = {left, fwd, right, fl, ff, fr, el, ef, er,
+                                occ, s_af[e], s_ef[e], s_chem[e]};
+        turn = mlp_turn<13>(s_par, p.cols, 0, p.hidden, feat);
+      } else {
+        const float* c = s_par;
+        const int C = p.cols;
+        const float feat[20] = {
+            left, fwd, right, fl, ff, fr, el, ef, er, occ, s_af[e], s_ef[e],
+            s_chem[e],
+            depthwise3x3(s_acc, e, RH, c),
+            depthwise3x3(s_inf, e, RH, c + C),
+            depthwise3x3(s_tmp, e, RH, c + 2 * C),
+            depthwise3x3(s_occ, e, RH, c + 3 * C),
+            depthwise3x3(s_af, e, RH, c + 4 * C),
+            depthwise3x3(s_ef, e, RH, c + 5 * C),
+            depthwise3x3(s_chem, e, RH, c + 6 * C)};
+        turn = mlp_turn<20>(s_par, C, 7, p.hidden, feat);
+      }
+    }
+    const float dirt = mod_dirs<N>(dirf + turn);
+    s_dirt[e] = dirt;
+    s_code[e] = dirt * occ - (1.0f - occ);
+  });
+  __syncthreads();
+
+  // ---- 2. move: winner among incoming candidates ----------------------------
+  const int m2 = m1 + hop;
+  for_region(t, m2, [&](int u, int v) {
+    const int e = u * RH + v;
+    const bool empty = s_occ[e] <= 0.0f;
+    const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
+    float best = 0.0f + nf, winner = 0.0f, in_food = 0.0f;
+    float s = mod_dirs<N>(-r);
+#pragma unroll
+    for (int d = 0; d < N; ++d) {
+      const int opp = (d + N / 2) % N;
+      const int o = off_row<N>(opp) * RH + off_col<N>(opp);
+      if (s_code[e + o] == (float)d && s < best) {
+        winner = (float)d;
+        in_food = s_af[e + o];
+        best = s;
+      }
+      if (d + 1 < N) {
+        const float s1 = s + 1.0f;
+        s = (s1 == nf) ? 0.0f : s1;
+      }
+    }
+    const bool received = (best < nf) && empty;
+    s_acc[e] = received ? winner : -1.0f;
+    s_inf[e] = in_food;
+  });
+  __syncthreads();
+
+  // ---- 3. update: moves resolved, deposit; birth proposal --------------------
+  // (reads its own cell of every field it overwrites; neighbours of s_acc)
+  const int m3 = m2 + hop;
+  for_region(t, m3, [&](int u, int v) {
+    const int e = u * RH + v;
+    const float occ = s_occ[e];
+    const float dirt = s_dirt[e];
+    const float acc = s_acc[e];
+    const bool empty = occ <= 0.0f;
+    const bool received = acc >= 0.0f;
+    float acc_sel = s_acc[e + off_row<N>(0) * RH + off_col<N>(0)];
+#pragma unroll
+    for (int d = 1; d < N; ++d)
+      if (dirt == (float)d)
+        acc_sel = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
+    const bool moved = !empty && (acc_sel == dirt);
+    const bool blocked = !empty && !moved;
+    uint32_t prio, block, birth;
+    carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
+    const float stay =
+        (p.randomize_on_block && blocked) ? (float)block : dirt;
+    const float new_occ = received ? 1.0f : (moved ? 0.0f : occ);
+    const float new_dir = received ? acc : (moved ? 0.0f : stay);
+    const float new_af = received ? s_inf[e] : (moved ? 0.0f : s_af[e]);
+    const float dep_mask =
+        received ? 1.0f : (moved ? 0.0f : occ * p.idle_deposit);
+    s_occ[e] = new_occ;
+    s_dir[e] = new_dir;
+    s_af[e] = new_af;
+    s_code[e] = dep_mask;
+    s_inf[e] = received ? 1.0f : 0.0f;
+    s_chem[e] = s_chem[e] + p.deposit_coef * s_ef[e] * dep_mask;
+    if (p.agents_born) {
+      const float fert =
+          (new_occ > 0.0f && new_af > p.birth_threshold) ? 1.0f : 0.0f;
+      s_dirt[e] = (float)birth * fert - (1.0f - fert);
+    }
+  });
+  __syncthreads();
+
+  const int R = p.halo;
+  if (p.agents_born) {
+    // ---- 2b. reproduction: winner among proposed children -------------------
+    for_region(t, m3 + hop, [&](int u, int v) {
+      const int e = u * RH + v;
+      const bool post_empty = s_occ[e] <= 0.0f;
+      const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
+      float b_best = 0.0f + nf, b_win = 0.0f, b_pfood = 0.0f;
+#pragma unroll
+      for (int d = 0; d < N; ++d) {
+        const int opp = (d + N / 2) % N;
+        const int o = off_row<N>(opp) * RH + off_col<N>(opp);
+        const bool cand = (s_dirt[e + o] == (float)d) && post_empty;
+        const float score = cand ? mod_dirs<N>((float)d - r) : nf;
+        if (score < b_best) {
+          b_win = (float)d;
+          b_pfood = s_af[e + o];
+          b_best = score;
+        }
+      }
+      s_acc[e] = (b_best < nf) ? b_win : -1.0f;
+      s_tmp[e] = b_pfood;
+    });
+    __syncthreads();
+    // parents split their food, children arrive (tile cells; reads
+    // neighbours of s_acc only)
+    for_region(t, R, [&](int u, int v) {
+      const int e = u * RH + v;
+      const float pm_occ = s_occ[e];
+      const float pm_af = s_af[e];
+      uint32_t prio, block, birth;
+      carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
+      const float birth_dir = (float)birth;
+      const bool fertile = pm_occ > 0.0f && pm_af > p.birth_threshold;
+      float spawned_f = 0.0f;
+#pragma unroll
+      for (int d = 0; d < N; ++d) {
+        const float b_acc_o = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
+        const float t2 = (birth_dir == (float)d ? 1.0f : 0.0f) *
+                         (b_acc_o == (float)d ? 1.0f : 0.0f);
+        spawned_f = d == 0 ? t2 : spawned_f + t2;
+      }
+      const bool spawned = fertile && spawned_f > 0.0f;
+      const float bacc = s_acc[e];
+      const bool born = bacc >= 0.0f;
+      const float bornf = born ? 1.0f : 0.0f;
+      const float b_windir = born ? bacc : 0.0f;
+      float new_af = spawned ? pm_af * 0.5f : pm_af;
+      new_af = new_af + bornf * s_tmp[e] * 0.5f;
+      s_af[e] = new_af;
+      s_dir[e] = s_dir[e] * (1.0f - bornf) + b_windir * bornf;
+      s_occ[e] = pm_occ + bornf;
+    });
+    __syncthreads();
+  }
+
+  // ---- 4-6. feed, lifecycle, food flow (tile cells) --------------------------
+  int alive_count = 0;
+  const float flow_t = p.flow_kind == kFlowWave ? q.flow_t[t.b] : 0.0f;
+  const long long flow_base =
+      p.flow_env_stride ? (long long)t.b << (p.lw + p.lh) : 0;
+  for_region(t, R, [&](int u, int v) {
+    const int e = u * RH + v;
+    float new_occ = s_occ[e];
+    float new_dir = s_dir[e];
+    float new_af = s_af[e];
+    const float efood = s_ef[e];
+    const float deposit = p.deposit_coef * efood * s_code[e];
+    const float consumed = p.rate_feed * efood * new_occ;
+    float env = efood;
+    if (!p.food_infinite) env = env - consumed;
+    const float cost = p.cost_deposit * deposit + p.cost_move * s_inf[e];
+    const float gained = consumed - cost * new_occ;
+    new_af = new_af + gained;
+    if (p.agents_die) {
+      const float dead =
+          new_occ * (new_af <= p.death_threshold ? 1.0f : 0.0f);
+      const float alive = 1.0f - dead;
+      new_occ = new_occ * alive;
+      new_dir = new_dir * alive;
+      new_af = new_af * alive;
+    }
+    const int gi = grow(p, t, u), gj = gcol(p, t, v);
+    const long long cell = ((long long)gi << p.lh) + gj;
+    if (p.flow_kind == kFlowWave) {
+      const float f = wave_field(p, gi, gj, flow_t);
+      env = p.flow_scale * f + p.flow_keep * env;
+    } else if (p.flow_kind == kFlowField) {
+      const float f = q.flow_f[flow_base + cell];
+      env = p.flow_scale * f + p.flow_keep * env;
+    }
+    const long long g = base + cell;
+    q.occ_o[g] = new_occ;
+    q.dir_o[g] = new_dir;
+    q.afood_o[g] = new_af;
+    q.efood_o[g] = env;
+    q.gained_o[g] = gained * new_occ;
+    alive_count += new_occ > 0.0f ? 1 : 0;
+  });
+
+  // ---- 7. diffuse (taps folded from -r to +r, axis 0 then axis 1) ----------
+  // s_tmp takes the axis-0 pass on the tile's rows, widened by r columns
+  const int dr = (p.ntaps - 1) / 2;
+  {
+    const int h = p.tc + 2 * dr;
+    const int n = p.tr * h;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int du = e / h;
+      const int u = R + du, v = R - dr + (e - du * h);
+      float acc = p.taps[0] * s_chem[(u - dr) * RH + v];
+      for (int k = 1; k < p.ntaps; ++k)
+        acc = acc + p.taps[k] * s_chem[(u + k - dr) * RH + v];
+      s_tmp[u * RH + v] = acc;
+    }
+  }
+  __syncthreads();
+  for_region(t, R, [&](int u, int v) {
+    const int e = u * RH + v;
+    float acc = p.taps[0] * s_tmp[e - dr];
+    for (int k = 1; k < p.ntaps; ++k)
+      acc = acc + p.taps[k] * s_tmp[e + k - dr];
+    const long long g =
+        base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
+    q.chem_o[g] = acc * p.chem_keep;
+  });
+
+  // exact agent count: warp sums, then one atomic per block
+  for (int off = 16; off > 0; off >>= 1)
+    alive_count += __shfl_down_sync(0xffffffffu, alive_count, off);
+  __shared__ int warp_counts[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = alive_count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
+    if (total) atomicAdd(q.num_o + t.b, total);
+  }
+}
+
+template <int N, int FAM>
+cudaError_t launch(Params p, const Buffers& q, cudaStream_t st) {
+  // the largest tile (at most DIE_TILE_ROWS x DIE_TILE_COLS, halved until
+  // its region and the rule params fit in shared memory)
+  const size_t par = FAM == kJones ? 0 : (size_t)p.rows * p.cols;
+  for (int k = 1; k <= 8; k *= 2) {
+    p.tr = DIE_TILE_ROWS / k < p.W ? DIE_TILE_ROWS / k : p.W;
+    p.tc = DIE_TILE_COLS / k < p.H ? DIE_TILE_COLS / k : p.H;
+    if (p.tr < 1 || p.tc < 1) break;
+    const size_t smem = ((size_t)kFields * (p.tr + 2 * p.halo) *
+                             (p.tc + 2 * p.halo) +
+                         par) *
+                        sizeof(float);
+    if (smem > (size_t)kMaxSmem) continue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_lattice_step<N, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((unsigned)((p.W / p.tr) * (p.H / p.tc)), (unsigned)p.B);
+    k_lattice_step<N, FAM><<<grid, kThreads, smem, st>>>(p, q);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Unpacks the host's arrays (see die_lattice_step in lattice_step.cu for
+// their layout); returns false on a shape the kernel does not take.
+inline bool unpack(const long long* ptrs, const int* ip, const float* fp,
+                   Params* pp, Buffers* qq, int* n_dirs, int* family) {
+  Params& p = *pp;
+  p.B = ip[0];
+  p.W = ip[1];
+  p.H = ip[2];
+  if (p.B < 1 || p.W < 2 || p.H < 2 || (p.W & (p.W - 1)) ||
+      (p.H & (p.H - 1)))
+    return false;
+  p.lw = __builtin_ctz((unsigned)p.W);
+  p.lh = __builtin_ctz((unsigned)p.H);
+  *n_dirs = ip[3];
+  p.threefry = ip[4];
+  p.per_cell_priority = ip[5];
+  p.randomize_on_block = ip[6];
+  p.agents_born = ip[7];
+  p.agents_die = ip[8];
+  p.food_infinite = ip[9];
+  p.flow_kind = ip[10];
+  p.sense_dist = ip[11];
+  p.ntaps = ip[12];
+  p.halo = ip[13];
+  p.reach = ip[14];
+  p.flow_env_stride = ip[15];
+  *family = ip[16];
+  p.rows = ip[17];
+  p.cols = ip[18];
+  p.hidden = ip[19];
+  if (p.ntaps < 1 || p.ntaps > kMaxTaps || p.halo < 0 || p.reach < 0 ||
+      p.reach > p.halo || p.flow_kind < kFlowNone ||
+      p.flow_kind > kFlowField)
+    return false;
+  if (*family != kJones &&
+      (p.rows < 1 || p.cols < 1 || p.rows * p.cols > kMaxParams ||
+       p.hidden < 0))
+    return false;
+  p.idle_deposit = fp[0];
+  p.deposit_coef = fp[1];
+  p.rate_feed = fp[2];
+  p.cost_move = fp[3];
+  p.cost_deposit = fp[4];
+  p.death_threshold = fp[5];
+  p.birth_threshold = fp[6];
+  p.flow_scale = fp[7];
+  p.flow_keep = fp[8];
+  p.chem_keep = fp[9];
+  p.inv_wm1 = fp[10];
+  p.inv_hm1 = fp[11];
+  for (int k = 0; k < p.ntaps; ++k) p.taps[k] = fp[12 + k];
+
+  Buffers& q = *qq;
+  q.occ = (const float*)ptrs[0];
+  q.dir = (const float*)ptrs[1];
+  q.afood = (const float*)ptrs[2];
+  q.efood = (const float*)ptrs[3];
+  q.chem = (const float*)ptrs[4];
+  q.keys = (const long long*)ptrs[5];
+  q.flow_t = (const float*)ptrs[6];
+  q.flow_f = (const float*)ptrs[7];
+  q.tparams = (const float*)ptrs[8];
+  q.member = (const int*)ptrs[9];
+  q.occ_o = (float*)ptrs[10];
+  q.dir_o = (float*)ptrs[11];
+  q.afood_o = (float*)ptrs[12];
+  q.efood_o = (float*)ptrs[13];
+  q.chem_o = (float*)ptrs[14];
+  q.gained_o = (float*)ptrs[15];
+  q.num_o = (int*)ptrs[16];
+  return true;
+}
+
+}  // namespace

@@ -1,8 +1,8 @@
-"""Carry lattice state between the JAX package and this one:
-``FastEnvState`` as numpy arrays <-> tensors.  Configuration crosses as
-JSON (``FastDynamics.to_json`` of one package is ``from_json`` of the
-other), and the default Jones turn rule has no parameters, so there are no
-weights to carry."""
+"""Carry lattice state, learned weights and searcher state between the JAX
+package and this one, as numpy arrays.  Configuration crosses as JSON
+(``FastDynamics.to_json`` of one package is ``from_json`` of the other);
+the turn-rule weights cross as the same packed f32 arrays (the committed
+``docs/artifacts/*.npz`` hold them under the key ``params``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,3 +32,36 @@ def state_to_numpy(state: FastEnvState) -> dict:
     return {name: getattr(state, name).detach().cpu().numpy()
             for name in FastEnvState._fields}
 
+
+
+def turn_params_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A turn-rule params array of the JAX package (``[R, C]`` or
+    ``[..., R, C]``, any array-like) -> f32 tensor on ``device``."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        resolve_device(device))
+
+
+def load_turn_params(npz_path, device="cuda") -> torch.Tensor:
+    """The params of a committed artifact (``np.savez(..., params=...)``)."""
+    with np.load(npz_path) as data:
+        return turn_params_from_numpy(data["params"], device)
+
+
+def es_state_from_numpy(state, kind, device="cuda"):
+    """A searcher state of the JAX package (``EsState``, ``CmaState`` or
+    ``FullCmaState``, fields as arrays) -> the port's ``kind`` (one of
+    those three classes of ``learn/es.py``) on ``device``."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in kind._fields:
+        a = np.array(getattr(state, name))
+        dtype = torch.int32 if name == "step" else torch.float32
+        fields[name] = torch.from_numpy(a).to(device=dev, dtype=dtype)
+    return kind(**fields)
+
+
+def es_state_to_numpy(state) -> dict:
+    """A searcher state -> a dict of numpy arrays keyed by its field names
+    (``kind(**d)`` of either package rebuilds it)."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in state._fields}

@@ -1,10 +1,16 @@
 """Hand-written Hopper kernels of the lattice step: build, wrappers, counts.
 
-Counterpart of the JAX package's ``fast/pallas_step.py``.  Two kernels, in
+Counterpart of the JAX package's ``fast/pallas_step.py``.  Three kernels, in
 CUDA C++ under ``die_tpu_torch/csrc/``:
 
-- ``lattice_step`` (``lattice_step.cu``): one full step of a lockstep batch
-  ``[B, W, H]``; replaces ``_multi_step_kernel`` at K = 1.
+- ``lattice_step`` (``lattice_step.cu``, K1): one full step of a lockstep
+  batch ``[B, W, H]`` with the Jones rule; replaces ``_multi_step_kernel``
+  at K = 1 and, given a flow field, ``_multi_step_kernel_perlin`` (B3).
+- ``lattice_step_learned`` (``lattice_step_learned.cu``, K3): the same step
+  with a learned turn rule, each env with its own params; replaces
+  ``_multi_step_kernel_learned`` (B2) and, given a flow field,
+  ``_multi_step_kernel_perlin_learned`` (B3).  Both instantiate the one
+  kernel template of ``lattice_step.cuh``.
 - ``tree_sum_2d`` (``tree_sum_2d.cu``): the order-pinned reward fold.
 
 Each source is built by its own ``nvcc`` (all started together) into a
@@ -14,8 +20,10 @@ loaded with ``ctypes``.  Flags: ``-gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 --fmad=false``; never fast math, and denormals are kept.
 
 A wrapper given CPU tensors runs the kernel's plain version
-(``fast/env.py``); given CUDA tensors it launches the kernel or raises.
-Each launch adds one to ``launches[name]``, and nothing else does.
+(``fast/env.py``, ``fast/learned.py``); given CUDA tensors it launches the
+kernel or raises.  Each launch adds one to ``launches[name]`` of what it
+launched (``*_perlin`` when the step read a flow field), and nothing else
+does.
 """
 from __future__ import annotations
 
@@ -32,9 +40,11 @@ import numpy as np
 import torch
 
 from die_tpu_torch.core.mathx import f32
-from die_tpu_torch.fast.config import FastDynamics, halo_radius
-from die_tpu_torch.fast.env import FastEnvState, check_supported, fast_step_full
+from die_tpu_torch.fast.config import FastDynamics
+from die_tpu_torch.fast.env import (FastEnvState, check_supported,
+                                    fast_step_full, flow_field_for)
 from die_tpu_torch.fast.env import tree_sum_2d as plain_tree_sum_2d
+from die_tpu_torch.fast.learned import make_turn_rule, rule_family
 from die_tpu_torch.fast.rollout import step_bits
 from die_tpu_torch.ops.gaussian import gaussian_taps
 from die_tpu_torch.ops.waves import flow_time
@@ -44,10 +54,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "die_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
-SOURCES = {"lattice_step": "lattice_step.cu", "tree_sum_2d": "tree_sum_2d.cu"}
+SOURCES = {"lattice_step": "lattice_step.cu",
+           "lattice_step_learned": "lattice_step_learned.cu",
+           "tree_sum_2d": "tree_sum_2d.cu"}
+KERNELS = ("lattice_step", "lattice_step_perlin",
+           "lattice_step_learned_linear", "lattice_step_learned_mlp",
+           "lattice_step_learned_wide", "lattice_step_learned_ctx",
+           "lattice_step_learned_perlin", "tree_sum_2d")
 MAX_TAPS = 33
+MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
+FAMILY_CODE = {"linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
+FLOW_CODE = {"none": 0, "wave": 1, "perlin": 2}
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in KERNELS}
 build_log = {}  # name -> nvcc's output of the last build (registers, smem)
 _libs = {}
 _lock = threading.Lock()
@@ -108,9 +127,12 @@ def build() -> float:
         for name in SOURCES:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
-        step = _libs["lattice_step"].die_lattice_step
-        step.argtypes = [vp, vp, vp, vp]
-        step.restype = ip
+        for name, fn in (("lattice_step", "die_lattice_step"),
+                         ("lattice_step_learned",
+                          "die_lattice_step_learned")):
+            step = getattr(_libs[name], fn)
+            step.argtypes = [vp, vp, vp, vp]
+            step.restype = ip
         _libs["lattice_step"].die_error_string.argtypes = [ip]
         _libs["lattice_step"].die_error_string.restype = ctypes.c_char_p
         fold = _libs["tree_sum_2d"].die_tree_sum_2d
@@ -129,8 +151,40 @@ def _stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def check_kernel_supported(dyn: FastDynamics, shape):
-    """Raise unless the kernels take this config and ``[B, W, H]`` shape."""
+def turn_reach(dyn: FastDynamics, params_shape=None) -> int:
+    """Cells the turn phase reads around a cell: ``hop * sense_dist`` for
+    the Jones rule (``params_shape`` None) and the linear and MLP rules;
+    ``2 * hop * sense_dist`` for the wide rule (chem probes at
+    2*sense_dist); ``max(2*hop*S, hop*S + 1)`` for ctx (its 3x3 taps read
+    the neighbours' probes).  ``hop`` is 2 on the 16-direction lattice."""
+    hop = 2 if dyn.num_dirs == 16 else 1
+    hs = hop * int(dyn.sense_dist)
+    if params_shape is None:
+        return hs
+    fam = rule_family(params_shape).name
+    if fam == "wide":
+        return 2 * hs
+    if fam == "ctx":
+        return max(2 * hs, hs + 1)
+    return hs
+
+
+def learned_halo_radius(dyn: FastDynamics, params_shape=None) -> int:
+    """One step's influence radius with the rule's reach: ``halo_radius``
+    (``fast/config.py``) with ``hop * sense_dist`` replaced by
+    :func:`turn_reach`, which that function does not count."""
+    reach = turn_reach(dyn, params_shape)
+    hop = 2 if dyn.num_dirs == 16 else 1
+    diffuse_r = (len(gaussian_taps(dyn.diffuse_sigma)) - 1) // 2
+    base = reach + 2 * hop + diffuse_r
+    if dyn.agents_born:
+        base = max(base, reach + 4 * hop)
+    return base
+
+
+def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None):
+    """Raise unless the kernels take this config, ``[B, W, H]`` shape and
+    (for the learned kernel) params shape."""
     check_supported(dyn)
     if len(shape) != 3:
         raise ValueError(f"kernel state must be [B, W, H], got {shape}")
@@ -141,6 +195,11 @@ def check_kernel_supported(dyn: FastDynamics, shape):
     if len(gaussian_taps(dyn.diffuse_sigma)) > MAX_TAPS:
         raise ValueError(f"diffuse_sigma {dyn.diffuse_sigma} needs more than "
                          f"{MAX_TAPS} taps")
+    if params_shape is not None:
+        rule_family(params_shape)
+        R, C = params_shape[-2:]
+        if R * C > MAX_PARAMS:
+            raise ValueError(f"params {R}x{C} exceed {MAX_PARAMS} floats")
 
 
 def _require_cuda(t: torch.Tensor, dtype, shape, what: str):
@@ -150,14 +209,20 @@ def _require_cuda(t: torch.Tensor, dtype, shape, what: str):
                          f", got {t.device} {t.dtype} {tuple(t.shape)}")
 
 
-def _params(dyn: FastDynamics, B: int, W: int, H: int):
+def _params(dyn: FastDynamics, B: int, W: int, H: int, flow_env_stride: int,
+            params_shape=None):
     taps = gaussian_taps(dyn.diffuse_sigma)
+    fam = None if params_shape is None else rule_family(params_shape)
+    rows, cols = (0, 0) if fam is None else tuple(params_shape[-2:])
     ip = np.array([B, W, H, dyn.num_dirs, int(dyn.rng_kind == "threefry"),
                    int(dyn.per_cell_priority), int(dyn.randomize_on_block),
                    int(dyn.agents_born), int(dyn.agents_die),
-                   int(dyn.food_infinite), int(dyn.flow.kind == "wave"),
-                   int(dyn.sense_dist), len(taps), halo_radius(dyn)],
-                  dtype=np.int32)
+                   int(dyn.food_infinite), FLOW_CODE[dyn.flow.kind],
+                   int(dyn.sense_dist), len(taps),
+                   learned_halo_radius(dyn, params_shape),
+                   turn_reach(dyn, params_shape), flow_env_stride,
+                   0 if fam is None else FAMILY_CODE[fam.name], rows, cols,
+                   0 if fam is None else fam.hidden], dtype=np.int32)
     fp = np.array([dyn.idle_deposit, dyn.deposit_coef, dyn.rate_feed,
                    dyn.cost_move, dyn.cost_deposit, dyn.death_threshold,
                    dyn.birth_threshold, dyn.flow.scale,
@@ -167,43 +232,102 @@ def _params(dyn: FastDynamics, B: int, W: int, H: int):
     return ip, fp
 
 
-def lattice_step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor):
-    """One step of a lockstep batch -> (state, num_agents i32[B],
-    gained_field f32[B, W, H]).  ``keys_t``: int64 ``[B, 2]`` step keys
-    ``fold_in(rollout_key_b, t)``."""
+def _plain_step(dyn, state, keys_t, params, flow_field):
+    bits = step_bits(dyn, keys_t, tuple(state.occ.shape[-2:]))
+    rule = None if params is None else make_turn_rule(params, dyn)
+    new_state, _, num, gained = fast_step_full(dyn, state, bits,
+                                               turn_rule=rule,
+                                               flow_field=flow_field)
+    return new_state, num, gained
+
+
+def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
+          params, flow_field):
     if state.occ.device.type == "cpu":
-        bits = step_bits(dyn, keys_t, tuple(state.occ.shape[-2:]))
-        new_state, _, num, gained = fast_step_full(dyn, state, bits)
-        return new_state, num, gained
-    check_kernel_supported(dyn, tuple(state.occ.shape))
+        return _plain_step(dyn, state, keys_t, params, flow_field)
+    learned = params is not None
+    check_kernel_supported(dyn, tuple(state.occ.shape),
+                           None if not learned else tuple(params.shape))
     B, W, H = state.occ.shape
+    dev = state.occ.device
     for name in ("occ", "dir", "agent_food", "env_food", "chem"):
         _require_cuda(getattr(state, name), torch.float32, (B, W, H), name)
     _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
     _require_cuda(keys_t, torch.int64, (B, 2), "keys")
+    member = None
+    if learned:
+        R, C = params.shape[-2:]
+        if params.dim() == 2:
+            params = params.reshape(1, R, C)
+            member = torch.zeros(B, dtype=torch.int32, device=dev)
+        elif params.dim() == 3 and params.shape[0] == B:
+            member = torch.arange(B, dtype=torch.int32, device=dev)
+        else:
+            raise ValueError(f"params must be [R, C] or [B, R, C] with "
+                             f"B={B}, got {tuple(params.shape)}")
+        _require_cuda(params, torch.float32, tuple(params.shape), "params")
     build()
     outs = [torch.empty_like(state.occ) for _ in range(6)]
-    num = torch.zeros(B, dtype=torch.int32, device=state.occ.device)
+    num = torch.zeros(B, dtype=torch.int32, device=dev)
     flow_step = state.flow_step
     flow_t = None
+    env_stride = 0
     if dyn.flow.kind == "wave":
         flow_t = flow_time(dyn.flow, flow_step).contiguous()
+    elif dyn.flow.kind == "perlin":
+        if flow_field is None:
+            flow_field = flow_field_for(dyn, (W, H), flow_step)
+        if flow_field.dim() == 3:
+            env_stride = 1
+            _require_cuda(flow_field, torch.float32, (B, W, H), "flow_field")
+        else:
+            _require_cuda(flow_field, torch.float32, (W, H), "flow_field")
+    if dyn.flow.kind != "none":
         flow_step = flow_step + 1
     ptrs = np.array([state.occ.data_ptr(), state.dir.data_ptr(),
                      state.agent_food.data_ptr(), state.env_food.data_ptr(),
                      state.chem.data_ptr(), keys_t.data_ptr(),
                      0 if flow_t is None else flow_t.data_ptr(),
+                     0 if dyn.flow.kind != "perlin"
+                     else flow_field.data_ptr(),
+                     0 if member is None else params.data_ptr(),
+                     0 if member is None else member.data_ptr(),
                      *(o.data_ptr() for o in outs), num.data_ptr()],
                     dtype=np.int64)
-    ip, fp = _params(dyn, B, W, H)
-    rc = _libs["lattice_step"].die_lattice_step(
-        ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    _check(rc, "lattice_step")
-    launches["lattice_step"] += 1
+    ip, fp = _params(dyn, B, W, H, env_stride,
+                     None if not learned else tuple(params.shape))
+    name = "lattice_step_learned" if learned else "lattice_step"
+    fn = getattr(_libs[name], "die_" + name)
+    rc = fn(ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
+    _check(rc, name)
+    if dyn.flow.kind == "perlin":
+        launches[name + "_perlin"] += 1
+    else:
+        launches[name + ("_" + rule_family(params.shape).name if learned
+                         else "")] += 1
     occ, dirf, afood, efood, chem, gained = outs
     new_state = FastEnvState(occ=occ, dir=dirf, agent_food=afood,
                              env_food=efood, chem=chem, flow_step=flow_step)
     return new_state, num, gained
+
+
+def lattice_step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
+                 flow_field=None):
+    """One Jones step of a lockstep batch -> (state, num_agents i32[B],
+    gained_field f32[B, W, H]).  ``keys_t``: int64 ``[B, 2]`` step keys
+    ``fold_in(rollout_key_b, t)``.  ``flow_field`` (perlin flow): F of the
+    batch's flow steps, ``[W, H]`` shared or ``[B, W, H]`` per env;
+    computed per env from ``state.flow_step`` when not given."""
+    return _step(dyn, state, keys_t, None, flow_field)
+
+
+def learned_lattice_step(dyn: FastDynamics, state: FastEnvState,
+                         keys_t: torch.Tensor, params: torch.Tensor,
+                         flow_field=None):
+    """One step with the learned turn rule of ``params`` (``[R, C]`` for
+    the whole batch or ``[B, R, C]``, one set per env); otherwise as
+    :func:`lattice_step`."""
+    return _step(dyn, state, keys_t, params, flow_field)
 
 
 def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 from die_tpu_torch.core.mathx import f32, tree_sum
 from die_tpu_torch.fast.config import NUM_DIRS, FastDynamics, dir_offsets
 from die_tpu_torch.ops.gaussian import separable_gaussian_wrap
-from die_tpu_torch.ops.waves import flow_time, wave_field
+from die_tpu_torch.ops.waves import flow_time, perlin_flow_field, wave_field
 
 
 class FastEnvState(NamedTuple):
@@ -101,18 +101,31 @@ def check_supported(dyn: FastDynamics):
         raise ValueError(f"num_dirs must be 4, 8 or 16, got {dyn.num_dirs}")
     if dyn.rng_kind not in ("murmur", "threefry"):
         raise ValueError(f"unknown rng_kind {dyn.rng_kind!r}")
-    if dyn.flow.kind not in ("none", "wave"):
+    if dyn.flow.kind not in ("none", "wave", "perlin"):
         raise NotImplementedError(
             f"flow kind {dyn.flow.kind!r} is not ported: this package runs "
-            "flow 'none' and 'wave'")
+            "flow 'none', 'wave' and 'perlin'")
+
+
+def flow_field_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor):
+    """F(flow_step) ``[..., W, H]`` of a wave or perlin flow."""
+    if dyn.flow.kind == "wave":
+        return wave_field(shape_wh, flow_time(dyn.flow, flow_step))
+    return perlin_flow_field(dyn.flow, shape_wh, flow_step)
 
 
 def fast_step_full(dyn: FastDynamics, state: FastEnvState,
-                   bits: FastStepBits):
+                   bits: FastStepBits, turn_rule=None, flow_field=None):
     """One full lattice step -> (state, reward, num_agents, gained_field).
 
     ``reward`` f32 ``[...]`` is the pinned ``tree_sum_2d`` of the per-cell
-    gain; ``num_agents`` is an exact int32 count per env."""
+    gain; ``num_agents`` is an exact int32 count per env.
+
+    ``turn_rule``: optional ``(left, fwd, right, state, bits) -> turn`` in
+    {-1, 0, +1} replacing the Jones argmax (``fast/learned.py``).
+    ``flow_field``: optional precomputed F(flow_step) for wave or perlin
+    flow, ``[W, H]`` shared by the batch or ``[..., W, H]`` per env; the
+    update and the ``flow_step`` advance are the same either way."""
     check_supported(dyn)
     occ, dirf = state.occ, state.dir
     W, H = occ.shape[-2:]
@@ -129,11 +142,15 @@ def fast_step_full(dyn: FastDynamics, state: FastEnvState,
         fwd = torch.where(dirf == float(q), p, fwd)
         left = torch.where(dirf == float((q - 1) % n), p, left)
         right = torch.where(dirf == float((q + 1) % n), p, right)
-    keep = (fwd >= left) & (fwd >= right)
-    rand_sign = bits.turn.to(torch.float32) * 2.0 - 1.0
-    turn = torch.where(keep, 0.0,
-                       torch.where(left > right, 1.0,
-                                   torch.where(right > left, -1.0, rand_sign)))
+    if turn_rule is None:
+        keep = (fwd >= left) & (fwd >= right)
+        rand_sign = bits.turn.to(torch.float32) * 2.0 - 1.0
+        turn = torch.where(keep, 0.0,
+                           torch.where(left > right, 1.0,
+                                       torch.where(right > left, -1.0,
+                                                   rand_sign)))
+    else:
+        turn = turn_rule(left, fwd, right, state, bits)
     dirf = mod_dirs(dirf + turn, n)
 
     # ---- 2. move: pull-based conflict resolution ---------------------------
@@ -249,8 +266,9 @@ def fast_step_full(dyn: FastDynamics, state: FastEnvState,
 
     # ---- 6. food flow ------------------------------------------------------
     flow_step = state.flow_step
-    if dyn.flow.kind == "wave":
-        f = wave_field((W, H), flow_time(dyn.flow, flow_step))
+    if dyn.flow.kind != "none":
+        f = flow_field if flow_field is not None \
+            else flow_field_for(dyn, (W, H), flow_step)
         env_food = (f32(dyn.flow.scale) * f
                     + f32(f32(1.0) - f32(dyn.flow.decay)) * env_food)
         flow_step = flow_step + 1
