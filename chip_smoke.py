@@ -27,7 +27,22 @@ Phases (any failure exits non-zero):
      ``train_lattice`` at the wide record's configuration (popsize 64 x 16
      envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed; and the
      perlin path (Jones at the main path's size, wide at 64x128);
-  6. timings (CUDA events) of the main rollout, of each kernel and of its
+  6. the fused tiled kernel (K4) against its plain version
+     (``tiled_steps_plain``) and against the plain whole-field steps on the
+     card, bitwise, every launch: the Jones rule over the 8 configs with
+     K in {1, 2, 3} where the margin fits shared memory (a refusal is
+     printed), at 256x256, on a 128x512 field and at 512x512; every learned
+     family at K = 2 (8 or 4 directions) and K = 1 (16 directions); wave and
+     perlin flow at K = 2 with per-env flow steps and a resume at t0 = 4;
+  7. the large-field path, counts read around each run: ``fast_init`` +
+     ``fast_rollout_auto`` with ``FastDynamics()`` at 512x512 x 32 envs and
+     1024x1024 x 8 envs (T = 256) and 2048x2048 x 64 envs (T = 32), each at
+     ``num_inner`` 1 and 2 (equal results, env-steps/s and ms per launch by
+     CUDA events); ``learned_fast_rollout_auto`` with the 8-direction wide
+     artifact at 512x512 x 8 envs, 16 steps, bitwise against the plain
+     rollout; and short runs of the other fused forms (perlin, linear, MLP,
+     ctx, learned perlin) through the same entry points;
+  8. timings (CUDA events) of the main rollout, of each kernel and of its
      plain version, with each kernel's bound.
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
@@ -594,6 +609,401 @@ def phase_perlin_path(B: int, steps: int):
     return counts, st
 
 
+# ---- the large-field path (K4) -------------------------------------------------
+
+def fused_cases():
+    """(name, dyn, field, params or None, K values, flow_step offsets or
+    None) for the K4 parity phase."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast import learned as L
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics,
+                                           tuned_dynamics)
+
+    cases = []
+    for name, dyn in parity_configs().items():
+        field = {"born_die_8dir": (128, 512), "default_8dir": (512, 512)}.get(
+            name, FIELD)
+        cases.append((f"jones {name}", dyn, field, None, (1, 2, 3), None))
+    ep = eval_protocol_dynamics
+    cases += [
+        ("lattice8_linear", ep(8), FIELD, artifact("lattice8_linear"), (2,),
+         None),
+        ("lattice16_linear", ep(16), FIELD, artifact("lattice16_linear"),
+         (1,), None),
+        ("mlp8 random all-live", ep(8), FIELD,
+         random_live_params(L.mlp_param_shape(8), 80), (2,), None),
+        ("lattice16_mlp", ep(16), FIELD, artifact("lattice16_mlp"), (1,),
+         None),
+        ("lattice4_mlp_wide", ep(4), FIELD, artifact("lattice4_mlp_wide"),
+         (2,), None),
+        ("lattice8_mlp_wide", ep(8), (128, 512),
+         artifact("lattice8_mlp_wide"), (2,), None),
+        ("lattice16_mlp_wide", ep(16), FIELD, artifact("lattice16_mlp_wide"),
+         (1,), None),
+        ("ctx8 random all-live, per-env params, born+die",
+         FastDynamics(agents_born=True, agents_die=True, birth_threshold=0.5),
+         FIELD, torch.stack([random_live_params(L.mlp_ctx_param_shape(8),
+                                                81 + i) for i in range(2)]),
+         (2,), None),
+        ("lattice16_mlp_ctx", ep(16), FIELD, artifact("lattice16_mlp_ctx"),
+         (1,), None),
+        ("jones wave per-env steps", FastDynamics(flow=FlowConfig(kind="wave")),
+         FIELD, None, (2,), [3, 250]),
+        ("jones perlin per-env steps",
+         FastDynamics(flow=FlowConfig(kind="perlin")), FIELD, None, (2,),
+         [0, 7]),
+        ("wide8 perlin shared stack",
+         FastDynamics(food_infinite=True, flow=FlowConfig(kind="perlin")),
+         FIELD, artifact("lattice8_mlp_wide"), (2,), None),
+        ("wide16 wave", tuned_dynamics(16, flow=FlowConfig(kind="wave")),
+         FIELD, artifact("lattice16_mlp_wide"), (1,), None),
+    ]
+    return cases
+
+
+def fused_launch(dyn, st, chunk, params, tile=None):
+    """One K4 launch as the rollouts make it (a shared perlin stack when the
+    batch's flow steps agree); returns its outputs and the stack."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.env import flow_stack_for
+    from die_tpu_torch.fast.rollout import shared_flow_step
+
+    flow = shared_flow_step(dyn, st)
+    stack = None if flow is None else flow_stack_for(
+        dyn, tuple(st.occ.shape[-2:]), flow, chunk.shape[1])
+    if params is None:
+        out = cuda_step.lattice_steps(dyn, st, chunk, flow_stack=stack,
+                                      tile=tile)
+    else:
+        out = cuda_step.learned_lattice_steps(dyn, st, chunk, params,
+                                              flow_stack=stack, tile=tile)
+    return out, stack
+
+
+def phase_fused_parity(B: int, steps: int):
+    """K4 against tiled_steps_plain on the same inputs, and against K plain
+    whole-field steps, every launch: state fields, counts, gain fields and
+    folded rewards, bitwise."""
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.env import fast_step_full
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.rollout import step_bits, step_keys
+    from die_tpu_torch.fast.tiled import tiled_steps_plain
+
+    err = 0.0
+    for name, dyn, field, params, inner, offsets in fused_cases():
+        pshape = None if params is None else tuple(params.shape)
+        rule = None if params is None else make_turn_rule(params, dyn)
+        W, H = field
+        for K in inner:
+            try:
+                tile = cuda_step.choose_tile(dyn, field, pshape, K)
+            except ValueError as e:
+                log(f"fused parity {name} K={K}: refused ({e})")
+                continue
+            margin = cuda_step.fused_margin(dyn, pshape, K)
+            st_k = fast_init(env_keys(7, B), field, dyn, device="cuda")
+            if offsets is not None:
+                st_k = st_k._replace(flow_step=torch.tensor(
+                    offsets, dtype=torch.int32, device="cuda"))
+            st_p = st_k
+            keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, steps)
+            for i in range(0, steps, K):
+                chunk = keys[i:i + K].transpose(0, 1).contiguous()
+                (new_k, num_k, gained_k), stack = fused_launch(
+                    dyn, st_k, chunk, params)
+                rew_k = cuda_step.tree_sum_2d(
+                    gained_k.reshape(K * B, W, H)).reshape(K, B)
+                new_t, num_t, gained_t = tiled_steps_plain(
+                    dyn, st_k, chunk, tile, margin, params=params,
+                    flow_stack=stack)
+                for k in range(K):
+                    st_p, rew_p, num_p, gained_p = fast_step_full(
+                        dyn, st_p, step_bits(dyn, keys[i + k], field),
+                        turn_rule=rule)
+                    if not (same(gained_k[k], gained_p)
+                            and same(num_k[:, k], num_p)
+                            and same(rew_k[k], rew_p)):
+                        raise AssertionError(
+                            f"fused {name} K={K} step {i + k}: gain, count "
+                            f"or reward differs from the whole-field step")
+                for f in st_p._fields:
+                    a = getattr(new_k, f)
+                    for what, b in (("tiled plain", getattr(new_t, f)),
+                                    ("whole-field", getattr(st_p, f))):
+                        if not same(a, b):
+                            raise AssertionError(
+                                f"fused {name} K={K} step {i + K}: {f} "
+                                f"differs from the {what} version, max abs "
+                                f"err {max_err(a, b)}")
+                        if f != "flow_step":
+                            err = max(err, max_err(a, b))
+                if not (same(num_k, num_t) and same(gained_k, gained_t)):
+                    raise AssertionError(f"fused {name} K={K}: count or gain "
+                                         f"differs from the tiled plain one")
+                st_k = new_k
+            log(f"fused parity {name} K={K}: {steps} steps x {B} envs at "
+                f"{W}x{H}, tile {tile[0]}x{tile[1]}, margin {margin}: bitwise "
+                f"equal to tiled_steps_plain and to the whole-field steps "
+                f"(agents {int(num_p.sum())})")
+    return err
+
+
+def phase_fused_resume(B: int):
+    """banded_rollout_batch resumed at t0 = 4 with wave and with perlin flow
+    at K = 2 against 8 plain whole-field steps."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import banded_rollout_batch, fast_rollout
+
+    for kind in ("wave", "perlin"):
+        dyn = FastDynamics(flow=FlowConfig(kind=kind))
+        st = fast_init(env_keys(11, B), FIELD, dyn, device="cuda")
+        rk = env_keys(12, B)
+        ref = fast_rollout(dyn, st, rk, 8, device="cuda")
+        mid, r1, n1 = banded_rollout_batch(dyn, st, rk, 4, num_inner=2,
+                                           device="cuda")
+        end, r2, n2 = banded_rollout_batch(dyn, mid, rk, 4, num_inner=2,
+                                           t0=4, device="cuda")
+        ok = all(same(a, b) for a, b in zip(end, ref[0])) and \
+            same(torch.cat([r1, r2], -1), ref[1]) and \
+            same(torch.cat([n1, n2], -1), ref[2])
+        if not ok or int(mid.flow_step[0]) != 4:
+            raise AssertionError(f"fused resume ({kind}) differs from the "
+                                 f"plain rollout")
+        log(f"fused resume {kind}: 4 + 4 steps (t0 = 4) at K=2 bitwise equal "
+            f"to 8 plain steps")
+
+
+def chunked_init(seed: int, B: int, field, dyn, chunk: int = 8):
+    """fast_init in chunks of envs, so that its temporaries stay small at
+    2048x2048."""
+    from die_tpu_torch.fast.init import fast_init
+
+    keys = env_keys(seed, B)
+    parts = [fast_init(keys[i:i + chunk], field, dyn, device="cuda")
+             for i in range(0, B, chunk)]
+    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+FUSED_STEPS = 6  # steps of a fused parity case: a multiple of K = 1, 2, 3
+LARGE_FIELDS = [((512, 512), 32, 256), ((1024, 1024), 8, 256),
+                ((2048, 2048), 64, 32)]
+
+
+def phase_large_field(smi: str):
+    """The large-field path through ``fast_rollout_auto`` at the JAX
+    package's bench shapes and at 2048x2048 x 64, each at num_inner 1 and 2:
+    counts read around the first run of each, rates from a second run."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.rollout import fast_rollout_auto
+
+    dyn = FastDynamics()
+    rows, counts = [], {k: 0 for k in cuda_step.KERNELS}
+    for field, B, T in LARGE_FIELDS:
+        t0 = time.perf_counter()
+        state = chunked_init(40, B, field, dyn)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n0 = (state.occ > 0).sum(dim=(1, 2), dtype=torch.int32)
+        rkeys = env_keys(41, B)
+        fold_ms = time_ms(lambda: cuda_step.tree_sum_2d(state.env_food), 5)
+        outs = {}
+        for K in (1, 2):
+            cuda_step.reset_launches()
+            final, rewards, nums = fast_rollout_auto(
+                dyn, state, rkeys, T, device="cuda", num_inner=K)
+            torch.cuda.synchronize()
+            got = dict(cuda_step.launches)
+            want = {"lattice_steps_fused": T // K, "tree_sum_2d": T // K}
+            if {k: v for k, v in got.items() if v} != want:
+                raise AssertionError(f"large field {field} K={K}: launches "
+                                     f"{got}, expected {want}")
+            for k, v in got.items():
+                counts[k] += v
+            if tuple(rewards.shape) != (B, T) or \
+                    not bool(torch.isfinite(rewards).all()):
+                raise AssertionError("large-field rewards not finite [B, T]")
+            if not bool((nums == n0[:, None]).all()):
+                raise AssertionError("large-field agent count not conserved")
+            if not all(bool(torch.isfinite(x).all()) for x in final[:5]):
+                raise AssertionError("large-field final state not finite")
+            outs[K] = (final, rewards, nums)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fast_rollout_auto(dyn, state, rkeys, T, device="cuda",
+                              num_inner=K)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            rows.append({"field": list(field), "envs": B, "steps": T,
+                         "num_inner": K, "env_steps_per_s": B * T / ms * 1e3,
+                         "ms_per_launch": ms / (T // K),
+                         "fold_ms_one_field": fold_ms})
+            log(f"large field {field[0]}x{field[1]} x {B} envs, T={T}, "
+                f"num_inner={K}: {B * T / ms * 1e3:.1f} env-steps/s, "
+                f"{ms / (T // K):.4f} ms per launch with its fold "
+                f"({T // K} launches; the fold of one gain field alone "
+                f"{fold_ms:.4f} ms; init {init_s:.2f} s; {smi})")
+        a, b = outs[1], outs[2]
+        if not (all(same(x, y) for x, y in zip(a[0], b[0]))
+                and same(a[1], b[1]) and same(a[2], b[2])):
+            raise AssertionError(f"large field {field}: num_inner 1 and 2 "
+                                 f"give different results")
+        del outs, a, b, state, final, rewards, nums
+        torch.cuda.empty_cache()
+    log(f"large-field path launches: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return rows, counts
+
+
+def phase_learned_large():
+    """``learned_fast_rollout_auto`` above 256x256: the 8-direction wide
+    artifact at 512x512 x 8 envs, 16 steps, bitwise against the plain learned
+    rollout on the card; then short runs of the other fused forms through
+    the entry points.  Returns the launch counts of all of them."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast import learned as L
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics)
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
+
+    perlin = FlowConfig(kind="perlin")
+    ep = eval_protocol_dynamics
+    field = (512, 512)
+    runs = [  # (label, dyn, params, envs, steps, num_inner)
+        ("wide8 artifact", ep(8), artifact("lattice8_mlp_wide"), 8, 16, 1),
+        ("wide8 artifact", ep(8), artifact("lattice8_mlp_wide"), 8, 16, 2),
+        ("linear8 artifact", ep(8), artifact("lattice8_linear"), 2, 4, 2),
+        ("mlp16 artifact", ep(16), artifact("lattice16_mlp"), 2, 4, 1),
+        ("ctx16 artifact", ep(16), artifact("lattice16_mlp_ctx"), 2, 4, 1),
+        ("wide8 perlin", FastDynamics(food_infinite=True, flow=perlin),
+         artifact("lattice8_mlp_wide"), 2, 4, 2),
+        ("jones perlin", FastDynamics(flow=perlin), None, 2, 4, 2),
+    ]
+    cuda_step.reset_launches()
+    for label, dyn, params, B, T, K in runs:
+        st = fast_init(env_keys(50, B), field, dyn, device="cuda")
+        rk = env_keys(51, B)
+        if params is None:
+            out = fast_rollout_auto(dyn, st, rk, T, device="cuda",
+                                    num_inner=K)
+            ref = fast_rollout(dyn, st, rk, T, device="cuda")
+        else:
+            out = L.learned_fast_rollout_auto(dyn, params, st, rk, T,
+                                              device="cuda", num_inner=K)
+            ref = L.learned_fast_rollout(dyn, params, st, rk, T,
+                                         device="cuda")
+        if not (all(same(a, b) for a, b in zip(out[0], ref[0]))
+                and same(out[1], ref[1]) and same(out[2], ref[2])):
+            raise AssertionError(f"learned large field ({label}, "
+                                 f"num_inner={K}) differs from the plain "
+                                 f"rollout")
+        log(f"large field {label}: 512x512 x {B} envs, {T} steps, "
+            f"num_inner={K}: bitwise equal to the plain rollout on the card")
+    torch.cuda.synchronize()
+    counts = dict(cuda_step.launches)
+    log(f"learned large-field launches: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for k in cuda_step.KERNELS:
+        if k.startswith("lattice_steps_fused_") and counts[k] < 1:
+            raise AssertionError(f"{k} was not launched through the entry "
+                                 f"points")
+    return counts
+
+
+def time_fused(rate, counts, err):
+    """K4's entries of the kernels line.  The Jones form at 512x512 x 32 for
+    K = 1, 2, 3 (ms per launch beside its byte bound, 4 * (10 + K) bytes a
+    cell); the perlin and learned forms at 512x512 x 8."""
+    from die_tpu_torch.core.config import FlowConfig
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics)
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import rule_family
+    from die_tpu_torch.fast.rollout import step_keys
+    from die_tpu_torch.fast.tiled import tiled_steps_plain
+
+    perlin = FlowConfig(kind="perlin")
+    ep = eval_protocol_dynamics
+    field = (512, 512)
+    rows = [  # (counter, dyn, params, envs, K values)
+        ("lattice_steps_fused", FastDynamics(), None, 32, (1, 2, 3)),
+        ("lattice_steps_fused_perlin", FastDynamics(flow=perlin), None, 8,
+         (2,)),
+        ("lattice_steps_fused_learned_linear", ep(8),
+         artifact("lattice8_linear"), 8, (2,)),
+        ("lattice_steps_fused_learned_mlp", ep(16), artifact("lattice16_mlp"),
+         8, (1,)),
+        ("lattice_steps_fused_learned_wide", ep(8),
+         artifact("lattice8_mlp_wide"), 8, (1, 2)),
+        ("lattice_steps_fused_learned_ctx", ep(16),
+         artifact("lattice16_mlp_ctx"), 8, (1,)),
+        ("lattice_steps_fused_learned_perlin",
+         FastDynamics(food_infinite=True, flow=perlin),
+         artifact("lattice8_mlp_wide"), 8, (2,)),
+    ]
+    out = []
+    for key, dyn, params, B, inner in rows:
+        st = fast_init(env_keys(60, B), field, dyn, device="cuda")
+        pshape = None if params is None else tuple(params.shape)
+        cells = B * field[0] * field[1]
+        by_inner = {}
+        for K in inner:
+            chunk = step_keys(as_key_tensor(env_keys(61, B), "cuda"), 0,
+                              K).transpose(0, 1).contiguous()
+            _, stack = fused_launch(dyn, st, chunk, params)
+            if params is None:
+                ms = time_ms(lambda: cuda_step.lattice_steps(
+                    dyn, st, chunk, flow_stack=stack), 10)
+            else:
+                ms = time_ms(lambda: cuda_step.learned_lattice_steps(
+                    dyn, st, chunk, params, flow_stack=stack), 10)
+            tile = cuda_step.choose_tile(dyn, field, pshape, K)
+            margin = cuda_step.fused_margin(dyn, pshape, K)
+            plain = time_ms(lambda: tiled_steps_plain(
+                dyn, st, chunk, tile, margin, params=params,
+                flow_stack=stack), 1, warmup=1)
+            nbytes = cells * F32_BYTES * (10 + K) + B * K * 20 + \
+                (0 if stack is None else stack.numel() * 4) + \
+                (0 if params is None else params.numel() * 4)
+            ops = K * (step_ops_per_cell(dyn) + (
+                0 if params is None else rule_ops_per_cell(dyn, pshape)))
+            bound, by = bound_ms(cells, nbytes, ops, rate)
+            by_inner[K] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "tile": list(tile),
+                           "margin": margin}
+            log(f"{key} K={K}: {ms:.4f} ms/launch at {B} x 512x512, tile "
+                f"{tile[0]}x{tile[1]}, margin {margin} (bound {bound:.4f} ms "
+                f"by {by}, {nbytes / 1e6:.1f} MB); tiled plain {plain:.2f} "
+                f"ms; launches {counts[key]}")
+        first = by_inner[inner[0]]
+        learned = params is not None
+        out.append({
+            "name": key, "route": "cuda",
+            "source": "die_tpu_torch/csrc/lattice_step_fused" + (
+                "_learned.cu" if learned else ".cu"),
+            "replaces": "die_tpu/fast/pallas_step.py:567",
+            "launches": counts[key], "match": True, "max_abs_err": err,
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "num_inner": inner[0], "envs": B,
+            "field": list(field),
+            "family": None if not learned else rule_family(pshape).name,
+            "by_num_inner": by_inner})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -686,6 +1096,14 @@ def main():
     train_rate, train_counts, per_gen = phase_train(args.train_gens)
     perlin_counts, pstate = phase_perlin_path(B, args.perlin_steps)
 
+    # ---- 6-7. the fused tiled kernel and the large-field path
+    k4_err = phase_fused_parity(2, FUSED_STEPS)
+    phase_fused_resume(2)
+    large_rows, large_counts = phase_large_field(smi)
+    fused_counts = phase_learned_large()
+    fused_counts["lattice_steps_fused"] += \
+        large_counts["lattice_steps_fused"]
+
     # timing: whole rollout, then each kernel and its plain version at the
     # main path's shapes (these launches are outside the counted runs)
     start = torch.cuda.Event(enable_timing=True)
@@ -750,8 +1168,12 @@ def main():
     ]
     kernels += time_learned(B, rate, serve_counts, train_counts, k3_err)
     kernels += time_perlin(rate, pstate, perlin_counts, k1_err)
+    del pstate, state, final, gained
+    torch.cuda.empty_cache()
+    kernels += time_fused(rate, fused_counts, k4_err)
 
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
+              "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,
               "heldout": scores,

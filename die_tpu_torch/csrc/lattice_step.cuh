@@ -14,6 +14,12 @@
 // The plain twin is die_tpu_torch/fast/env.py::fast_step_full (with the
 // rule of die_tpu_torch/fast/learned.py); the two agree bit for bit.
 //
+// The same template with FUSED = true is the large-field kernel (K4),
+// instantiated by lattice_step_fused.cu (Jones) and
+// lattice_step_fused_learned.cu (learned): K steps per launch, replacing
+// the banded kernel of make_pallas_banded_step.  Its notes follow the
+// design below.
+//
 // Bound on an H100: bytes for the Jones rule and the small learned rules.
 // A step reads 5 fields and writes 5 fields plus the gain field, 44 bytes a
 // cell (plus the flow field, 4 more, when it is given), against a few
@@ -46,6 +52,24 @@
 // memory.  The agent count is an exact integer sum (one atomic per block);
 // the reward fold is the separate tree_sum_2d kernel, which keeps the
 // reference's pairing order across the whole field.
+//
+// FUSED (K4): the block loads its tile plus a margin of K * r cells (r the
+// one-step halo above) and loops over K steps with the state kept in shared
+// memory.  Step k reads a region that is valid from margin k * r inwards and
+// leaves one valid from margin (k + 1) * r, so every phase of step k, feed,
+// lifecycle, flow and diffusion included, runs over tile + remaining margin
+// and writes back to shared memory; the last step's region is the tile and
+// goes to device memory.  Device memory sees each field read once and
+// written once per launch, plus one gain field per inner step (folded by
+// tree_sum_2d in the whole-field order, where the TPU kernel folds by band).
+// Each inner step has its own key (bits and rotation of every region cell
+// from its global index), its own flow time or flow field, and its own
+// exact count over tile cells.  In place of the TPU kernel's row bands,
+// double-buffered DMA and 8-row rounding stand 2-D tiles, an exact margin
+// and the host's shared-memory fit check (fast/cuda_step.py), which refuses
+// a (config, K, tile) that does not fit.  Bound: bytes, 4 * (10 + K) a cell;
+// the margin's redundant work, ((tile + 2 K r) / tile)^2 of the tile's, is
+// what the fusion pays for the bytes it saves.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -65,6 +89,15 @@ namespace {
 #endif
 #ifndef DIE_TILE_COLS
 #define DIE_TILE_COLS 32
+#endif
+
+// Blocks an SM asked of the fused Jones kernel (the register cap that
+// follows: 64 a thread at 2, 128 at 1).  At 2 its K = 1 form, which large
+// fields take by default, runs as fast as the one-step kernel; K = 2 and 3
+// leave room for one block either way and measured within 2% of each other
+// (tools/bench_banded.py --builds).
+#ifndef DIE_FUSED_JONES_BLOCKS
+#define DIE_FUSED_JONES_BLOCKS 2
 #endif
 
 constexpr int kMaxTaps = 33;
@@ -89,17 +122,21 @@ struct Params {
       death_threshold, birth_threshold, flow_scale, flow_keep, chem_keep,
       inv_wm1, inv_hm1;
   float taps[kMaxTaps];
+  // fused form: inner steps a launch and one step's halo (halo = K * r)
+  int K, step_halo;
 };
 
 struct Buffers {
   const float *occ, *dir, *afood, *efood, *chem;
-  const long long* keys;  // [B, 2] u32 words
-  const float* flow_t;    // [B] flow time (wave flow only)
-  const float* flow_f;    // [W, H] or [B, W, H] flow field (field flow)
+  const long long* keys;  // [B, 2] u32 words; fused [B, K, 2]
+  const float* flow_t;    // [B] flow time (wave flow only); fused [B, K]
+  const float* flow_f;    // [W, H] or [B, W, H] flow field (field flow);
+                          // fused [K, W, H] or [B, K, W, H]
   const float* tparams;   // [P, rows, cols] rule params (learned rules)
   const int* member;      // [B] row of tparams for each env
-  float *occ_o, *dir_o, *afood_o, *efood_o, *chem_o, *gained_o;
-  int* num_o;             // [B], zeroed by the caller
+  float *occ_o, *dir_o, *afood_o, *efood_o, *chem_o;
+  float* gained_o;        // [B, W, H]; fused [K, B, W, H]
+  int* num_o;             // [B], zeroed by the caller; fused [B, K]
 };
 
 // Direction tables: (row, col) offsets, counter-clockwise from East.
@@ -291,12 +328,29 @@ __device__ __forceinline__ float depthwise3x3(const float* s, int e, int RH,
   return acc;
 }
 
+// Adds the block's exact count of live cells to *dst: warp sums, then one
+// atomic per block.
+__device__ __forceinline__ void block_count_add(int alive_count, int* dst) {
+  for (int off = 16; off > 0; off >>= 1)
+    alive_count += __shfl_down_sync(0xffffffffu, alive_count, off);
+  __shared__ int warp_counts[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = alive_count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
+    if (total) atomicAdd(dst, total);
+  }
+}
+
 // Two blocks an SM for the Jones rule (at the default config's halo 7 its
-// 46x46 region fits twice in shared memory), which caps it at 64 registers
-// a thread and measured faster at halo 13 as well; one for the learned
-// rules, whose larger halos leave room for one block only.
-template <int N, int FAM>
-__global__ void __launch_bounds__(kThreads, FAM == kJones ? 2 : 1)
+// 46x46 one-step region fits twice in shared memory), which caps it at 64
+// registers a thread and measured faster at halo 13 as well; one for the
+// learned rules, whose larger halos leave room for one block only.
+template <int N, int FAM, bool FUSED>
+__global__ void __launch_bounds__(
+    kThreads,
+    FAM != kJones ? 1 : (FUSED ? DIE_FUSED_JONES_BLOCKS : 2))
     k_lattice_step(Params p, Buffers q) {
   extern __shared__ float sm[];
   Tile t;
@@ -306,10 +360,12 @@ __global__ void __launch_bounds__(kThreads, FAM == kJones ? 2 : 1)
   t.j0 = (blockIdx.x % tiles_c) * p.tc;
   t.RW = p.tr + 2 * p.halo;
   t.RH = p.tc + 2 * p.halo;
-  t.k0 = (uint32_t)q.keys[2 * t.b];
-  t.k1 = (uint32_t)q.keys[2 * t.b + 1];
-  t.rot = (float)(die::murmur_finalize(t.k0 ^ t.k1 ^ 0x9E3779B9u) &
-                  (uint32_t)(N - 1));
+  if (!FUSED) {
+    t.k0 = (uint32_t)q.keys[2 * t.b];
+    t.k1 = (uint32_t)q.keys[2 * t.b + 1];
+    t.rot = (float)(die::murmur_finalize(t.k0 ^ t.k1 ^ 0x9E3779B9u) &
+                    (uint32_t)(N - 1));
+  }
   const int RC = t.RW * t.RH;
   const int RH = t.RH;
   // region fields; later phases reuse earlier ones in place (noted below)
@@ -317,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, FAM == kJones ? 2 : 1)
   float* s_occ = sm + RC;       // occ, then post-move, then final occ
   float* s_dir = sm + 2 * RC;   // dir, then post-move, then final dir
   float* s_af = sm + 3 * RC;    // agent_food, likewise
-  float* s_ef = sm + 4 * RC;    // env_food (read only)
+  float* s_ef = sm + 4 * RC;    // env_food (fused: then after the flow)
   float* s_dirt = sm + 5 * RC;  // turned heading, then birth code
   float* s_code = sm + 6 * RC;  // neighbour code, then deposit mask
   float* s_acc = sm + 7 * RC;   // [ctx: left probe], accepted code, then
@@ -349,291 +405,328 @@ __global__ void __launch_bounds__(kThreads, FAM == kJones ? 2 : 1)
   }
   __syncthreads();
 
-  // ---- 1. sense + turn ------------------------------------------------------
-  // the reach is hop * S but for the wide and ctx rules; written so, the
-  // compiler sees it as such (the margins follow from it)
-  const int m1 = FAM == kWide || FAM == kCtx ? p.reach : hop * S;
-  if (FAM == kCtx) {
-    // pass A: the chem probes at sense_dist, kept for the neighbours' taps
-    for_region(t, hop * S, [&](int u, int v) {
+  // One pass of the loop is one step.  The one-step form runs it once with
+  // mb = 0 and writes device memory; the fused form runs it K times, step k
+  // over the region still valid (from margin mb = k * r inwards), and writes
+  // device memory in the last pass only.
+  const int steps = FUSED ? p.K : 1;
+  for (int k = 0; k < steps; ++k) {
+    const int mb = FUSED ? k * p.step_halo : 0;
+    const bool last = !FUSED || k + 1 == steps;
+    if (FUSED) {
+      const long long* key = q.keys + 2 * ((long long)t.b * p.K + k);
+      t.k0 = (uint32_t)key[0];
+      t.k1 = (uint32_t)key[1];
+      t.rot = (float)(die::murmur_finalize(t.k0 ^ t.k1 ^ 0x9E3779B9u) &
+                      (uint32_t)(N - 1));
+    }
+
+    // ---- 1. sense + turn --------------------------------------------------
+    // the reach is hop * S but for the wide and ctx rules; written so, the
+    // compiler sees it as such (the margins follow from it)
+    const int m1 = mb + (FAM == kWide || FAM == kCtx ? p.reach : hop * S);
+    if (FAM == kCtx) {
+      // pass A: the chem probes at sense_dist, kept for the neighbours' taps
+      for_region(t, mb + hop * S, [&](int u, int v) {
+        const int e = u * RH + v;
+        probe_trio<N>(s_chem, e, RH, s_dir[e], S, &s_acc[e], &s_inf[e],
+                      &s_tmp[e]);
+      });
+      __syncthreads();
+    }
+    for_region(t, m1, [&](int u, int v) {
       const int e = u * RH + v;
-      probe_trio<N>(s_chem, e, RH, s_dir[e], S, &s_acc[e], &s_inf[e],
-                    &s_tmp[e]);
+      const float occ = s_occ[e];
+      const float dirf = s_dir[e];
+      float left, fwd, right;
+      if (FAM == kCtx) {
+        left = s_acc[e];
+        fwd = s_inf[e];
+        right = s_tmp[e];
+      } else {
+        probe_trio<N>(s_chem, e, RH, dirf, S, &left, &fwd, &right);
+      }
+      float turn;
+      if (FAM == kJones) {
+        const uint32_t rand = cell_bits(p, t, u, v);
+        const bool keep = (fwd >= left) && (fwd >= right);
+        const float rand_sign = (float)(rand & 1u) * 2.0f - 1.0f;
+        turn = keep ? 0.0f
+                    : (left > right ? 1.0f
+                                    : (right > left ? -1.0f : rand_sign));
+      } else if (FAM == kLinear) {
+        const float feat[6] = {left, fwd, right, s_ef[e], s_af[e], s_chem[e]};
+        float lg[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float* row = s_par + a * p.cols;
+          float acc = row[6] * 1.0f;
+#pragma unroll
+          for (int f = 0; f < 6; ++f) acc = acc + row[f] * feat[f];
+          lg[a] = acc;
+        }
+        turn = decide(lg[0], lg[1], lg[2]);
+      } else if (FAM == kMlp) {
+        const float feat[7] = {left, fwd, right, occ, s_af[e], s_ef[e],
+                               s_chem[e]};
+        turn = mlp_turn<7>(s_par, p.cols, 0, p.hidden, feat);
+      } else {
+        float fl, ff, fr, el, ef, er;
+        probe_trio<N>(s_chem, e, RH, dirf, 2 * S, &fl, &ff, &fr);
+        probe_trio<N>(s_ef, e, RH, dirf, S, &el, &ef, &er);
+        if (FAM == kWide) {
+          const float feat[13] = {left, fwd, right, fl, ff, fr, el, ef, er,
+                                  occ, s_af[e], s_ef[e], s_chem[e]};
+          turn = mlp_turn<13>(s_par, p.cols, 0, p.hidden, feat);
+        } else {
+          const float* c = s_par;
+          const int C = p.cols;
+          const float feat[20] = {
+              left, fwd, right, fl, ff, fr, el, ef, er, occ, s_af[e], s_ef[e],
+              s_chem[e],
+              depthwise3x3(s_acc, e, RH, c),
+              depthwise3x3(s_inf, e, RH, c + C),
+              depthwise3x3(s_tmp, e, RH, c + 2 * C),
+              depthwise3x3(s_occ, e, RH, c + 3 * C),
+              depthwise3x3(s_af, e, RH, c + 4 * C),
+              depthwise3x3(s_ef, e, RH, c + 5 * C),
+              depthwise3x3(s_chem, e, RH, c + 6 * C)};
+          turn = mlp_turn<20>(s_par, C, 7, p.hidden, feat);
+        }
+      }
+      const float dirt = mod_dirs<N>(dirf + turn);
+      s_dirt[e] = dirt;
+      s_code[e] = dirt * occ - (1.0f - occ);
     });
     __syncthreads();
-  }
-  for_region(t, m1, [&](int u, int v) {
-    const int e = u * RH + v;
-    const float occ = s_occ[e];
-    const float dirf = s_dir[e];
-    float left, fwd, right;
-    if (FAM == kCtx) {
-      left = s_acc[e];
-      fwd = s_inf[e];
-      right = s_tmp[e];
-    } else {
-      probe_trio<N>(s_chem, e, RH, dirf, S, &left, &fwd, &right);
-    }
-    float turn;
-    if (FAM == kJones) {
-      const uint32_t rand = cell_bits(p, t, u, v);
-      const bool keep = (fwd >= left) && (fwd >= right);
-      const float rand_sign = (float)(rand & 1u) * 2.0f - 1.0f;
-      turn = keep ? 0.0f
-                  : (left > right ? 1.0f : (right > left ? -1.0f : rand_sign));
-    } else if (FAM == kLinear) {
-      const float feat[6] = {left, fwd, right, s_ef[e], s_af[e], s_chem[e]};
-      float lg[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float* row = s_par + a * p.cols;
-        float acc = row[6] * 1.0f;
-#pragma unroll
-        for (int f = 0; f < 6; ++f) acc = acc + row[f] * feat[f];
-        lg[a] = acc;
-      }
-      turn = decide(lg[0], lg[1], lg[2]);
-    } else if (FAM == kMlp) {
-      const float feat[7] = {left, fwd, right, occ, s_af[e], s_ef[e],
-                             s_chem[e]};
-      turn = mlp_turn<7>(s_par, p.cols, 0, p.hidden, feat);
-    } else {
-      float fl, ff, fr, el, ef, er;
-      probe_trio<N>(s_chem, e, RH, dirf, 2 * S, &fl, &ff, &fr);
-      probe_trio<N>(s_ef, e, RH, dirf, S, &el, &ef, &er);
-      if (FAM == kWide) {
-        const float feat[13] = {left, fwd, right, fl, ff, fr, el, ef, er,
-                                occ, s_af[e], s_ef[e], s_chem[e]};
-        turn = mlp_turn<13>(s_par, p.cols, 0, p.hidden, feat);
-      } else {
-        const float* c = s_par;
-        const int C = p.cols;
-        const float feat[20] = {
-            left, fwd, right, fl, ff, fr, el, ef, er, occ, s_af[e], s_ef[e],
-            s_chem[e],
-            depthwise3x3(s_acc, e, RH, c),
-            depthwise3x3(s_inf, e, RH, c + C),
-            depthwise3x3(s_tmp, e, RH, c + 2 * C),
-            depthwise3x3(s_occ, e, RH, c + 3 * C),
-            depthwise3x3(s_af, e, RH, c + 4 * C),
-            depthwise3x3(s_ef, e, RH, c + 5 * C),
-            depthwise3x3(s_chem, e, RH, c + 6 * C)};
-        turn = mlp_turn<20>(s_par, C, 7, p.hidden, feat);
-      }
-    }
-    const float dirt = mod_dirs<N>(dirf + turn);
-    s_dirt[e] = dirt;
-    s_code[e] = dirt * occ - (1.0f - occ);
-  });
-  __syncthreads();
 
-  // ---- 2. move: winner among incoming candidates ----------------------------
-  const int m2 = m1 + hop;
-  for_region(t, m2, [&](int u, int v) {
-    const int e = u * RH + v;
-    const bool empty = s_occ[e] <= 0.0f;
-    const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
-    float best = 0.0f + nf, winner = 0.0f, in_food = 0.0f;
-    float s = mod_dirs<N>(-r);
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      const int opp = (d + N / 2) % N;
-      const int o = off_row<N>(opp) * RH + off_col<N>(opp);
-      if (s_code[e + o] == (float)d && s < best) {
-        winner = (float)d;
-        in_food = s_af[e + o];
-        best = s;
-      }
-      if (d + 1 < N) {
-        const float s1 = s + 1.0f;
-        s = (s1 == nf) ? 0.0f : s1;
-      }
-    }
-    const bool received = (best < nf) && empty;
-    s_acc[e] = received ? winner : -1.0f;
-    s_inf[e] = in_food;
-  });
-  __syncthreads();
-
-  // ---- 3. update: moves resolved, deposit; birth proposal --------------------
-  // (reads its own cell of every field it overwrites; neighbours of s_acc)
-  const int m3 = m2 + hop;
-  for_region(t, m3, [&](int u, int v) {
-    const int e = u * RH + v;
-    const float occ = s_occ[e];
-    const float dirt = s_dirt[e];
-    const float acc = s_acc[e];
-    const bool empty = occ <= 0.0f;
-    const bool received = acc >= 0.0f;
-    float acc_sel = s_acc[e + off_row<N>(0) * RH + off_col<N>(0)];
-#pragma unroll
-    for (int d = 1; d < N; ++d)
-      if (dirt == (float)d)
-        acc_sel = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
-    const bool moved = !empty && (acc_sel == dirt);
-    const bool blocked = !empty && !moved;
-    uint32_t prio, block, birth;
-    carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
-    const float stay =
-        (p.randomize_on_block && blocked) ? (float)block : dirt;
-    const float new_occ = received ? 1.0f : (moved ? 0.0f : occ);
-    const float new_dir = received ? acc : (moved ? 0.0f : stay);
-    const float new_af = received ? s_inf[e] : (moved ? 0.0f : s_af[e]);
-    const float dep_mask =
-        received ? 1.0f : (moved ? 0.0f : occ * p.idle_deposit);
-    s_occ[e] = new_occ;
-    s_dir[e] = new_dir;
-    s_af[e] = new_af;
-    s_code[e] = dep_mask;
-    s_inf[e] = received ? 1.0f : 0.0f;
-    s_chem[e] = s_chem[e] + p.deposit_coef * s_ef[e] * dep_mask;
-    if (p.agents_born) {
-      const float fert =
-          (new_occ > 0.0f && new_af > p.birth_threshold) ? 1.0f : 0.0f;
-      s_dirt[e] = (float)birth * fert - (1.0f - fert);
-    }
-  });
-  __syncthreads();
-
-  const int R = p.halo;
-  if (p.agents_born) {
-    // ---- 2b. reproduction: winner among proposed children -------------------
-    for_region(t, m3 + hop, [&](int u, int v) {
+    // ---- 2. move: winner among incoming candidates ------------------------
+    const int m2 = m1 + hop;
+    for_region(t, m2, [&](int u, int v) {
       const int e = u * RH + v;
-      const bool post_empty = s_occ[e] <= 0.0f;
+      const bool empty = s_occ[e] <= 0.0f;
       const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
-      float b_best = 0.0f + nf, b_win = 0.0f, b_pfood = 0.0f;
+      float best = 0.0f + nf, winner = 0.0f, in_food = 0.0f;
+      float s = mod_dirs<N>(-r);
 #pragma unroll
       for (int d = 0; d < N; ++d) {
         const int opp = (d + N / 2) % N;
         const int o = off_row<N>(opp) * RH + off_col<N>(opp);
-        const bool cand = (s_dirt[e + o] == (float)d) && post_empty;
-        const float score = cand ? mod_dirs<N>((float)d - r) : nf;
-        if (score < b_best) {
-          b_win = (float)d;
-          b_pfood = s_af[e + o];
-          b_best = score;
+        if (s_code[e + o] == (float)d && s < best) {
+          winner = (float)d;
+          in_food = s_af[e + o];
+          best = s;
+        }
+        if (d + 1 < N) {
+          const float s1 = s + 1.0f;
+          s = (s1 == nf) ? 0.0f : s1;
         }
       }
-      s_acc[e] = (b_best < nf) ? b_win : -1.0f;
-      s_tmp[e] = b_pfood;
+      const bool received = (best < nf) && empty;
+      s_acc[e] = received ? winner : -1.0f;
+      s_inf[e] = in_food;
     });
     __syncthreads();
-    // parents split their food, children arrive (tile cells; reads
-    // neighbours of s_acc only)
-    for_region(t, R, [&](int u, int v) {
+
+    // ---- 3. update: moves resolved, deposit; birth proposal ---------------
+    // (reads its own cell of every field it overwrites; neighbours of s_acc)
+    const int m3 = m2 + hop;
+    for_region(t, m3, [&](int u, int v) {
       const int e = u * RH + v;
-      const float pm_occ = s_occ[e];
-      const float pm_af = s_af[e];
+      const float occ = s_occ[e];
+      const float dirt = s_dirt[e];
+      const float acc = s_acc[e];
+      const bool empty = occ <= 0.0f;
+      const bool received = acc >= 0.0f;
+      float acc_sel = s_acc[e + off_row<N>(0) * RH + off_col<N>(0)];
+#pragma unroll
+      for (int d = 1; d < N; ++d)
+        if (dirt == (float)d)
+          acc_sel = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
+      const bool moved = !empty && (acc_sel == dirt);
+      const bool blocked = !empty && !moved;
       uint32_t prio, block, birth;
       carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
-      const float birth_dir = (float)birth;
-      const bool fertile = pm_occ > 0.0f && pm_af > p.birth_threshold;
-      float spawned_f = 0.0f;
-#pragma unroll
-      for (int d = 0; d < N; ++d) {
-        const float b_acc_o = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
-        const float t2 = (birth_dir == (float)d ? 1.0f : 0.0f) *
-                         (b_acc_o == (float)d ? 1.0f : 0.0f);
-        spawned_f = d == 0 ? t2 : spawned_f + t2;
-      }
-      const bool spawned = fertile && spawned_f > 0.0f;
-      const float bacc = s_acc[e];
-      const bool born = bacc >= 0.0f;
-      const float bornf = born ? 1.0f : 0.0f;
-      const float b_windir = born ? bacc : 0.0f;
-      float new_af = spawned ? pm_af * 0.5f : pm_af;
-      new_af = new_af + bornf * s_tmp[e] * 0.5f;
+      const float stay =
+          (p.randomize_on_block && blocked) ? (float)block : dirt;
+      const float new_occ = received ? 1.0f : (moved ? 0.0f : occ);
+      const float new_dir = received ? acc : (moved ? 0.0f : stay);
+      const float new_af = received ? s_inf[e] : (moved ? 0.0f : s_af[e]);
+      const float dep_mask =
+          received ? 1.0f : (moved ? 0.0f : occ * p.idle_deposit);
+      s_occ[e] = new_occ;
+      s_dir[e] = new_dir;
       s_af[e] = new_af;
-      s_dir[e] = s_dir[e] * (1.0f - bornf) + b_windir * bornf;
-      s_occ[e] = pm_occ + bornf;
+      s_code[e] = dep_mask;
+      s_inf[e] = received ? 1.0f : 0.0f;
+      s_chem[e] = s_chem[e] + p.deposit_coef * s_ef[e] * dep_mask;
+      if (p.agents_born) {
+        const float fert =
+            (new_occ > 0.0f && new_af > p.birth_threshold) ? 1.0f : 0.0f;
+        s_dirt[e] = (float)birth * fert - (1.0f - fert);
+      }
     });
     __syncthreads();
-  }
 
-  // ---- 4-6. feed, lifecycle, food flow (tile cells) --------------------------
-  int alive_count = 0;
-  const float flow_t = p.flow_kind == kFlowWave ? q.flow_t[t.b] : 0.0f;
-  const long long flow_base =
-      p.flow_env_stride ? (long long)t.b << (p.lw + p.lh) : 0;
-  for_region(t, R, [&](int u, int v) {
-    const int e = u * RH + v;
-    float new_occ = s_occ[e];
-    float new_dir = s_dir[e];
-    float new_af = s_af[e];
-    const float efood = s_ef[e];
-    const float deposit = p.deposit_coef * efood * s_code[e];
-    const float consumed = p.rate_feed * efood * new_occ;
-    float env = efood;
-    if (!p.food_infinite) env = env - consumed;
-    const float cost = p.cost_deposit * deposit + p.cost_move * s_inf[e];
-    const float gained = consumed - cost * new_occ;
-    new_af = new_af + gained;
-    if (p.agents_die) {
-      const float dead =
-          new_occ * (new_af <= p.death_threshold ? 1.0f : 0.0f);
-      const float alive = 1.0f - dead;
-      new_occ = new_occ * alive;
-      new_dir = new_dir * alive;
-      new_af = new_af * alive;
+    // the margin this step's results are valid from: the tile in the one-step
+    // form and in the fused form's last pass
+    const int R = FUSED ? mb + p.step_halo : p.halo;
+    if (p.agents_born) {
+      // ---- 2b. reproduction: winner among proposed children ---------------
+      for_region(t, m3 + hop, [&](int u, int v) {
+        const int e = u * RH + v;
+        const bool post_empty = s_occ[e] <= 0.0f;
+        const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
+        float b_best = 0.0f + nf, b_win = 0.0f, b_pfood = 0.0f;
+#pragma unroll
+        for (int d = 0; d < N; ++d) {
+          const int opp = (d + N / 2) % N;
+          const int o = off_row<N>(opp) * RH + off_col<N>(opp);
+          const bool cand = (s_dirt[e + o] == (float)d) && post_empty;
+          const float score = cand ? mod_dirs<N>((float)d - r) : nf;
+          if (score < b_best) {
+            b_win = (float)d;
+            b_pfood = s_af[e + o];
+            b_best = score;
+          }
+        }
+        s_acc[e] = (b_best < nf) ? b_win : -1.0f;
+        s_tmp[e] = b_pfood;
+      });
+      __syncthreads();
+      // parents split their food, children arrive (cells from margin R;
+      // reads neighbours of s_acc only)
+      for_region(t, R, [&](int u, int v) {
+        const int e = u * RH + v;
+        const float pm_occ = s_occ[e];
+        const float pm_af = s_af[e];
+        uint32_t prio, block, birth;
+        carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
+        const float birth_dir = (float)birth;
+        const bool fertile = pm_occ > 0.0f && pm_af > p.birth_threshold;
+        float spawned_f = 0.0f;
+#pragma unroll
+        for (int d = 0; d < N; ++d) {
+          const float b_acc_o = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
+          const float t2 = (birth_dir == (float)d ? 1.0f : 0.0f) *
+                           (b_acc_o == (float)d ? 1.0f : 0.0f);
+          spawned_f = d == 0 ? t2 : spawned_f + t2;
+        }
+        const bool spawned = fertile && spawned_f > 0.0f;
+        const float bacc = s_acc[e];
+        const bool born = bacc >= 0.0f;
+        const float bornf = born ? 1.0f : 0.0f;
+        const float b_windir = born ? bacc : 0.0f;
+        float new_af = spawned ? pm_af * 0.5f : pm_af;
+        new_af = new_af + bornf * s_tmp[e] * 0.5f;
+        s_af[e] = new_af;
+        s_dir[e] = s_dir[e] * (1.0f - bornf) + b_windir * bornf;
+        s_occ[e] = pm_occ + bornf;
+      });
+      __syncthreads();
     }
-    const int gi = grow(p, t, u), gj = gcol(p, t, v);
-    const long long cell = ((long long)gi << p.lh) + gj;
-    if (p.flow_kind == kFlowWave) {
-      const float f = wave_field(p, gi, gj, flow_t);
-      env = p.flow_scale * f + p.flow_keep * env;
-    } else if (p.flow_kind == kFlowField) {
-      const float f = q.flow_f[flow_base + cell];
-      env = p.flow_scale * f + p.flow_keep * env;
-    }
-    const long long g = base + cell;
-    q.occ_o[g] = new_occ;
-    q.dir_o[g] = new_dir;
-    q.afood_o[g] = new_af;
-    q.efood_o[g] = env;
-    q.gained_o[g] = gained * new_occ;
-    alive_count += new_occ > 0.0f ? 1 : 0;
-  });
 
-  // ---- 7. diffuse (taps folded from -r to +r, axis 0 then axis 1) ----------
-  // s_tmp takes the axis-0 pass on the tile's rows, widened by r columns
-  const int dr = (p.ntaps - 1) / 2;
-  {
-    const int h = p.tc + 2 * dr;
-    const int n = p.tr * h;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const int du = e / h;
-      const int u = R + du, v = R - dr + (e - du * h);
-      float acc = p.taps[0] * s_chem[(u - dr) * RH + v];
-      for (int k = 1; k < p.ntaps; ++k)
-        acc = acc + p.taps[k] * s_chem[(u + k - dr) * RH + v];
-      s_tmp[u * RH + v] = acc;
-    }
-  }
-  __syncthreads();
-  for_region(t, R, [&](int u, int v) {
-    const int e = u * RH + v;
-    float acc = p.taps[0] * s_tmp[e - dr];
-    for (int k = 1; k < p.ntaps; ++k)
-      acc = acc + p.taps[k] * s_tmp[e + k - dr];
-    const long long g =
-        base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
-    q.chem_o[g] = acc * p.chem_keep;
-  });
+    // ---- 4-6. feed, lifecycle, food flow (cells from margin R) ------------
+    int alive_count = 0;
+    const float flow_t = p.flow_kind == kFlowWave
+                             ? q.flow_t[FUSED ? t.b * p.K + k : t.b]
+                             : 0.0f;
+    const long long flow_base =
+        FUSED ? ((p.flow_env_stride ? (long long)t.b * p.K : 0) + k)
+                    << (p.lw + p.lh)
+              : (p.flow_env_stride ? (long long)t.b << (p.lw + p.lh) : 0);
+    const long long gained_base =
+        FUSED ? ((long long)k * p.B + t.b) << (p.lw + p.lh) : base;
+    for_region(t, R, [&](int u, int v) {
+      const int e = u * RH + v;
+      float new_occ = s_occ[e];
+      float new_dir = s_dir[e];
+      float new_af = s_af[e];
+      const float efood = s_ef[e];
+      const float deposit = p.deposit_coef * efood * s_code[e];
+      const float consumed = p.rate_feed * efood * new_occ;
+      float env = efood;
+      if (!p.food_infinite) env = env - consumed;
+      const float cost = p.cost_deposit * deposit + p.cost_move * s_inf[e];
+      const float gained = consumed - cost * new_occ;
+      new_af = new_af + gained;
+      if (p.agents_die) {
+        const float dead =
+            new_occ * (new_af <= p.death_threshold ? 1.0f : 0.0f);
+        const float alive = 1.0f - dead;
+        new_occ = new_occ * alive;
+        new_dir = new_dir * alive;
+        new_af = new_af * alive;
+      }
+      const int gi = grow(p, t, u), gj = gcol(p, t, v);
+      const long long cell = ((long long)gi << p.lh) + gj;
+      if (p.flow_kind == kFlowWave) {
+        const float f = wave_field(p, gi, gj, flow_t);
+        env = p.flow_scale * f + p.flow_keep * env;
+      } else if (p.flow_kind == kFlowField) {
+        const float f = q.flow_f[flow_base + cell];
+        env = p.flow_scale * f + p.flow_keep * env;
+      }
+      if (last) {
+        const long long g = base + cell;
+        q.occ_o[g] = new_occ;
+        q.dir_o[g] = new_dir;
+        q.afood_o[g] = new_af;
+        q.efood_o[g] = env;
+        q.gained_o[gained_base + cell] = gained * new_occ;
+        alive_count += new_occ > 0.0f ? 1 : 0;
+      } else {
+        s_occ[e] = new_occ;
+        s_dir[e] = new_dir;
+        s_af[e] = new_af;
+        s_ef[e] = env;
+        // the step's gain and count are the tile's cells only
+        if (u >= p.halo && u < p.halo + p.tr && v >= p.halo &&
+            v < p.halo + p.tc) {
+          q.gained_o[gained_base + cell] = gained * new_occ;
+          alive_count += new_occ > 0.0f ? 1 : 0;
+        }
+      }
+    });
 
-  // exact agent count: warp sums, then one atomic per block
-  for (int off = 16; off > 0; off >>= 1)
-    alive_count += __shfl_down_sync(0xffffffffu, alive_count, off);
-  __shared__ int warp_counts[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = alive_count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
-    if (total) atomicAdd(q.num_o + t.b, total);
+    // ---- 7. diffuse (taps folded from -r to +r, axis 0 then axis 1) -------
+    // s_tmp takes the axis-0 pass on the rows from margin R, widened by r
+    // columns
+    const int dr = (p.ntaps - 1) / 2;
+    {
+      const int h = (FUSED ? t.RH - 2 * R : p.tc) + 2 * dr;
+      const int n = (FUSED ? t.RW - 2 * R : p.tr) * h;
+      for (int e = threadIdx.x; e < n; e += blockDim.x) {
+        const int du = e / h;
+        const int u = R + du, v = R - dr + (e - du * h);
+        float acc = p.taps[0] * s_chem[(u - dr) * RH + v];
+        for (int k2 = 1; k2 < p.ntaps; ++k2)
+          acc = acc + p.taps[k2] * s_chem[(u + k2 - dr) * RH + v];
+        s_tmp[u * RH + v] = acc;
+      }
+    }
+    __syncthreads();
+    for_region(t, R, [&](int u, int v) {
+      const int e = u * RH + v;
+      float acc = p.taps[0] * s_tmp[e - dr];
+      for (int k2 = 1; k2 < p.ntaps; ++k2)
+        acc = acc + p.taps[k2] * s_tmp[e + k2 - dr];
+      if (last) {
+        const long long g =
+            base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
+        q.chem_o[g] = acc * p.chem_keep;
+      } else {
+        s_chem[e] = acc * p.chem_keep;
+      }
+    });
+
+    // exact agent count of this step (its barrier also closes the pass: the
+    // next one reads what this one wrote to shared memory)
+    block_count_add(alive_count, q.num_o + (FUSED ? t.b * p.K + k : t.b));
   }
 }
 
+// The one-step launch (K1, K3).
 template <int N, int FAM>
 cudaError_t launch(Params p, const Buffers& q, cudaStream_t st) {
   // the largest tile (at most DIE_TILE_ROWS x DIE_TILE_COLS, halved until
@@ -649,20 +742,43 @@ cudaError_t launch(Params p, const Buffers& q, cudaStream_t st) {
                         sizeof(float);
     if (smem > (size_t)kMaxSmem) continue;
     const cudaError_t e = cudaFuncSetAttribute(
-        k_lattice_step<N, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        k_lattice_step<N, FAM, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((unsigned)((p.W / p.tr) * (p.H / p.tc)), (unsigned)p.B);
-    k_lattice_step<N, FAM><<<grid, kThreads, smem, st>>>(p, q);
+    k_lattice_step<N, FAM, false><<<grid, kThreads, smem, st>>>(p, q);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
 }
 
+// The fused launch (K4): K steps, the tile the host chose (fast/cuda_step.py
+// ::choose_tile); a region that does not fit is refused, never shrunk here.
+template <int N, int FAM>
+cudaError_t launch_fused(const Params& p, const Buffers& q, cudaStream_t st) {
+  const size_t par = FAM == kJones ? 0 : (size_t)p.rows * p.cols;
+  if (p.K < 1 || p.tr < 1 || p.tc < 1 || p.W % p.tr || p.H % p.tc ||
+      p.halo != p.K * p.step_halo)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)kFields * (p.tr + 2 * p.halo) * (p.tc + 2 * p.halo) + par) *
+      sizeof(float);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      k_lattice_step<N, FAM, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((p.W / p.tr) * (p.H / p.tc)), (unsigned)p.B);
+  k_lattice_step<N, FAM, true><<<grid, kThreads, smem, st>>>(p, q);
+  return cudaGetLastError();
+}
+
 // Unpacks the host's arrays (see die_lattice_step in lattice_step.cu for
-// their layout); returns false on a shape the kernel does not take.
+// their layout; the fused form's ip has three more entries, see
+// lattice_step_fused.cu); returns false on a shape the kernel does not take.
 inline bool unpack(const long long* ptrs, const int* ip, const float* fp,
-                   Params* pp, Buffers* qq, int* n_dirs, int* family) {
+                   Params* pp, Buffers* qq, int* n_dirs, int* family,
+                   bool fused = false) {
   Params& p = *pp;
   p.B = ip[0];
   p.W = ip[1];
@@ -689,8 +805,17 @@ inline bool unpack(const long long* ptrs, const int* ip, const float* fp,
   p.rows = ip[17];
   p.cols = ip[18];
   p.hidden = ip[19];
+  p.K = 1;
+  p.step_halo = p.halo;
+  if (fused) {
+    p.K = ip[20];
+    p.tr = ip[21];
+    p.tc = ip[22];
+    if (p.K < 1) return false;
+    p.halo = p.K * p.step_halo;
+  }
   if (p.ntaps < 1 || p.ntaps > kMaxTaps || p.halo < 0 || p.reach < 0 ||
-      p.reach > p.halo || p.flow_kind < kFlowNone ||
+      p.reach > p.step_halo || p.flow_kind < kFlowNone ||
       p.flow_kind > kFlowField)
     return false;
   if (*family != kJones &&

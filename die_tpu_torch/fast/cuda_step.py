@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the lattice step: build, wrappers, counts.
 
-Counterpart of the JAX package's ``fast/pallas_step.py``.  Three kernels, in
+Counterpart of the JAX package's ``fast/pallas_step.py``.  Four kernels, in
 CUDA C++ under ``die_tpu_torch/csrc/``:
 
 - ``lattice_step`` (``lattice_step.cu``, K1): one full step of a lockstep
@@ -11,6 +11,14 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
   ``_multi_step_kernel_learned`` (B2) and, given a flow field,
   ``_multi_step_kernel_perlin_learned`` (B3).  Both instantiate the one
   kernel template of ``lattice_step.cuh``.
+- ``lattice_steps`` / ``learned_lattice_steps`` (``lattice_step_fused.cu``,
+  ``lattice_step_fused_learned.cu``, K4): ``K`` fused steps per launch of
+  the same template on 2-D tiles with a ``K * halo`` margin, for fields of
+  any power-of-two size; replaces the banded large-field kernel of
+  ``make_pallas_banded_step`` (B4).  :func:`choose_tile` and
+  :func:`check_kernel_supported` stand where the JAX package has
+  ``choose_bands`` and the banded constructor's refusals: a (config, K,
+  tile) whose region does not fit a block's shared memory raises.
 - ``tree_sum_2d`` (``tree_sum_2d.cu``): the order-pinned reward fold.
 
 Each source is built by its own ``nvcc`` (all started together) into a
@@ -20,8 +28,8 @@ loaded with ``ctypes``.  Flags: ``-gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 --fmad=false``; never fast math, and denormals are kept.
 
 A wrapper given CPU tensors runs the kernel's plain version
-(``fast/env.py``, ``fast/learned.py``); given CUDA tensors it launches the
-kernel or raises.  Each launch adds one to ``launches[name]`` of what it
+(``fast/env.py``, ``fast/learned.py``, ``fast/tiled.py``); given CUDA
+tensors it launches the kernel or raises.  Each launch adds one to ``launches[name]`` of what it
 launched (``*_perlin`` when the step read a flow field), and nothing else
 does.
 """
@@ -42,10 +50,12 @@ import torch
 from die_tpu_torch.core.mathx import f32
 from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.env import (FastEnvState, check_supported,
-                                    fast_step_full, flow_field_for)
+                                    fast_step_full, flow_field_for,
+                                    flow_stack_for)
 from die_tpu_torch.fast.env import tree_sum_2d as plain_tree_sum_2d
 from die_tpu_torch.fast.learned import make_turn_rule, rule_family
 from die_tpu_torch.fast.rollout import step_bits
+from die_tpu_torch.fast.tiled import tiled_steps_plain
 from die_tpu_torch.ops.gaussian import gaussian_taps
 from die_tpu_torch.ops.waves import flow_time
 
@@ -56,13 +66,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 SOURCES = {"lattice_step": "lattice_step.cu",
            "lattice_step_learned": "lattice_step_learned.cu",
+           "lattice_step_fused": "lattice_step_fused.cu",
+           "lattice_step_fused_learned": "lattice_step_fused_learned.cu",
            "tree_sum_2d": "tree_sum_2d.cu"}
 KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_step_learned_linear", "lattice_step_learned_mlp",
            "lattice_step_learned_wide", "lattice_step_learned_ctx",
-           "lattice_step_learned_perlin", "tree_sum_2d")
+           "lattice_step_learned_perlin",
+           "lattice_steps_fused", "lattice_steps_fused_perlin",
+           "lattice_steps_fused_learned_linear",
+           "lattice_steps_fused_learned_mlp",
+           "lattice_steps_fused_learned_wide",
+           "lattice_steps_fused_learned_ctx",
+           "lattice_steps_fused_learned_perlin", "tree_sum_2d")
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
+MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
+SMEM_FIELDS = 10  # shared-memory fields of the region (csrc kFields)
+# Tiles the fused kernel may run, largest first.  Below 16x16 the margin's
+# redundant work passes 20 times the tile's own, so a region that fits no
+# tile of these is refused instead.
+FUSED_TILES = (32, 16)
+MAX_CELLS = 2 ** 31 - 1
 FAMILY_CODE = {"linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
 FLOW_CODE = {"none": 0, "wave": 1, "perlin": 2}
 
@@ -127,10 +152,10 @@ def build() -> float:
         for name in SOURCES:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
-        for name, fn in (("lattice_step", "die_lattice_step"),
-                         ("lattice_step_learned",
-                          "die_lattice_step_learned")):
-            step = getattr(_libs[name], fn)
+        for name in SOURCES:
+            if name == "tree_sum_2d":
+                continue
+            step = getattr(_libs[name], "die_" + name)
             step.argtypes = [vp, vp, vp, vp]
             step.restype = ip
         _libs["lattice_step"].die_error_string.argtypes = [ip]
@@ -182,16 +207,70 @@ def learned_halo_radius(dyn: FastDynamics, params_shape=None) -> int:
     return base
 
 
-def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None):
+def fused_margin(dyn: FastDynamics, params_shape=None,
+                 num_inner: int = 1) -> int:
+    """Cells the fused kernel loads around a tile: ``num_inner`` times the
+    one-step influence radius, exactly (no rounding)."""
+    return num_inner * learned_halo_radius(dyn, params_shape)
+
+
+def region_bytes(tile, margin: int, params_shape=None) -> int:
+    """Shared memory a block needs: ten fields of tile + 2 * margin cells a
+    side, plus the rule's params."""
+    par = 0 if params_shape is None else \
+        int(params_shape[-2]) * int(params_shape[-1])
+    return 4 * (SMEM_FIELDS * (tile[0] + 2 * margin) * (tile[1] + 2 * margin)
+                + par)
+
+
+def choose_tile(dyn: FastDynamics, field_size, params_shape=None,
+                num_inner: int = 1, tile=None):
+    """The fused kernel's tile for a ``(W, H)`` field: the largest of
+    ``FUSED_TILES`` (cut to the field) whose region fits a block's shared
+    memory, or ``tile`` itself when given.  Raises, with the numbers, when
+    nothing fits: the caller asks for fewer inner steps; the kernel never
+    runs fewer than it was asked for."""
+    W, H = field_size
+    margin = fused_margin(dyn, params_shape, num_inner)
+    tried = [tuple(tile)] if tile is not None else \
+        [(min(t, W), min(t, H)) for t in FUSED_TILES]
+    for tr, tc in tried:
+        if tr < 1 or tc < 1 or W % tr or H % tc:
+            raise ValueError(f"tile {tr}x{tc} does not divide the field "
+                             f"{W}x{H}")
+        if region_bytes((tr, tc), margin, params_shape) <= MAX_SMEM:
+            return tr, tc
+    need = region_bytes(tried[-1], margin, params_shape)
+    raise ValueError(
+        f"num_inner={num_inner} does not fit: margin {margin} cells "
+        f"({num_inner} x halo {learned_halo_radius(dyn, params_shape)}) "
+        f"around a {tried[-1][0]}x{tried[-1][1]} tile needs {need} bytes of "
+        f"shared memory, a block has {MAX_SMEM}; use fewer inner steps")
+
+
+def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None,
+                           num_inner=None, tile=None):
     """Raise unless the kernels take this config, ``[B, W, H]`` shape and
-    (for the learned kernel) params shape."""
+    (for the learned kernel) params shape.  With ``num_inner`` the check is
+    the fused kernel's and returns its tile (:func:`choose_tile`).
+
+    The kernels' offsets are 64-bit, but a state above 2**31 - 1 cells
+    (with the fused kernel's ``num_inner`` gain fields: ``num_inner * B * W
+    * H``) is refused: eleven such fields do not fit an 80 GB card, so the
+    kernels were never run against their plain versions there."""
     check_supported(dyn)
     if len(shape) != 3:
         raise ValueError(f"kernel state must be [B, W, H], got {shape}")
-    _, W, H = shape
+    B, W, H = shape
     if W < 2 or H < 2 or (W & (W - 1)) or (H & (H - 1)):
         raise ValueError(f"kernel fields must have power-of-two sides >= 2, "
                          f"got {W}x{H}")
+    if B > 65535:
+        raise ValueError(f"a launch takes at most 65535 envs, got {B}")
+    cells = (num_inner or 1) * B * W * H
+    if cells > MAX_CELLS:
+        raise ValueError(f"{cells} cells ({num_inner or 1} x {B} x {W} x "
+                         f"{H}) exceed the kernels' limit of {MAX_CELLS}")
     if len(gaussian_taps(dyn.diffuse_sigma)) > MAX_TAPS:
         raise ValueError(f"diffuse_sigma {dyn.diffuse_sigma} needs more than "
                          f"{MAX_TAPS} taps")
@@ -200,6 +279,11 @@ def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None):
         R, C = params_shape[-2:]
         if R * C > MAX_PARAMS:
             raise ValueError(f"params {R}x{C} exceed {MAX_PARAMS} floats")
+    if num_inner is None:
+        return None
+    if num_inner < 1:
+        raise ValueError(f"num_inner must be >= 1, got {num_inner}")
+    return choose_tile(dyn, (W, H), params_shape, num_inner, tile)
 
 
 def _require_cuda(t: torch.Tensor, dtype, shape, what: str):
@@ -232,6 +316,24 @@ def _params(dyn: FastDynamics, B: int, W: int, H: int, flow_env_stride: int,
     return ip, fp
 
 
+def _member_params(params, B: int, dev):
+    """(params ``[P, R, C]``, member int32 ``[B]``: env b runs
+    ``params[member[b]]``), or (None, None) for the Jones rule."""
+    if params is None:
+        return None, None
+    R, C = params.shape[-2:]
+    if params.dim() == 2:
+        params = params.reshape(1, R, C)
+        member = torch.zeros(B, dtype=torch.int32, device=dev)
+    elif params.dim() == 3 and params.shape[0] == B:
+        member = torch.arange(B, dtype=torch.int32, device=dev)
+    else:
+        raise ValueError(f"params must be [R, C] or [B, R, C] with "
+                         f"B={B}, got {tuple(params.shape)}")
+    _require_cuda(params, torch.float32, tuple(params.shape), "params")
+    return params, member
+
+
 def _plain_step(dyn, state, keys_t, params, flow_field):
     bits = step_bits(dyn, keys_t, tuple(state.occ.shape[-2:]))
     rule = None if params is None else make_turn_rule(params, dyn)
@@ -254,18 +356,7 @@ def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
         _require_cuda(getattr(state, name), torch.float32, (B, W, H), name)
     _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
     _require_cuda(keys_t, torch.int64, (B, 2), "keys")
-    member = None
-    if learned:
-        R, C = params.shape[-2:]
-        if params.dim() == 2:
-            params = params.reshape(1, R, C)
-            member = torch.zeros(B, dtype=torch.int32, device=dev)
-        elif params.dim() == 3 and params.shape[0] == B:
-            member = torch.arange(B, dtype=torch.int32, device=dev)
-        else:
-            raise ValueError(f"params must be [R, C] or [B, R, C] with "
-                             f"B={B}, got {tuple(params.shape)}")
-        _require_cuda(params, torch.float32, tuple(params.shape), "params")
+    params, member = _member_params(params, B, dev)
     build()
     outs = [torch.empty_like(state.occ) for _ in range(6)]
     num = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -328,6 +419,96 @@ def learned_lattice_step(dyn: FastDynamics, state: FastEnvState,
     the whole batch or ``[B, R, C]``, one set per env); otherwise as
     :func:`lattice_step`."""
     return _step(dyn, state, keys_t, params, flow_field)
+
+
+def _steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
+           params, flow_stack, tile):
+    if keys.dim() != 3 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be [B, K, 2], got {tuple(keys.shape)}")
+    K = int(keys.shape[1])
+    learned = params is not None
+    pshape = None if not learned else tuple(params.shape)
+    tile = check_kernel_supported(dyn, tuple(state.occ.shape), pshape,
+                                  num_inner=K, tile=tile)
+    if state.occ.device.type == "cpu":
+        return tiled_steps_plain(dyn, state, keys, tile,
+                                 fused_margin(dyn, pshape, K), params=params,
+                                 flow_stack=flow_stack)
+    B, W, H = state.occ.shape
+    dev = state.occ.device
+    for name in ("occ", "dir", "agent_food", "env_food", "chem"):
+        _require_cuda(getattr(state, name), torch.float32, (B, W, H), name)
+    _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
+    _require_cuda(keys, torch.int64, (B, K, 2), "keys")
+    params, member = _member_params(params, B, dev)
+    build()
+    outs = [torch.empty_like(state.occ) for _ in range(5)]
+    gained = torch.empty((K, B, W, H), dtype=torch.float32, device=dev)
+    num = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    flow_step = state.flow_step
+    flow_t = None
+    env_stride = 0
+    if dyn.flow.kind == "wave":
+        ks = torch.arange(K, dtype=torch.int32, device=dev)
+        flow_t = flow_time(dyn.flow, flow_step[:, None] + ks).contiguous()
+    elif dyn.flow.kind == "perlin":
+        if flow_stack is None:
+            flow_stack = flow_stack_for(dyn, (W, H), flow_step, K)
+        if flow_stack.dim() == 4:
+            env_stride = 1
+            _require_cuda(flow_stack, torch.float32, (B, K, W, H),
+                          "flow_stack")
+        else:
+            _require_cuda(flow_stack, torch.float32, (K, W, H), "flow_stack")
+    if dyn.flow.kind != "none":
+        flow_step = flow_step + K
+    ptrs = np.array([state.occ.data_ptr(), state.dir.data_ptr(),
+                     state.agent_food.data_ptr(), state.env_food.data_ptr(),
+                     state.chem.data_ptr(), keys.data_ptr(),
+                     0 if flow_t is None else flow_t.data_ptr(),
+                     0 if dyn.flow.kind != "perlin"
+                     else flow_stack.data_ptr(),
+                     0 if member is None else params.data_ptr(),
+                     0 if member is None else member.data_ptr(),
+                     *(o.data_ptr() for o in outs), gained.data_ptr(),
+                     num.data_ptr()], dtype=np.int64)
+    ip, fp = _params(dyn, B, W, H, env_stride, pshape)
+    ip = np.concatenate([ip, np.array([K, *tile], dtype=np.int32)])
+    lib = "lattice_step_fused" + ("_learned" if learned else "")
+    rc = getattr(_libs[lib], "die_" + lib)(
+        ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
+    _check(rc, lib)
+    name = "lattice_steps_fused" + ("_learned" if learned else "")
+    if dyn.flow.kind == "perlin":
+        launches[name + "_perlin"] += 1
+    else:
+        launches[name + ("_" + rule_family(pshape).name if learned
+                         else "")] += 1
+    occ, dirf, afood, efood, chem = outs
+    new_state = FastEnvState(occ=occ, dir=dirf, agent_food=afood,
+                             env_food=efood, chem=chem, flow_step=flow_step)
+    return new_state, num, gained
+
+
+def lattice_steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
+                  flow_stack=None, tile=None):
+    """``K`` fused Jones steps of a lockstep batch in one launch, for fields
+    of any power-of-two size -> (state, num_agents i32[B, K], gained
+    f32[K, B, W, H]).  ``keys``: int64 ``[B, K, 2]``, step keys
+    ``fold_in(rollout_key_b, t0 + k)``.  ``flow_stack`` (perlin flow): the
+    fields of the ``K`` steps, ``[K, W, H]`` shared or ``[B, K, W, H]`` per
+    env; computed per env from ``state.flow_step`` when not given.
+    ``tile``: (rows, cols) to run instead of :func:`choose_tile`'s.  A
+    (config, K, tile) that does not fit shared memory raises."""
+    return _steps(dyn, state, keys, None, flow_stack, tile)
+
+
+def learned_lattice_steps(dyn: FastDynamics, state: FastEnvState,
+                          keys: torch.Tensor, params: torch.Tensor,
+                          flow_stack=None, tile=None):
+    """``K`` fused steps with the learned turn rule of ``params`` (``[R,
+    C]`` or ``[B, R, C]``); otherwise as :func:`lattice_steps`."""
+    return _steps(dyn, state, keys, params, flow_stack, tile)
 
 
 def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:

@@ -114,6 +114,16 @@ def flow_field_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor):
     return perlin_flow_field(dyn.flow, shape_wh, flow_step)
 
 
+def flow_stack_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor,
+                   num_inner: int):
+    """The flow fields of ``num_inner`` successive steps from ``flow_step``
+    (a scalar shared by the batch, or ``[B]`` per env): ``[..., K, W, H]``
+    with ``[..., k] = F(flow_step + k)``."""
+    ks = torch.arange(num_inner, dtype=flow_step.dtype,
+                      device=flow_step.device)
+    return flow_field_for(dyn, shape_wh, flow_step[..., None] + ks)
+
+
 def fast_step_full(dyn: FastDynamics, state: FastEnvState,
                    bits: FastStepBits, turn_rule=None, flow_field=None):
     """One full lattice step -> (state, reward, num_agents, gained_field).

@@ -42,7 +42,9 @@ from die_tpu_torch.core.rng import (as_key_tensor, fold_in, np_key,
                                     random_bits, uniform01_from_bits)
 from die_tpu_torch.fast.config import FastDynamics, dir_offsets
 from die_tpu_torch.fast.env import FastEnvState, roll_at
-from die_tpu_torch.fast.rollout import fast_rollout, kernel_rollout
+from die_tpu_torch.fast.rollout import (banded_rollout_batch,
+                                        check_num_inner, fast_rollout,
+                                        kernel_rollout, takes_fused_kernel)
 
 NUM_FEATURES = 6
 NUM_ACTIONS = 3  # left, keep, right
@@ -400,19 +402,29 @@ def learned_fast_rollout(dyn: FastDynamics, params, state: FastEnvState,
 
 def learned_fast_rollout_auto(dyn: FastDynamics, params,
                               state: FastEnvState, rollout_keys,
-                              num_steps: int, t0: int = 0, device="cuda"):
-    """The learned path.  On CUDA every step is one ``lattice_step_learned``
-    launch (the whole batch, each env with its own params when ``params``
-    is ``[B, R, C]``) plus one ``tree_sum_2d`` launch
-    (``fast/rollout.py::kernel_rollout``); a geometry, config or params
-    shape the kernel does not take raises.  On the CPU it is
-    :func:`learned_fast_rollout`."""
+                              num_steps: int, t0: int = 0, device="cuda",
+                              num_inner: int = 1):
+    """The learned path.  On CUDA, fields up to 256 x 256 take one
+    ``lattice_step_learned`` launch a step (the whole batch, each env with
+    its own params when ``params`` is ``[B, R, C]``) plus one
+    ``tree_sum_2d`` launch (``fast/rollout.py::kernel_rollout``); larger
+    fields, or any field when ``num_inner > 1`` is asked for, take
+    ``num_inner`` steps per launch of the fused tiled kernel, whose margin
+    counts the rule's reach (``banded_rollout_batch``).  A geometry,
+    config, params shape or ``num_inner`` the kernels do not take raises.
+    On the CPU it is :func:`learned_fast_rollout`."""
+    check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return learned_fast_rollout(dyn, params, state, rollout_keys,
                                     num_steps, t0=t0, device=dev)
+    params = _as_params(params, dev).contiguous()
+    if num_inner > 1 or takes_fused_kernel(state):
+        return banded_rollout_batch(dyn, state, rollout_keys, num_steps,
+                                    num_inner=num_inner, t0=t0,
+                                    params=params, device=dev)
     return kernel_rollout(dyn, state, rollout_keys, num_steps, t0, dev,
-                          params=_as_params(params, dev).contiguous())
+                          params=params)
 
 
 # ---- training ---------------------------------------------------------------

@@ -7,6 +7,10 @@ priority off, the scalar rotation is ``murmur_finalize(k0 ^ k1 ^ salt)``.
 ``fast_rollout`` is the eager loop over the plain step.  ``fast_rollout_auto``
 is the main path: on CUDA tensors it runs every step through the hand-written
 kernels of ``fast/cuda_step.py``, on CPU tensors through the plain step.
+``banded_rollout`` and ``banded_rollout_batch`` are the large-field path
+(twins of the JAX package's ``pallas_banded_rollout(_batch)``): ``num_inner``
+steps per launch of the fused tiled kernel; ``fast_rollout_auto`` routes
+fields above 256 x 256 through them.
 """
 from __future__ import annotations
 
@@ -17,9 +21,13 @@ from die_tpu_torch.core.rng import (as_key_tensor, fold_in, murmur_bits,
                                     murmur_finalize, random_bits)
 from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.env import (FastEnvState, FastStepBits,
-                                    fast_step_full, flow_field_for)
+                                    fast_step_full, flow_field_for,
+                                    flow_stack_for)
 
 _PRIO_SALT = 0x9E3779B9
+# fields above this many cells take the fused tiled kernel, as the JAX
+# routing sends them to its banded kernel
+WHOLE_FIELD_CELLS = 256 * 256
 
 
 def prio_rot(step_keys: torch.Tensor) -> torch.Tensor:
@@ -104,13 +112,94 @@ def kernel_rollout(dyn: FastDynamics, state: FastEnvState, rollout_keys,
     return state, torch.stack(rewards, -1), torch.stack(nums, -1)
 
 
+def check_num_inner(num_steps: int, num_inner: int):
+    if num_inner < 1 or num_steps % num_inner:
+        raise ValueError(f"num_steps={num_steps} is not a multiple of "
+                         f"num_inner={num_inner}")
+
+
+def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
+                         rollout_keys, num_steps: int, num_inner: int = 1,
+                         t0: int = 0, params=None, device="cuda", tile=None):
+    """The large-field rollout of a lockstep batch ``[B, W, H]``: every
+    ``num_inner`` steps are one launch of the fused tiled kernel
+    (``cuda_step.lattice_steps``, or ``learned_lattice_steps`` with
+    ``params``) and one ``tree_sum_2d`` launch over the ``num_inner`` gain
+    fields, so rewards keep the whole-field fold order.  Returns (state,
+    rewards f32[B, T], nums i32[B, T]).
+
+    ``num_steps`` must be a multiple of ``num_inner``; a ``num_inner`` whose
+    margin does not fit a block's shared memory raises.  ``t0`` continues the
+    key schedule of a resumed rollout; the flow schedule continues from the
+    carried ``state.flow_step`` (per env).  Perlin flow: the launch's field
+    stack is computed once for the batch when every env has the same
+    ``flow_step``, else per env.  On CPU tensors the same steps run through
+    the kernel's plain version (``fast/tiled.py``)."""
+    from die_tpu_torch.fast import cuda_step
+
+    check_num_inner(num_steps, num_inner)
+    dev = resolve_device(device)
+    state = to_device(state, dev)
+    if params is not None:
+        params = torch.as_tensor(params, dtype=torch.float32).to(
+            dev).contiguous()
+    keys = step_keys(as_key_tensor(rollout_keys, dev), t0, num_steps)
+    flow = shared_flow_step(dyn, state)
+    B, W, H = state.occ.shape
+    K = num_inner
+    rewards, nums = [], []
+    for i in range(0, num_steps, K):
+        chunk = keys[i:i + K].transpose(0, 1).contiguous()
+        stack = None if flow is None else \
+            flow_stack_for(dyn, (W, H), flow + i, K)
+        if params is None:
+            state, num, gained = cuda_step.lattice_steps(
+                dyn, state, chunk, flow_stack=stack, tile=tile)
+        else:
+            state, num, gained = cuda_step.learned_lattice_steps(
+                dyn, state, chunk, params, flow_stack=stack, tile=tile)
+        fold = cuda_step.tree_sum_2d(gained.reshape(K * B, W, H))
+        rewards.append(fold.reshape(K, B).transpose(0, 1))
+        nums.append(num)
+    return state, torch.cat(rewards, -1), torch.cat(nums, -1)
+
+
+def banded_rollout(dyn: FastDynamics, state: FastEnvState, rollout_key,
+                   num_steps: int, num_inner: int = 1, t0: int = 0,
+                   params=None, device="cuda", tile=None):
+    """:func:`banded_rollout_batch` for one env: fields ``[W, H]``, a
+    scalar ``flow_step``, one key ``uint32[2]`` -> (state, rewards f32[T],
+    nums i32[T])."""
+    dev = resolve_device(device)
+    batched = FastEnvState(*(x.to(dev)[None] for x in state))
+    out, rewards, nums = banded_rollout_batch(
+        dyn, batched, as_key_tensor(rollout_key, dev)[None], num_steps,
+        num_inner=num_inner, t0=t0, params=params, device=dev, tile=tile)
+    return FastEnvState(*(x[0] for x in out)), rewards[0], nums[0]
+
+
 def fast_rollout_auto(dyn: FastDynamics, state: FastEnvState, rollout_keys,
-                      num_steps: int, t0: int = 0, device="cuda"):
-    """The main path.  On CUDA it is :func:`kernel_rollout`; a geometry or
-    config the kernels do not take raises.  On the CPU it is
+                      num_steps: int, t0: int = 0, device="cuda",
+                      num_inner: int = 1):
+    """The main path.  On CUDA, fields up to 256 x 256 run
+    :func:`kernel_rollout` (one step per launch) and larger fields, or any
+    field when ``num_inner > 1`` is asked for, run
+    :func:`banded_rollout_batch` (``num_inner`` steps per launch); a
+    geometry or config the kernels do not take raises.  On the CPU it is
     :func:`fast_rollout`."""
+    check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return fast_rollout(dyn, state, rollout_keys, num_steps, t0=t0,
                             device=dev)
+    if num_inner > 1 or takes_fused_kernel(state):
+        return banded_rollout_batch(dyn, state, rollout_keys, num_steps,
+                                    num_inner=num_inner, t0=t0, device=dev)
     return kernel_rollout(dyn, state, rollout_keys, num_steps, t0, dev)
+
+
+def takes_fused_kernel(state: FastEnvState) -> bool:
+    """Whether the auto rollouts send this state's field to the fused tiled
+    kernel at ``num_inner = 1``: a batch of fields above 256 x 256."""
+    shape = state.occ.shape
+    return len(shape) == 3 and shape[-2] * shape[-1] > WHOLE_FIELD_CELLS

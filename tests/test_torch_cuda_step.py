@@ -62,6 +62,56 @@ def test_lattice_step_wrapper_on_cpu_is_plain_step(dyn):
     assert sum(cuda_step.launches.values()) == 0
 
 
+@pytest.mark.parametrize("dyn,num_inner", [
+    (FastDynamics(), 1), (FastDynamics(), 3),
+    (FastDynamics(agents_born=True, flow=FlowConfig(kind="wave")), 3),
+    (tuned_dynamics(16), 1)])
+def test_lattice_steps_wrapper_on_cpu_is_that_many_lattice_steps(dyn,
+                                                                 num_inner):
+    """K = 1 equals ``lattice_step``; K = 3 equals three of them."""
+    cuda_step.reset_launches()
+    shape = (32, 128)
+    st = fast_init(_keys(1, 2), shape, dyn, device="cpu")
+    keys = step_keys(as_key_tensor(_keys(2, 2), "cpu"), 0, num_inner)
+    new, nums, gained = cuda_step.lattice_steps(
+        dyn, st, keys.transpose(0, 1).contiguous())
+    assert nums.shape == (2, num_inner)
+    assert gained.shape == (num_inner, 2) + shape
+    ref = st
+    for k in range(num_inner):
+        ref, rnum, rgained = cuda_step.lattice_step(dyn, ref, keys[k])
+        assert torch.equal(nums[:, k], rnum)
+        assert torch.equal(gained[k], rgained)
+    for a, b in zip(new, ref):
+        assert torch.equal(a, b)
+    assert sum(cuda_step.launches.values()) == 0
+
+
+def test_learned_lattice_steps_wrapper_on_cpu_is_learned_lattice_steps():
+    from die_tpu_torch.fast import learned as TL
+
+    cuda_step.reset_launches()
+    dyn, shape = FastDynamics(), (32, 128)
+    rs = np.random.RandomState(3)
+    params = torch.from_numpy(rs.uniform(
+        -0.5, 0.5, (2,) + TL.mlp_wide_param_shape(8)).astype(np.float32))
+    st = fast_init(_keys(1, 2), shape, dyn, device="cpu")
+    keys = step_keys(as_key_tensor(_keys(2, 2), "cpu"), 0, 2)
+    new, nums, gained = cuda_step.learned_lattice_steps(
+        dyn, st, keys.transpose(0, 1).contiguous(), params)
+    ref = st
+    for k in range(2):
+        ref, rnum, rgained = cuda_step.learned_lattice_step(dyn, ref, keys[k],
+                                                            params)
+        assert torch.equal(nums[:, k], rnum)
+        assert torch.equal(gained[k], rgained)
+    for a, b in zip(new, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match=r"\[B, K, 2\]"):
+        cuda_step.lattice_steps(dyn, st, keys[0])
+    assert sum(cuda_step.launches.values()) == 0
+
+
 def test_tree_sum_wrapper_on_cpu_matches_jax_fold():
     cuda_step.reset_launches()
     a = np.random.RandomState(0).standard_normal((2,) + SHAPE).astype(
@@ -118,19 +168,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
 # ---- import hygiene ---------------------------------------------------------------
 
 def test_port_imports_no_jax_and_nothing_of_die_tpu():
+    """Every module of the package and every tool is imported in a fresh
+    interpreter, which must then hold no module of jax or die_tpu; and no
+    source file of the port, nor ``chip_smoke.py``, names either in an
+    import statement (tools import inside ``main``)."""
+    import re
+    from pathlib import Path
+
+    root = Path(cuda_step.__file__).resolve().parents[2]
+    sources = sorted((root / "die_tpu_torch").rglob("*.py")) + \
+        [root / "chip_smoke.py"]
+    tools = [p for p in sources if p.parent.name == "tools"]
+    assert {p.name for p in tools} >= {"bench_banded.py", "tree_timing.py",
+                                       "step_shapes.py"}
+    bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|die_tpu)\b",
+                            re.M)
+    for path in sources:
+        assert not bad_import.search(path.read_text()), path
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import die_tpu_torch\n"
         "for m in pkgutil.walk_packages(die_tpu_torch.__path__, "
         "'die_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for i, path in enumerate({[str(p) for p in tools]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'tool{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'die_tpu' or m.startswith('die_tpu.')]\n"
         "mods = [m for m in sys.modules if m.startswith('die_tpu_torch.')]\n"
-        "assert len(mods) >= 17, mods\n"
+        "assert len(mods) >= 18, mods\n"
         "for m in ('die_tpu_torch.fast.learned', 'die_tpu_torch.learn.es',"
-        " 'die_tpu_torch.fast.convert', 'die_tpu_torch.fast.cuda_step'):\n"
+        " 'die_tpu_torch.fast.convert', 'die_tpu_torch.fast.cuda_step',"
+        " 'die_tpu_torch.fast.tiled'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print('clean')\n")
@@ -163,3 +234,20 @@ def test_kernels_match_plain_on_card(cuda_device, dyn):
 def test_tree_sum_kernel_matches_plain_on_card(cuda_device):
     x = torch.randn((5, 64, 512), device=cuda_device)
     assert torch.equal(cuda_step.tree_sum_2d(x), tenv.tree_sum_2d(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_inner", [1, 2, 3])
+def test_fused_kernel_matches_plain_rollout_on_card(cuda_device, num_inner):
+    from die_tpu_torch.fast.rollout import banded_rollout_batch
+
+    dyn = FastDynamics(agents_born=True, flow=FlowConfig(kind="wave"))
+    st = fast_init(_keys(7, 2), (128, 256), dyn, device=cuda_device)
+    cuda_step.reset_launches()
+    out = banded_rollout_batch(dyn, st, _keys(8, 2), 6, num_inner=num_inner,
+                               device=cuda_device)
+    assert {k: v for k, v in cuda_step.launches.items() if v} == {
+        "lattice_steps_fused": 6 // num_inner, "tree_sum_2d": 6 // num_inner}
+    ref = fast_rollout(dyn, st, _keys(8, 2), 6, device=cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(out[0], ref[0]))
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
