@@ -37,8 +37,11 @@ Phases (any failure exits non-zero):
   7. the large-field path, counts read around each run: ``fast_init`` +
      ``fast_rollout_auto`` with ``FastDynamics()`` at 512x512 x 32 envs and
      1024x1024 x 8 envs (T = 256) and 2048x2048 x 64 envs (T = 32), each at
-     ``num_inner`` 1 and 2 (equal results, env-steps/s and ms per launch by
-     CUDA events); ``learned_fast_rollout_auto`` with the 8-direction wide
+     ``num_inner`` 1 and 2 (each counted run bitwise against the plain
+     rollout on the same inputs: the first and the last env over all T
+     steps, and at the two smaller sizes every env's rewards and counts
+     over 8 steps; env-steps/s and ms per launch by CUDA events);
+     ``learned_fast_rollout_auto`` with the 8-direction wide
      artifact at 512x512 x 8 envs, 16 steps, bitwise against the plain
      rollout; and short runs of the other fused forms (perlin, linear, MLP,
      ctx, learned perlin) through the same entry points;
@@ -791,6 +794,7 @@ def chunked_init(seed: int, B: int, field, dyn, chunk: int = 8):
 
 
 FUSED_STEPS = 6  # steps of a fused parity case: a multiple of K = 1, 2, 3
+LARGE_PREFIX = 8  # steps of every env held against the plain rollout
 LARGE_FIELDS = [((512, 512), 32, 256), ((1024, 1024), 8, 256),
                 ((2048, 2048), 64, 32)]
 
@@ -798,10 +802,16 @@ LARGE_FIELDS = [((512, 512), 32, 256), ((1024, 1024), 8, 256),
 def phase_large_field(smi: str):
     """The large-field path through ``fast_rollout_auto`` at the JAX
     package's bench shapes and at 2048x2048 x 64, each at num_inner 1 and 2:
-    counts read around the first run of each, rates from a second run."""
+    counts read around the first run of each, rates from a second run.  Each
+    counted run is held bitwise against the plain rollout on the same
+    inputs: every env's rewards and counts over the first ``LARGE_PREFIX``
+    steps where the plain step's temporaries fit beside the state, and the
+    first and the last env's final fields, rewards and counts over all T
+    steps (envs are independent, and the last env's offsets are the
+    largest)."""
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.config import FastDynamics
-    from die_tpu_torch.fast.rollout import fast_rollout_auto
+    from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
 
     dyn = FastDynamics()
     rows, counts = [], {k: 0 for k in cuda_step.KERNELS}
@@ -813,6 +823,13 @@ def phase_large_field(smi: str):
         n0 = (state.occ > 0).sum(dim=(1, 2), dtype=torch.int32)
         rkeys = env_keys(41, B)
         fold_ms = time_ms(lambda: cuda_step.tree_sum_2d(state.env_food), 5)
+        ends = [0, B - 1]
+        ref = fast_rollout(dyn, type(state)(*(x[ends] for x in state)),
+                           rkeys[ends], T, device="cuda")
+        prefix = LARGE_PREFIX if B * field[0] * field[1] <= 2 ** 24 else 0
+        if prefix:
+            _, ref_rew, ref_num = fast_rollout(dyn, state, rkeys, prefix,
+                                               device="cuda")
         outs = {}
         for K in (1, 2):
             cuda_step.reset_launches()
@@ -833,6 +850,22 @@ def phase_large_field(smi: str):
                 raise AssertionError("large-field agent count not conserved")
             if not all(bool(torch.isfinite(x).all()) for x in final[:5]):
                 raise AssertionError("large-field final state not finite")
+            if not (all(same(x[ends], y) for x, y in zip(final, ref[0]))
+                    and same(rewards[ends], ref[1])
+                    and same(nums[ends], ref[2])):
+                raise AssertionError(
+                    f"large field {field} K={K}: envs {ends} differ from "
+                    f"the plain rollout after {T} steps")
+            if prefix and not (same(rewards[:, :prefix], ref_rew)
+                               and same(nums[:, :prefix], ref_num)):
+                raise AssertionError(
+                    f"large field {field} K={K}: rewards or counts of the "
+                    f"first {prefix} steps differ from the plain rollout")
+            log(f"large field {field[0]}x{field[1]} x {B} envs, "
+                f"num_inner={K}: envs {ends} bitwise equal to the plain "
+                f"rollout after {T} steps (fields, rewards, counts)" + (
+                    f"; all envs' rewards and counts over the first "
+                    f"{prefix} steps too" if prefix else ""))
             outs[K] = (final, rewards, nums)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -856,7 +889,7 @@ def phase_large_field(smi: str):
                 and same(a[1], b[1]) and same(a[2], b[2])):
             raise AssertionError(f"large field {field}: num_inner 1 and 2 "
                                  f"give different results")
-        del outs, a, b, state, final, rewards, nums
+        del outs, a, b, state, final, rewards, nums, ref
         torch.cuda.empty_cache()
     log(f"large-field path launches: "
         f"{ {k: v for k, v in counts.items() if v} }")

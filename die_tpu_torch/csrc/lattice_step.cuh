@@ -91,15 +91,6 @@ namespace {
 #define DIE_TILE_COLS 32
 #endif
 
-// Blocks an SM asked of the fused Jones kernel (the register cap that
-// follows: 64 a thread at 2, 128 at 1).  At 2 its K = 1 form, which large
-// fields take by default, runs as fast as the one-step kernel; K = 2 and 3
-// leave room for one block either way and measured within 2% of each other
-// (tools/bench_banded.py --builds).
-#ifndef DIE_FUSED_JONES_BLOCKS
-#define DIE_FUSED_JONES_BLOCKS 2
-#endif
-
 constexpr int kMaxTaps = 33;
 constexpr int kThreads = DIE_THREADS;
 constexpr int kFields = 10;            // shared-memory fields of the region
@@ -346,11 +337,11 @@ __device__ __forceinline__ void block_count_add(int alive_count, int* dst) {
 // Two blocks an SM for the Jones rule (at the default config's halo 7 its
 // 46x46 one-step region fits twice in shared memory), which caps it at 64
 // registers a thread and measured faster at halo 13 as well; one for the
-// learned rules, whose larger halos leave room for one block only.
+// learned rules, whose larger halos leave room for one block only.  The
+// fused Jones form asks for two as well: its K = 1 launch, which large
+// fields take by default, then runs as fast as the one-step kernel.
 template <int N, int FAM, bool FUSED>
-__global__ void __launch_bounds__(
-    kThreads,
-    FAM != kJones ? 1 : (FUSED ? DIE_FUSED_JONES_BLOCKS : 2))
+__global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
     k_lattice_step(Params p, Buffers q) {
   extern __shared__ float sm[];
   Tile t;

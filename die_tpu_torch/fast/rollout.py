@@ -120,7 +120,7 @@ def check_num_inner(num_steps: int, num_inner: int):
 
 def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
                          rollout_keys, num_steps: int, num_inner: int = 1,
-                         t0: int = 0, params=None, device="cuda", tile=None):
+                         t0: int = 0, params=None, device="cuda"):
     """The large-field rollout of a lockstep batch ``[B, W, H]``: every
     ``num_inner`` steps are one launch of the fused tiled kernel
     (``cuda_step.lattice_steps``, or ``learned_lattice_steps`` with
@@ -154,10 +154,10 @@ def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
             flow_stack_for(dyn, (W, H), flow + i, K)
         if params is None:
             state, num, gained = cuda_step.lattice_steps(
-                dyn, state, chunk, flow_stack=stack, tile=tile)
+                dyn, state, chunk, flow_stack=stack)
         else:
             state, num, gained = cuda_step.learned_lattice_steps(
-                dyn, state, chunk, params, flow_stack=stack, tile=tile)
+                dyn, state, chunk, params, flow_stack=stack)
         fold = cuda_step.tree_sum_2d(gained.reshape(K * B, W, H))
         rewards.append(fold.reshape(K, B).transpose(0, 1))
         nums.append(num)
@@ -166,7 +166,7 @@ def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
 
 def banded_rollout(dyn: FastDynamics, state: FastEnvState, rollout_key,
                    num_steps: int, num_inner: int = 1, t0: int = 0,
-                   params=None, device="cuda", tile=None):
+                   params=None, device="cuda"):
     """:func:`banded_rollout_batch` for one env: fields ``[W, H]``, a
     scalar ``flow_step``, one key ``uint32[2]`` -> (state, rewards f32[T],
     nums i32[T])."""
@@ -174,7 +174,7 @@ def banded_rollout(dyn: FastDynamics, state: FastEnvState, rollout_key,
     batched = FastEnvState(*(x.to(dev)[None] for x in state))
     out, rewards, nums = banded_rollout_batch(
         dyn, batched, as_key_tensor(rollout_key, dev)[None], num_steps,
-        num_inner=num_inner, t0=t0, params=params, device=dev, tile=tile)
+        num_inner=num_inner, t0=t0, params=params, device=dev)
     return FastEnvState(*(x[0] for x in out)), rewards[0], nums[0]
 
 

@@ -2,7 +2,7 @@
 
     python3 die_tpu_torch/tools/bench_banded.py
     python3 die_tpu_torch/tools/bench_banded.py --sizes 512x512x32 \\
-        --inner 1,2,3 --tiles 32x32,32x64 --builds blocks2=-DDIE_FUSED_JONES_BLOCKS=2
+        --inner 1,2,3 --tiles auto,32x64
 
 Twin of the JAX package's ``tools/bench_banded.py`` (rates of the banded
 kernel at its bench shapes) and ``tools/bench_banded2.py`` (attribution by
@@ -12,22 +12,20 @@ of ``num_inner``) it times, with CUDA events after a warm-up:
 
 - ``one_step``: ``kernel_rollout``, one launch of the one-step kernel (K1)
   and one reward fold a step, as the baseline;
-- ``fused``: ``banded_rollout_batch`` for each ``num_inner`` of ``--inner``
-  and each tile of ``--tiles`` (``auto``: the wrapper's choice), and the
-  kernel alone (``lattice_steps``, 10 launches) beside the reward fold
-  alone.  A (K, tile) that does not fit shared memory is reported as such.
+- ``fused``: for each ``num_inner`` of ``--inner`` and each tile of
+  ``--tiles``, the kernel alone (``lattice_steps``, 10 launches) beside the
+  reward fold alone; for the tile ``auto`` (the wrapper's choice, the only
+  one the rollouts use) also ``banded_rollout_batch``.  A (K, tile) that
+  does not fit shared memory is reported as such.
 
-``--builds name=-Dflag[,-Dflag]`` compiles ``csrc/lattice_step_fused.cu``
-again with those flags into ``build/die_tpu_torch/variants/``, checks the
-variant bitwise against the package's build and times it the same way.
-Variants run in the order A..Z then Z..A so that drift shows.  Prints one
-JSON line per variant, each with the ``nvidia-smi`` name and power limit;
-writes no file outside ``build/``.
+Variants run in the order A..Z then Z..A so that drift shows, and each is
+held bitwise against the first at its ``num_inner``.  Prints one JSON line
+per variant, each with the ``nvidia-smi`` name and power limit; writes no
+file.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -65,28 +63,6 @@ def events_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_variants(builds: dict):
-    out_dir = cuda_step.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, flags in builds.items():
-        lib = out_dir / f"{name}.so"
-        procs[name] = (subprocess.Popen(
-            [cuda_step._nvcc(), *cuda_step.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(cuda_step.CSRC / "lattice_step_fused.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
-    for name, (proc, lib) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out}")
-        fn = ctypes.CDLL(str(lib)).die_lattice_step_fused
-        fn.argtypes = [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
 def parse_tile(text: str):
     if text == "auto":
         return None
@@ -100,8 +76,6 @@ def main():
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--inner", default="1,2,3")
     ap.add_argument("--tiles", default="auto")
-    ap.add_argument("--builds", action="append", default=[],
-                    help="name=-Dflag[,-Dflag]: a variant build to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_banded: CUDA is not available", file=sys.stderr)
@@ -109,75 +83,58 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    builds = {}
-    for item in args.builds:
-        name, flags = item.split("=", 1)
-        builds[name] = flags.split(",")
-    fns = build_variants(builds)
-    cuda_step.build()
-    lib = cuda_step._libs["lattice_step_fused"]
-    own = lib.die_lattice_step_fused
-    fns = {"package": own, **fns}
     inner = [int(k) for k in args.inner.split(",")]
     tiles = [parse_tile(t) for t in args.tiles.split(",")]
     dyn = FastDynamics()
     dev = torch.device("cuda")
     T = args.steps
-    try:
-        for size in args.sizes.split(","):
-            W, H, B = (int(x) for x in size.split("x"))
-            state = fast_init(env_keys(0, B), (W, H), dyn, device=dev)
-            rkeys = env_keys(1, B)
-            common = {"field": [W, H], "envs": B, "steps": T,
-                      "nvidia_smi": smi}
-            ms = events_ms(lambda: kernel_rollout(dyn, state, rkeys, T, 0,
-                                                  dev), 1)
-            print(json.dumps({"variant": "one_step", **common,
-                              "rollout_ms": ms,
-                              "env_steps_per_s": B * T / ms * 1e3}),
-                  flush=True)
-            cases = [(b, K, tile) for b in fns for K in inner
-                     for tile in tiles]
-            ref = {}
-            rows = {}
-            for b, K, tile in cases + cases[::-1]:
-                lib.die_lattice_step_fused = fns[b]
-                key = (b, K, tile)
-                try:
-                    used = cuda_step.choose_tile(dyn, (W, H), None, K, tile)
-                except ValueError as e:
-                    rows[key] = {"refused": str(e)}
-                    continue
-                chunk = step_keys(as_key_tensor(rkeys, dev), 0, K).transpose(
-                    0, 1).contiguous()
-                out = cuda_step.lattice_steps(dyn, state, chunk, tile=tile)
-                want = ref.setdefault(K, out)
-                if not (all(torch.equal(x, y) for x, y in zip(out[0], want[0]))
-                        and torch.equal(out[1], want[1])
-                        and torch.equal(out[2], want[2])):
-                    raise AssertionError(f"{key} differs from the first "
-                                         f"build and tile at K={K}")
-                gained = out[2].reshape(K * B, W, H)
-                row = rows.setdefault(key, {
-                    "tile": list(used), "steps": T - T % K, "kernel_ms": [],
-                    "fold_ms": [], "rollout_ms": [], "env_steps_per_s": []})
-                row["kernel_ms"].append(events_ms(
-                    lambda: cuda_step.lattice_steps(dyn, state, chunk,
-                                                    tile=tile), 10))
-                row["fold_ms"].append(events_ms(
-                    lambda: cuda_step.tree_sum_2d(gained), 10))
+    for size in args.sizes.split(","):
+        W, H, B = (int(x) for x in size.split("x"))
+        state = fast_init(env_keys(0, B), (W, H), dyn, device=dev)
+        rkeys = env_keys(1, B)
+        common = {"field": [W, H], "envs": B, "steps": T, "nvidia_smi": smi}
+        ms = events_ms(lambda: kernel_rollout(dyn, state, rkeys, T, 0, dev),
+                       1)
+        print(json.dumps({"variant": "one_step", **common, "rollout_ms": ms,
+                          "env_steps_per_s": B * T / ms * 1e3}), flush=True)
+        cases = [(K, tile) for K in inner for tile in tiles]
+        ref = {}
+        rows = {}
+        for K, tile in cases + cases[::-1]:
+            key = (K, tile)
+            try:
+                used = cuda_step.choose_tile(dyn, (W, H), None, K, tile)
+            except ValueError as e:
+                rows[key] = {"refused": str(e)}
+                continue
+            chunk = step_keys(as_key_tensor(rkeys, dev), 0, K).transpose(
+                0, 1).contiguous()
+            out = cuda_step.lattice_steps(dyn, state, chunk, tile=tile)
+            want = ref.setdefault(K, out)
+            if not (all(torch.equal(x, y) for x, y in zip(out[0], want[0]))
+                    and torch.equal(out[1], want[1])
+                    and torch.equal(out[2], want[2])):
+                raise AssertionError(f"{key} differs from the first tile at "
+                                     f"K={K}")
+            gained = out[2].reshape(K * B, W, H)
+            row = rows.setdefault(key, {
+                "tile": list(used), "steps": T - T % K, "kernel_ms": [],
+                "fold_ms": [], "rollout_ms": [], "env_steps_per_s": []})
+            row["kernel_ms"].append(events_ms(
+                lambda: cuda_step.lattice_steps(dyn, state, chunk,
+                                                tile=tile), 10))
+            row["fold_ms"].append(events_ms(
+                lambda: cuda_step.tree_sum_2d(gained), 10))
+            if tile is None:
                 ms = events_ms(lambda: banded_rollout_batch(
-                    dyn, state, rkeys, row["steps"], num_inner=K, device=dev,
-                    tile=tile), 1)
+                    dyn, state, rkeys, row["steps"], num_inner=K,
+                    device=dev), 1)
                 row["rollout_ms"].append(ms)
                 row["env_steps_per_s"].append(B * row["steps"] / ms * 1e3)
-            for (b, K, tile), row in rows.items():
-                print(json.dumps({"variant": "fused", "build": b,
-                                  "num_inner": K, "asked_tile": tile,
-                                  **common, **row}),
-                      flush=True)
-    finally:
-        lib.die_lattice_step_fused = own
+        for (K, tile), row in rows.items():
+            print(json.dumps({"variant": "fused", "num_inner": K,
+                              "asked_tile": tile, **common, **row}),
+                  flush=True)
     return 0
 
 
