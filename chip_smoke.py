@@ -3,6 +3,7 @@ versions.
 
     python3 chip_smoke.py                 # full run: 1024 envs, T=256
     python3 chip_smoke.py --envs 64 --steps 16   # a shorter main path
+    python3 chip_smoke.py --only-exact           # the exact engine alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -46,7 +47,22 @@ Phases (any failure exits non-zero):
      rollout; and short runs of the other fused forms (perlin, linear, MLP,
      ctx, learned perlin) through the same entry points;
   8. timings (CUDA events) of the main rollout, of each kernel and of its
-     plain version, with each kernel's bound.
+     plain version, with each kernel's bound;
+  9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
+     kernel (K5) against ``gather_fields_plain`` bitwise (F in 1..3, M in
+     {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
+     all-equal and last-cell indices; fields of random bit patterns with
+     -0.0, subnormals, NaN payloads and infinities), and four small
+     rollouts (Physarum fused-sense; Physarum with deaths and wave flow;
+     Gradient with sense mask, limit boundary and nearest diffusion;
+     Brownian with perlin flow) on the card against ``device="cpu"``,
+     bitwise.  Last: ``init_env_state`` + ``PhysarumPolicy.init_state`` +
+     ``parallel.rollout.rollout`` at the JAX benchmark's exact defaults
+     (256x256, 65,536 slots, 1024 envs, T = 32), counts read around it,
+     bitwise against the same rollout with the plain gather,
+     ``check_env_state``, env-steps/s, each piece of a step alone, and K5
+     at F = 1 and F = 2 beside its bound, its plain version and
+     ``torch.gather`` (``--only-exact`` runs this phase alone).
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -1037,6 +1053,364 @@ def time_fused(rate, counts, err):
     return out
 
 
+# ---- the exact (flat-agent) engine --------------------------------------------
+
+EXACT_FIELD = (256, 256)
+EXACT_SLOTS = 65536
+
+
+def same_words(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two f32 or integer tensors (NaN payloads and the
+    sign of zero included); compared where they lie, or on the CPU when
+    they lie on different devices."""
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def exotic_fields(B: int, F: int, M: int, seed: int) -> torch.Tensor:
+    """f32 ``[B, F, M]`` of random bit patterns with -0.0, subnormals, NaN
+    payloads and infinities planted in."""
+    g = torch.Generator().manual_seed(seed)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, F, M), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    planted = torch.tensor([-2 ** 31, 1, 0x007FFFFF, 0x7FC00001, 0x7F800000,
+                            -8388608, 0x7FA12345, -4194305],
+                           dtype=torch.int64).to(torch.int32)
+    k = min(M, planted.numel())
+    bits[..., :k] = planted[:k]
+    bits[..., M - 1] = planted[3]
+    return bits.view(torch.float32).cuda()
+
+
+def phase_gather_parity():
+    """K5 against its plain version on the card, bitwise: F in 1..3, M in
+    {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
+    all-equal and last-cell indices; fields of exotic bit patterns; fields
+    passed as channel views of one tensor and as separate tensors."""
+    from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+
+    g = torch.Generator().manual_seed(5)
+    cases = 0
+    for B in (1, 64):
+        for F in (1, 2, 3):
+            for M in (256, 2304, 65536):
+                fields = exotic_fields(B, F, M, 100 * F + B)
+                separate = [fields[:, f].contiguous() for f in range(F)]
+                for N in (1, 777, 65536):
+                    rand = torch.randint(0, M, (B, N), generator=g)
+                    kinds = {"random": rand,
+                             "sorted": rand.sort(dim=1).values,
+                             "all-equal": torch.full((B, N), M // 3),
+                             "last-cell": torch.full((B, N), M - 1)}
+                    for label, idx in kinds.items():
+                        idx = idx.to(torch.int32).cuda()
+                        want = gather_fields_plain(fields, idx)
+                        for how, arg in (("views", fields),
+                                         ("separate", separate)):
+                            got = gather_fields(arg, idx)
+                            torch.cuda.synchronize()
+                            if not same_words(got, want):
+                                raise AssertionError(
+                                    f"gather_fields differs from its plain "
+                                    f"version: B={B} F={F} M={M} N={N} "
+                                    f"{label} indices, {how}")
+                            cases += 1
+    # unbatched form, and an index row that is not 16-byte aligned
+    flat = exotic_fields(1, 2, 4096, 9)[0]
+    idx = torch.randint(0, 4096, (1001,), generator=g).to(torch.int32).cuda()
+    if not same_words(gather_fields(flat, idx[1:]),
+                         gather_fields_plain(flat, idx[1:])):
+        raise AssertionError("gather_fields differs on an unaligned row")
+    log(f"gather_fields == plain, bitwise: {cases + 1} cases "
+        f"(F 1..3, M 256..65536, N 1..65536, B 1 and 64, exotic bits)")
+    return 0.0
+
+
+def session_keys(B: int, seed: int = 0):
+    """(env init, policy init, rollout) keys of B envs, folded from the
+    master key as the JAX package's benchmark folds them: int64 [B, 2]
+    each, on the CPU."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
+
+    master = as_key_tensor(np_key(seed), "cpu")
+    envs = torch.arange(B, dtype=torch.int64)
+    return tuple(fold_in(fold_in(master, tag), envs)
+                 for tag in (ch.TAG_SESSION_ENV_INIT,
+                             ch.TAG_SESSION_POLICY_INIT,
+                             ch.TAG_SESSION_ROLLOUT))
+
+
+def rollout_differences(a, b):
+    """Names of the parts of two RolloutResults that differ in any bit
+    (total_reward, whose order is the library's, is left out)."""
+    pairs = [("medium", a.state.medium, b.state.medium),
+             ("agents", a.state.agents, b.state.agents),
+             ("flow_step", a.state.flow_step, b.state.flow_step),
+             ("rewards", a.rewards, b.rewards),
+             ("num_agents", a.num_agents, b.num_agents)]
+    if a.pstate is not None:
+        pairs += [("prev_grad", a.pstate.prev_grad, b.pstate.prev_grad),
+                  ("direction_rads", a.pstate.direction_rads,
+                   b.pstate.direction_rads)]
+    return [name for name, x, y in pairs if not same_words(x, y)]
+
+
+def phase_exact_cpu():
+    """Small exact-engine rollouts on the card against the same rollouts
+    with ``device="cpu"`` (which the CPU tests hold bitwise to the NumPy
+    oracle and the JAX package): every part of the result, bitwise."""
+    from die_tpu_torch.core.config import (Boundary, DiffuseMode, Dynamics,
+                                           FlowConfig)
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.models.gradient import GradientPolicy, PhysarumPolicy
+    from die_tpu_torch.models.static import BrownianPolicy
+    from die_tpu_torch.parallel.rollout import rollout
+
+    size, N, B, T = (64, 64), 1024, 4, 16
+    phys = PhysarumPolicy(max_agents=N, scale=0.007, turn_angle=30,
+                          sense_offset=0.04)
+    cases = [
+        ("Physarum, fused sense", Dynamics(init_agent_ratio=0.15), phys),
+        ("Physarum, deaths + wave flow",
+         Dynamics(init_agent_ratio=0.15, agents_die=True,
+                  flow=FlowConfig(kind="wave")), phys),
+        ("Gradient, sense mask + limit boundary + nearest diffusion",
+         Dynamics(init_agent_ratio=0.15, apply_sense_mask=True,
+                  boundary=Boundary.LIMIT, diffuse_sigma=0.8,
+                  diffuse_mode=DiffuseMode.NEAREST),
+         GradientPolicy(max_agents=N, sense_offset=0.04, inertia=0.5,
+                        noise_scale=0.1)),
+        ("Brownian, perlin flow",
+         Dynamics(init_agent_ratio=0.15, flow=FlowConfig(kind="perlin")),
+         BrownianPolicy()),
+    ]
+    ekeys, pkeys, rkeys = session_keys(B, seed=3)
+    for label, dyn, policy in cases:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            st = init_env_state(ekeys, size, dyn, N, device=dev)
+            ps = policy.init_state(pkeys, device=dev)
+            out[dev] = rollout(dyn, policy, None, st, ps, rkeys, T)
+        diff = rollout_differences(out["cuda"], out["cpu"])
+        if diff:
+            raise AssertionError(f"exact rollout on the card differs from "
+                                 f"the CPU's ({label}): {diff}")
+        log(f"card exact rollout == CPU exact rollout ({label}; {B} envs x "
+            f"{size[0]}x{size[1]}, {N} slots, {T} steps)")
+
+
+class plain_gather:
+    """Within the block the exact engine's gathers run ``gather_fields_plain``
+    on the card: the rollout the kernel's rollout is held against."""
+
+    def __enter__(self):
+        from die_tpu_torch.core import env as env_mod
+        from die_tpu_torch.ops.gather import gather_fields_plain
+
+        self._mod, self._kept = env_mod, env_mod.gather_fields
+        env_mod.gather_fields = gather_fields_plain
+
+    def __exit__(self, *exc):
+        self._mod.gather_fields = self._kept
+
+
+def exact_breakdown(dyn, policy, state, pstate, rkeys):
+    """Where one full-width exact step's time goes: each piece alone, by
+    CUDA events, on the main path's state.  Returns {piece: ms}."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.core import env as E
+    from die_tpu_torch.core.mathx import atan2
+    from die_tpu_torch.core.rng import fold_in, random_bits
+    from die_tpu_torch.models import gradient as G
+
+    N = state.agents.shape[-1]
+    k_pol = fold_in(fold_in(rkeys, 0), ch.TAG_POLICY)
+    obs = E.observe(dyn, state)
+    ix, iy = E.agent_cells(state.agents, state.field_size)
+    sensed = E.gather_field(state.medium[:, ch.CH_MED_FOOD], ix, iy)
+    action, _ = policy.forward(None, pstate, obs, k_pol, sensed_food=sensed)
+    agents = E._move(dyn, state.agents, action)
+    medium = E._deposit_and_layout(dyn, state.medium, agents, action)
+    chem = state.medium[:, ch.CH_MED_CHEM]
+    gx, gy = policy._gradient_field(chem)
+    pieces = {
+        "policy.forward (whole)": lambda: policy.forward(
+            None, pstate, obs, k_pol, sensed_food=sensed),
+        "env_step_carry (whole)": lambda: E.env_step_carry(dyn, state,
+                                                           action),
+        "rng: noise normal(2, N) (threefry + erfinv)": lambda: G._noise_2n(
+            fold_in(k_pol, ch.TAG_DRAW_1), N),
+        "rng: turn bits (N)": lambda: random_bits(
+            fold_in(k_pol, ch.TAG_DRAW_0), (N,)),
+        "gradient field (central diff, norm, clip)":
+            lambda: policy._gradient_field(chem),
+        "atan2 on the field": lambda: atan2(gy, gx),
+        "atan2 per slot": lambda: atan2(action[:, 1], action[:, 0]),
+        "move": lambda: E._move(dyn, state.agents, action),
+        "deposit + layout (scatter-max, K5 F=1)":
+            lambda: E._deposit_and_layout(dyn, state.medium, agents, action),
+        "feed with carry (K5 F=2)": lambda: E._feed_with_carry(
+            dyn, medium, agents, action),
+        "diffuse + decay (Gaussian)": lambda: E._diffuse_decay(dyn, medium),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        out[name] = time_ms(fn, 3, warmup=1)
+        log(f"  exact step piece: {name}: {out[name]:.3f} ms")
+    return out
+
+
+def profile_exact(dyn, policy, state, pstate, rkeys):
+    """Device time by CUDA kernel over 2 exact steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from die_tpu_torch.parallel.rollout import rollout
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rollout(dyn, policy, None, state, pstate, rkeys, 2)
+        torch.cuda.synchronize()
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=25))
+
+
+def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
+                     profile: bool):
+    """The exact engine's main path at full width (256x256, 65,536 slots,
+    Physarum, the JAX benchmark's exact defaults), counts read around it,
+    held bitwise against the same rollout with the plain gather, checked
+    with ``check_env_state`` and timed.  Returns (kernel rows, record)."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.core import env as E
+    from die_tpu_torch.core.config import Dynamics
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.models.gradient import PhysarumPolicy
+    from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+    from die_tpu_torch.parallel.rollout import rollout
+    from die_tpu_torch.utils.invariants import check_env_state
+
+    W, H = EXACT_FIELD
+    N = EXACT_SLOTS
+    if (B, T) != (1024, 32):
+        log(f"exact main path cut: {B} envs x {T} steps (full: 1024 x 32)")
+    dyn = Dynamics(init_agent_ratio=0.15)
+    policy = PhysarumPolicy(max_agents=N, scale=0.007, turn_angle=30,
+                            sense_offset=0.04)
+    ekeys, pkeys, rkeys = session_keys(B)
+    t0 = time.perf_counter()
+    state = init_env_state(ekeys, EXACT_FIELD, dyn, N, device="cuda")
+    pstate = policy.init_state(pkeys, device="cuda")
+    rkeys = rkeys.cuda()
+    torch.cuda.synchronize()
+    log(f"exact init {B} envs at {W}x{H}, {N} slots: "
+        f"{time.perf_counter() - t0:.2f} s")
+    alive0 = (state.agents[:, ch.CH_AGT_ALIVE] > 0).sum(dim=-1)
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_step.reset_launches()
+    res = rollout(dyn, policy, None, state, pstate, rkeys, T)
+    torch.cuda.synchronize()
+    counts = dict(cuda_step.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"exact main path launches: "
+        f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
+        f"{peak_gb:.2f} GB")
+    want = {"gather_fields_f1": 2 * T + 1, "gather_fields_f2": T}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name}: {counts[name]} launches on the "
+                                 f"exact main path, expected {n}")
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with plain_gather():
+        start.record()
+        ref = rollout(dyn, policy, None, state, pstate, rkeys, T)
+        end.record()
+    torch.cuda.synchronize()
+    plain_secs = start.elapsed_time(end) / 1e3
+    if dict(cuda_step.launches) != counts:
+        raise AssertionError("the plain-gather rollout launched a kernel")
+    diff = rollout_differences(res, ref)
+    if diff:
+        raise AssertionError(f"exact main path differs from the plain-gather "
+                             f"rollout: {diff}")
+    tot_err = float((res.total_reward - ref.total_reward).abs().max())
+    del ref
+    if tuple(res.rewards.shape) != (B, T) or \
+            not bool(torch.isfinite(res.rewards).all()):
+        raise AssertionError("exact rewards are not finite [B, T]")
+    if not bool((res.num_agents == alive0[:, None]).all()):
+        raise AssertionError("exact agent count not conserved (no deaths)")
+    violations = check_env_state(res.state, dyn)
+    if violations:
+        raise AssertionError(f"check_env_state: {violations}")
+    log(f"exact main path ok: bitwise == plain-gather rollout (state, policy "
+        f"state, rewards, counts; total_reward max abs diff {tot_err:g}), "
+        f"check_env_state clean, mean reward/step "
+        f"{float(res.rewards.mean()):.6f}, agents/env "
+        f"{float(alive0.float().mean()):.1f}")
+
+    start.record()
+    rollout(dyn, policy, None, state, pstate, rkeys, T)
+    end.record()
+    torch.cuda.synchronize()
+    secs = start.elapsed_time(end) / 1e3
+    log(f"exact rollout: {B} envs x {T} steps in {secs:.4f} s = "
+        f"{B * T / secs:.1f} env-steps/s, {secs / T * 1e3:.3f} ms a step "
+        f"({kind}, {smi}); the rollout it was held against, with the plain "
+        f"gather: {plain_secs:.4f} s = {B * T / plain_secs:.1f} env-steps/s "
+        f"(record only)")
+
+    pieces = exact_breakdown(dyn, policy, res.state, res.pstate, rkeys)
+    if profile:
+        profile_exact(dyn, policy, res.state, res.pstate, rkeys)
+
+    # K5 alone at the main path's shapes: the final state's food and
+    # occupancy at the agents' own cells (F = 1 and the F = 2 pair)
+    final = res.state
+    ix, iy = E.agent_cells(final.agents, EXACT_FIELD)
+    cell = (ix * H + iy).contiguous()
+    food = final.medium[:, ch.CH_MED_FOOD].flatten(-2)
+    occ = final.medium[:, ch.CH_MED_AGENTS].flatten(-2)
+    wide = cell.to(torch.int64)
+    rows = []
+    for F, fields in ((1, [food]), (2, [food, occ])):
+        if not same_words(gather_fields(fields, cell),
+                             gather_fields_plain(fields, cell)):
+            raise AssertionError(f"gather_fields (F={F}) differs from its "
+                                 f"plain version at the main path's shapes")
+        ms = time_ms(lambda: gather_fields(fields, cell), 20)
+        plain = time_ms(lambda: gather_fields_plain(fields, cell), 10)
+        lib = time_ms(lambda: [torch.gather(f, 1, wide) for f in fields], 10)
+        nbytes = B * N * (4 + 8 * F)
+        bound = nbytes / rate * 1e3
+        name = f"gather_fields_f{F}"
+        log(f"{name}: {ms:.4f} ms/launch at {B} x {N} indices into {W * H} "
+            f"cells (bound {bound:.4f} ms, {nbytes / 1e6:.1f} MB at "
+            f"{rate / 1e12:.2f} TB/s); plain {plain:.4f} ms (int64 index "
+            f"cast included); torch.gather {lib:.4f} ms (int64 index given); "
+            f"exact-path launches {counts[name]}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "die_tpu_torch/csrc/gather_fields.cu",
+                     "replaces": "die_tpu/ops/pallas_gather.py:53",
+                     "launches": counts[name], "match": True,
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": lib})
+    record = {"envs": B, "steps": T, "slots": N, "field": list(EXACT_FIELD),
+              "env_steps_per_s": B * T / secs, "ms_per_step": secs / T * 1e3,
+              "plain_gather_env_steps_per_s": B * T / plain_secs,
+              "peak_memory_gb": peak_gb, "pieces_ms": pieces}
+    return rows, record
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -1045,6 +1419,11 @@ def main():
     ap.add_argument("--parity-steps", type=int, default=8)
     ap.add_argument("--train-gens", type=int, default=3)
     ap.add_argument("--perlin-steps", type=int, default=16)
+    ap.add_argument("--exact-envs", type=int, default=1024)
+    ap.add_argument("--exact-steps", type=int, default=32)
+    ap.add_argument("--only-exact", action="store_true",
+                    help="build, then run only the exact engine's phases "
+                         "(a debugging aid: no ok line is printed)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one step")
     args = ap.parse_args()
@@ -1078,12 +1457,23 @@ def main():
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {spills} with spills")
 
+    if args.only_exact:
+        phase_gather_parity()
+        phase_exact_cpu()
+        rows, rec = phase_exact_main(args.exact_envs, args.exact_steps, kind,
+                                     smi, mem_rate(kind), args.profile)
+        log(json.dumps({"kernels": rows, "exact": rec}))
+        log(smi)
+        return 0
+
     # ---- 3. kernels against their plain versions
     k1_err, k2_err = phase_parity(args.parity_envs, args.parity_steps)
     k2_err = max(k2_err, phase_fold_alone(args.parity_envs))
     phase_cpu_reference()
     k3_err = phase_learned_parity(args.parity_envs, args.parity_steps)
     phase_rule_edges()
+    phase_gather_parity()
+    phase_exact_cpu()
 
     # ---- 4. the main path
     dyn = FastDynamics()
@@ -1205,7 +1595,14 @@ def main():
     torch.cuda.empty_cache()
     kernels += time_fused(rate, fused_counts, k4_err)
 
+    # ---- 9. the exact engine's main path at full width
+    torch.cuda.empty_cache()
+    exact_rows, exact_record = phase_exact_main(
+        args.exact_envs, args.exact_steps, kind, smi, rate, args.profile)
+    kernels += exact_rows
+
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
+              "exact": exact_record,
               "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,

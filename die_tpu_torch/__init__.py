@@ -1,4 +1,5 @@
-"""die_tpu_torch: the lattice engine of die_tpu on PyTorch and CUDA.
+"""die_tpu_torch: the lattice engine and the exact (flat-agent) engine of
+die_tpu on PyTorch and CUDA.
 
 A port of the JAX package ``die_tpu`` that imports neither JAX nor
 ``die_tpu``.  Entry points (``fast_init``, ``fast_rollout``,
@@ -7,6 +8,9 @@ A port of the JAX package ``die_tpu`` that imports neither JAX nor
 kernels of ``fast/cuda_step.py``.  The learned-rule leg is in
 ``fast/learned.py`` (``learned_fast_rollout_auto``, ``train_lattice``) with
 the searchers of ``learn/es.py`` and ``fast/convert.py::load_turn_params``.
+The exact engine is ``core/init.py::init_env_state``, the policies of
+``models/`` and ``parallel/rollout.py::rollout``; on CUDA its gathers run
+through the kernel of ``ops/gather.py``.
 """
 from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
 from die_tpu_torch.fast.env import FastEnvState, fast_step_full

@@ -1,9 +1,11 @@
-"""The fp32 math contract on torch tensors: the subset the lattice path uses.
+"""The fp32 math contract on torch tensors: what the lattice path and the
+exact (flat-agent) engine use.
 
 Twin of the JAX package's ``core/mathx.py``: every transcendental is built
 from IEEE-exact primitives (+, -, *, floor, comparisons, bit casts) in the
 same operation order, so results agree bit for bit with the NumPy oracle.
-No ``torch.sin``, ``torch.sqrt`` or ``torch.exp`` appears here.  Eager torch
+No ``torch.sin``, ``torch.sqrt``, ``torch.atan2``, ``torch.hypot``,
+``torch.remainder`` or ``/`` appears here.  Eager torch
 runs each operation as written (no reassociation, no FMA contraction), so
 the JAX package's ``order_barrier`` is the identity and has no twin.
 """
@@ -12,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PI", "rsqrt", "sqrt", "sincos", "round3", "tree_sum",
-           "tree_sum_1d", "f32", "log1m_sq", "erfinv", "normal_from_uniform"]
+__all__ = ["PI", "TWO_PI", "recip", "div", "rsqrt", "sqrt", "sincos", "atan2",
+           "renormalize_radians", "discretize", "round3", "wrap01",
+           "polar2xy", "xy2polar_angle", "hypot2", "tree_sum", "tree_sum_1d",
+           "f32", "log1m_sq", "erfinv", "normal_from_uniform"]
 
 
 def f32(x) -> float:
@@ -22,7 +26,9 @@ def f32(x) -> float:
 
 
 PI = f32(np.pi)
+TWO_PI = f32(2 * np.pi)
 
+_RECIP_MAGIC = 0x7EF311C3
 _RSQRT_MAGIC = 0x5F3759DF
 
 _INV_PIO2 = f32(0.636619772367581343)
@@ -34,6 +40,22 @@ _SIN_C3 = f32(-1.9515295891e-4)
 _COS_C1 = f32(4.166664568298827e-2)
 _COS_C2 = f32(-1.388731625493765e-3)
 _COS_C3 = f32(2.443315711809948e-5)
+
+
+def recip(y: torch.Tensor) -> torch.Tensor:
+    """1/y for finite nonzero y: bit-hack seed plus three Newton steps on
+    ``|y|``, the sign put back at the end."""
+    ay = torch.abs(y)
+    i = ay.contiguous().view(torch.int32)
+    r = (_RECIP_MAGIC - i).view(torch.float32)
+    for _ in range(3):
+        r = r * (2.0 - ay * r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def div(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x/y as ``x * recip(y)``."""
+    return x * recip(y)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -67,6 +89,83 @@ def sincos(theta: torch.Tensor):
     sin_v = torch.where(q0, s, torch.where(q1, c, torch.where(q2, -s, -c)))
     cos_v = torch.where(q0, c, torch.where(q1, -s, torch.where(q2, -c, s)))
     return sin_v, cos_v
+
+
+_TAN_PIO8 = f32(0.4142135623730950)
+_PIO4 = f32(0.7853981633974483)
+_PIO2 = f32(1.5707963267948966)
+_ATAN_C1 = f32(-3.33329491539e-1)
+_ATAN_C2 = f32(1.99777106478e-1)
+_ATAN_C3 = f32(-1.38776856032e-1)
+_ATAN_C4 = f32(8.05374449538e-2)
+
+
+def _atan_unit(t: torch.Tensor) -> torch.Tensor:
+    """atan(t) for t in [0, 1] (cephes atanf polynomial)."""
+    big = t > _TAN_PIO8
+    u = torch.where(big, div(t - 1.0, t + 1.0), t)
+    u2 = u * u
+    p = u + u * u2 * (_ATAN_C1 + u2 * (_ATAN_C2 + u2 * (_ATAN_C3
+                                                       + u2 * _ATAN_C4)))
+    return torch.where(big, _PIO4 + p, p)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Octant-folded atan2; atan2(0, 0) = 0 and atan2(0, x<0) = +pi (the
+    sign of a zero is not read)."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    mx = torch.maximum(ax, ay)
+    mn = torch.minimum(ax, ay)
+    pos = mx > 0.0
+    t = torch.where(pos, mn * recip(torch.where(pos, mx, torch.ones_like(mx))),
+                    torch.zeros_like(mx))
+    a = _atan_unit(t)
+    a = torch.where(ay > ax, _PIO2 - a, a)
+    a = torch.where(x < 0.0, PI - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+_NEG_TWO_PI = f32(-np.float32(2 * np.pi))
+_INV_NEG_TWO_PI = f32(1.0 / (-2.0 * np.pi))
+
+
+def _fmod_floor(a: torch.Tensor, b: float, inv_b: float) -> torch.Tensor:
+    """a mod b as ``a - floor(a * (1/b)) * b`` with a given fp32 1/b."""
+    return a - torch.floor(a * inv_b) * b
+
+
+def renormalize_radians(rads: torch.Tensor) -> torch.Tensor:
+    """Radians into (-pi, pi]: ``(rads - pi) % (-2*pi) + pi``."""
+    return _fmod_floor(rads - PI, _NEG_TWO_PI, _INV_NEG_TWO_PI) + PI
+
+
+def discretize(value: torch.Tensor, step) -> torch.Tensor:
+    """``(value // step) * step`` for a concrete fp32 ``step``; its
+    reciprocal is formed on the host."""
+    inv_step = f32(1.0 / float(step))
+    return torch.floor(value * inv_step) * f32(step)
+
+
+def wrap01(c: torch.Tensor) -> torch.Tensor:
+    """Torus coordinate wrap ``c % 1.0``."""
+    return c - torch.floor(c)
+
+
+def polar2xy(r, theta: torch.Tensor):
+    """(r, theta) -> (r*cos, r*sin) through the shared ``sincos``."""
+    s, c = sincos(theta)
+    return r * c, r * s
+
+
+def xy2polar_angle(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Angle of (x + iy)."""
+    return atan2(y, x)
+
+
+def hypot2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sqrt(x^2 + y^2) through the contract ``sqrt``."""
+    return sqrt(x * x + y * y)
 
 
 def round3(u: torch.Tensor) -> torch.Tensor:

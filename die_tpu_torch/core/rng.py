@@ -19,7 +19,7 @@ import torch
 __all__ = [
     "MASK32", "np_key", "as_key_tensor", "threefry2x32_pair", "fold_in",
     "random_bits", "murmur_finalize", "murmur_bits", "uniform01_from_bits",
-    "UNIFORM_EPS",
+    "sign_from_bits", "UNIFORM_EPS",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -140,3 +140,8 @@ def uniform01_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """u32 bits -> fp32 uniform in (0, 1): top 23 bits, offset by 2**-24."""
     shifted = (bits >> 9).to(torch.float32)
     return shifted * _TWO_M23 + UNIFORM_EPS
+
+
+def sign_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """u32 bits -> fp32 in {-1.0, +1.0} from the low bit."""
+    return (bits & 1).to(torch.float32) * 2.0 - 1.0

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the lattice step: build, wrappers, counts.
 
-Counterpart of the JAX package's ``fast/pallas_step.py``.  Four kernels, in
+Counterpart of the JAX package's ``fast/pallas_step.py``.  Its kernels, in
 CUDA C++ under ``die_tpu_torch/csrc/``:
 
 - ``lattice_step`` (``lattice_step.cu``, K1): one full step of a lockstep
@@ -20,6 +20,8 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
   ``choose_bands`` and the banded constructor's refusals: a (config, K,
   tile) whose region does not fit a block's shared memory raises.
 - ``tree_sum_2d`` (``tree_sum_2d.cu``): the order-pinned reward fold.
+- ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
+  too; its wrapper is ``ops/gather.py``.
 
 Each source is built by its own ``nvcc`` (all started together) into a
 shared library with a plain C interface under ``build/die_tpu_torch/``,
@@ -68,7 +70,8 @@ SOURCES = {"lattice_step": "lattice_step.cu",
            "lattice_step_learned": "lattice_step_learned.cu",
            "lattice_step_fused": "lattice_step_fused.cu",
            "lattice_step_fused_learned": "lattice_step_fused_learned.cu",
-           "tree_sum_2d": "tree_sum_2d.cu"}
+           "tree_sum_2d": "tree_sum_2d.cu",
+           "gather_fields": "gather_fields.cu"}
 KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_step_learned_linear", "lattice_step_learned_mlp",
            "lattice_step_learned_wide", "lattice_step_learned_ctx",
@@ -78,7 +81,9 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_steps_fused_learned_mlp",
            "lattice_steps_fused_learned_wide",
            "lattice_steps_fused_learned_ctx",
-           "lattice_steps_fused_learned_perlin", "tree_sum_2d")
+           "lattice_steps_fused_learned_perlin", "tree_sum_2d",
+           "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
+           "gather_fields_f4")
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
@@ -153,7 +158,7 @@ def build() -> float:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
         for name in SOURCES:
-            if name == "tree_sum_2d":
+            if name in ("tree_sum_2d", "gather_fields"):
                 continue
             step = getattr(_libs[name], "die_" + name)
             step.argtypes = [vp, vp, vp, vp]
@@ -163,13 +168,24 @@ def build() -> float:
         fold = _libs["tree_sum_2d"].die_tree_sum_2d
         fold.argtypes = [vp, vp, vp, ip, ip, ip, vp]
         fold.restype = ip
+        gather = _libs["gather_fields"].die_gather_fields
+        gather.argtypes = [vp, vp, vp, vp, ip, ip, ip, vp]
+        gather.restype = ip
         return time.perf_counter() - t0
 
 
-def _check(rc: int, name: str):
+def check_launch(rc: int, name: str):
+    """Raise if a kernel entry point returned a CUDA error code."""
     if rc != 0:
         msg = _libs["lattice_step"].die_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+
+def gather_fields_entry():
+    """The C entry point of ``csrc/gather_fields.cu`` (after
+    :func:`build`); its wrapper is ``ops/gather.py::gather_fields``."""
+    return _libs["gather_fields"].die_gather_fields
 
 
 def _stream_ptr() -> int:
@@ -390,7 +406,7 @@ def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
     name = "lattice_step_learned" if learned else "lattice_step"
     fn = getattr(_libs[name], "die_" + name)
     rc = fn(ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    _check(rc, name)
+    check_launch(rc, name)
     if dyn.flow.kind == "perlin":
         launches[name + "_perlin"] += 1
     else:
@@ -477,7 +493,7 @@ def _steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
     lib = "lattice_step_fused" + ("_learned" if learned else "")
     rc = getattr(_libs[lib], "die_" + lib)(
         ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    _check(rc, lib)
+    check_launch(rc, lib)
     name = "lattice_steps_fused" + ("_learned" if learned else "")
     if dyn.flow.kind == "perlin":
         launches[name + "_perlin"] += 1
@@ -528,6 +544,6 @@ def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
     rc = _libs["tree_sum_2d"].die_tree_sum_2d(
         field.data_ptr(), colsum.data_ptr(), out.data_ptr(), B, W, H,
         _stream_ptr())
-    _check(rc, "tree_sum_2d")
+    check_launch(rc, "tree_sum_2d")
     launches["tree_sum_2d"] += 1
     return out

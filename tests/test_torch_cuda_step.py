@@ -198,10 +198,16 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'die_tpu' or m.startswith('die_tpu.')]\n"
         "mods = [m for m in sys.modules if m.startswith('die_tpu_torch.')]\n"
-        "assert len(mods) >= 18, mods\n"
+        "assert len(mods) >= 32, mods\n"
         "for m in ('die_tpu_torch.fast.learned', 'die_tpu_torch.learn.es',"
         " 'die_tpu_torch.fast.convert', 'die_tpu_torch.fast.cuda_step',"
-        " 'die_tpu_torch.fast.tiled'):\n"
+        " 'die_tpu_torch.fast.tiled', 'die_tpu_torch.core.env',"
+        " 'die_tpu_torch.core.init', 'die_tpu_torch.core.state',"
+        " 'die_tpu_torch.core.operators', 'die_tpu_torch.core.builder',"
+        " 'die_tpu_torch.core.convert', 'die_tpu_torch.ops.gather',"
+        " 'die_tpu_torch.models.base', 'die_tpu_torch.models.static',"
+        " 'die_tpu_torch.models.gradient', 'die_tpu_torch.parallel.rollout',"
+        " 'die_tpu_torch.utils.invariants'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"
         "print('clean')\n")
