@@ -4,6 +4,7 @@ versions.
     python3 chip_smoke.py                 # full run: 1024 envs, T=256
     python3 chip_smoke.py --envs 64 --steps 16   # a shorter main path
     python3 chip_smoke.py --only-exact           # the exact engine alone
+    python3 chip_smoke.py --only-probes          # the phase probes alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -62,7 +63,20 @@ Phases (any failure exits non-zero):
      bitwise against the same rollout with the plain gather,
      ``check_env_state``, env-steps/s, each piece of a step alone, and K5
      at F = 1 and F = 2 beside its bound, its plain version and
-     ``torch.gather`` (``--only-exact`` runs this phase alone).
+     ``torch.gather`` (``--only-exact`` runs this phase alone);
+ 10. the probes of the step's phases (``die_tpu_torch/tools/probes.py``,
+     the counterparts of the TPU probes of ``tools/tpu_measure.py`` and
+     ``tools/tpu_mxu_offload.py``): every probe kernel against its plain
+     version on small cases (2 fields, a few rounds; every kind, dtype,
+     axis, shift, placement and sigma), bitwise (bf16 too) except the
+     tensor-core legs (at ``probes.TC_REL_TOL``, max ulp printed), and the
+     one-application ulp of each tensor-core leg against the stencil; then,
+     counts read around it, every probe item at the TPU probe's full shape (64 fields of
+     256x256) as ``tools/gpu_measure.py`` and ``tools/gpu_tc_offload.py``
+     run it: held against its plain version once more, timed by CUDA
+     events beside its bound, its plain version and, where one PyTorch call
+     computes it, that call; one JSON line per item (``--only-probes`` runs
+     this phase alone).
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -1411,6 +1425,114 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     return rows, record
 
 
+# ---- the probes of the step's phases -------------------------------------------
+
+def phase_probe_parity():
+    """Every probe kernel against its plain version on the card, on small
+    cases: 2 fields, a few rounds (odd and even counts, so a ping-pong ends
+    on either buffer).  Returns {counter key: max abs err}."""
+    from die_tpu_torch.tools import probes as P
+
+    def check(key, got, want, tol=None):
+        if tol is None:
+            ok = P.same_bits(got, want)
+        else:
+            ok = float((got - want).abs().max()) <= \
+                tol * float(want.abs().max())
+        if not ok:
+            raise AssertionError(f"{key}: kernel differs from its plain "
+                                 f"version on a small case")
+        errs[key] = max(errs.get(key, 0.0), max_err(got.float(),
+                                                    want.float()))
+
+    errs = {}
+    shape = (2, P.SIDE, P.SIDE)
+    for kind, dtype in P.ALU_CASES:
+        x = P.seeded(shape, P.DTYPES[dtype], 10)
+        check(f"probe_alu_{kind}_{dtype}", P.alu(x, kind, 3),
+              P.alu_plain(x, kind, 3))
+    x = P.seeded(shape, torch.float32, 11)
+    for axis, shift in P.ROLL_CASES:
+        for placement in P.PLACEMENTS:
+            for rounds in (1, 4):
+                check(f"probe_roll_ax{axis}_s{shift}_{placement}",
+                      P.roll(x, axis, shift, rounds, placement),
+                      P.roll_plain(x, axis, shift, rounds))
+    for kind in P.NEIGHBOUR_KINDS:
+        check(f"probe_rollk_{kind}", P.neighbour(x, kind, 3),
+              P.neighbour_plain(x, kind, 3))
+    check("probe_roll_kernel_shift", P.shift(x, 5), P.shift_plain(x, 5))
+    check("probe_roll_kernel_tc", P.tc_roll(x, 5), P.tc_roll_plain(x, 5))
+    for sigma in P.SIGMAS:
+        check(f"probe_diffuse_stencil_s{sigma}", P.stencil(x, sigma, 3),
+              P.diffuse_plain(x, sigma, "stencil", 3))
+        for kind in P.TC_KINDS:
+            got = P.tc_diffuse(x, sigma, kind, 3)
+            want = P.diffuse_plain(x, sigma, kind, 3)
+            check(f"probe_diffuse_tc_{kind}_s{sigma}", got, want,
+                  P.TC_REL_TOL[kind])
+            log(f"probe tc_{kind} s{sigma}, 3 applications: max ulp "
+                f"{P.max_ulp(got, want)} against its plain twin (max abs "
+                f"{max_err(got, want):.3e}; tolerance {P.TC_REL_TOL[kind]} "
+                f"x max |y|)")
+    torch.cuda.synchronize()
+    log(f"probe parity: {len(errs)} probe kernels equal their plain versions "
+        f"on small cases (bitwise but the tensor-core legs)")
+    for sigma in P.SIGMAS:
+        log(json.dumps(P.ulp_check(sigma)))
+    return errs
+
+
+def phase_probes(smi: str):
+    """The probes: small-case parity, then every probe item at the TPU
+    probe's full shape with the counts read around the run.  Returns the
+    kernel rows of the kernels line."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.tools import probes as P
+
+    t0 = time.perf_counter()
+    errs = phase_probe_parity()
+    rates = P.card_rates()
+    log(f"probe rates (card 0, max SM clock {rates['clock_mhz']} MHz, "
+        f"{rates['sms']} SMs): {json.dumps(rates)}")
+    cuda_step.reset_launches()
+    rows = [P.measure_alu(k, d, rates) for k, d in P.ALU_CASES]
+    rows += [P.measure_roll(a, s, p, rates) for a, s in P.ROLL_CASES
+             for p in P.PLACEMENTS]
+    rollk = {k: P.measure_neighbour(k, rates) for k in P.NEIGHBOUR_KINDS}
+    rows += list(rollk.values())
+    rows += [P.measure_shift(rates), P.measure_tc_roll(rates)]
+    rows += [P.measure_diffuse(s, k, rates) for s in P.SIGMAS
+             for k in ("stencil", *P.TC_KINDS)]
+    torch.cuda.synchronize()
+    counts = dict(cuda_step.launches)
+    for row in rows + P.rollk_deltas(rollk):
+        log(json.dumps({**row, "card": smi}))
+    kernels = []
+    for row in rows:
+        key = row["kernel"]
+        if counts[key] < 1:
+            raise AssertionError(f"{key} was not launched on the probe path")
+        kernels.append({
+            "name": key, "route": "cuda", "source": row["source"],
+            "replaces": row["replaces"], "launches": counts[key],
+            "match": True,
+            "max_abs_err": max(row["max_abs_err"], errs[key]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "item": row["item"],
+            **{k: row[k] for k in ("placement", "phase_bound_ms",
+                                   "phase_bound_by", "max_ulp")
+               if k in row}})
+    missing = set(P.KERNEL_INFO) - {k["name"] for k in kernels}
+    if missing:
+        raise AssertionError(f"probe kernels without a row: {missing}")
+    log(f"probe path launches: "
+        f"{ {k: v for k, v in counts.items() if v} }; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -1424,6 +1546,8 @@ def main():
     ap.add_argument("--only-exact", action="store_true",
                     help="build, then run only the exact engine's phases "
                          "(a debugging aid: no ok line is printed)")
+    ap.add_argument("--only-probes", action="store_true",
+                    help="build, then run only the phase probes (no ok line)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one step")
     args = ap.parse_args()
@@ -1463,6 +1587,10 @@ def main():
         rows, rec = phase_exact_main(args.exact_envs, args.exact_steps, kind,
                                      smi, mem_rate(kind), args.profile)
         log(json.dumps({"kernels": rows, "exact": rec}))
+        log(smi)
+        return 0
+    if args.only_probes:
+        log(json.dumps({"kernels": phase_probes(smi)}))
         log(smi)
         return 0
 
@@ -1600,6 +1728,9 @@ def main():
     exact_rows, exact_record = phase_exact_main(
         args.exact_envs, args.exact_steps, kind, smi, rate, args.profile)
     kernels += exact_rows
+
+    # ---- 10. the probes of the step's phases
+    kernels += phase_probes(smi)
 
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
               "exact": exact_record,

@@ -22,6 +22,9 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
 - ``tree_sum_2d`` (``tree_sum_2d.cu``): the order-pinned reward fold.
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
   too; its wrapper is ``ops/gather.py``.
+- The on-card probes of the step's phases (``probe_alu.cu``,
+  ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) are built
+  and counted here too; their wrappers are ``tools/probes.py``.
 
 Each source is built by its own ``nvcc`` (all started together) into a
 shared library with a plain C interface under ``build/die_tpu_torch/``,
@@ -71,7 +74,23 @@ SOURCES = {"lattice_step": "lattice_step.cu",
            "lattice_step_fused": "lattice_step_fused.cu",
            "lattice_step_fused_learned": "lattice_step_fused_learned.cu",
            "tree_sum_2d": "tree_sum_2d.cu",
-           "gather_fields": "gather_fields.cu"}
+           "gather_fields": "gather_fields.cu",
+           "probe_alu": "probe_alu.cu",
+           "probe_shift": "probe_shift.cu",
+           "probe_diffuse": "probe_diffuse.cu"}
+# counters of the probes' kernels, one per case (tools/probes.py KERNEL_INFO)
+PROBE_KERNELS = (
+    *(f"probe_alu_{c}" for c in ("fma_float32", "fma_bfloat16",
+                                 "cmpsel_float32", "cmpsel_bfloat16",
+                                 "intops_int32", "intops_int16",
+                                 "intops_int8")),
+    *(f"probe_roll_ax{a}_s{s}_{p}" for a in (0, 1) for s in (1, 3)
+      for p in ("cluster", "l2")),
+    "probe_rollk_alu", "probe_rollk_smem", "probe_rollk_shfl",
+    "probe_roll_kernel_shift",
+    *(f"probe_diffuse_{leg}_s{s}" for s in (0.5, 1.25)
+      for leg in ("stencil", "tc_tf32", "tc_bf16")),
+    "probe_roll_kernel_tc")
 KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_step_learned_linear", "lattice_step_learned_mlp",
            "lattice_step_learned_wide", "lattice_step_learned_ctx",
@@ -83,7 +102,7 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_steps_fused_learned_ctx",
            "lattice_steps_fused_learned_perlin", "tree_sum_2d",
            "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
-           "gather_fields_f4")
+           "gather_fields_f4", *PROBE_KERNELS)
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
@@ -158,7 +177,8 @@ def build() -> float:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
         for name in SOURCES:
-            if name in ("tree_sum_2d", "gather_fields"):
+            if name in ("tree_sum_2d", "gather_fields") or \
+                    name.startswith("probe_"):
                 continue
             step = getattr(_libs[name], "die_" + name)
             step.argtypes = [vp, vp, vp, vp]
@@ -171,6 +191,21 @@ def build() -> float:
         gather = _libs["gather_fields"].die_gather_fields
         gather.argtypes = [vp, vp, vp, vp, ip, ip, ip, vp]
         gather.restype = ip
+        fp, lp = ctypes.c_float, ctypes.c_longlong
+        for lib, fn, args in (
+                ("probe_alu", "die_probe_alu",
+                 [vp, vp, lp, ip, ip, ip, vp]),
+                ("probe_shift", "die_probe_roll",
+                 [vp, vp, vp, ip, ip, ip, ip]),
+                ("probe_shift", "die_probe_neighbour",
+                 [vp, vp, ip, ip, ip, vp]),
+                ("probe_diffuse", "die_probe_stencil",
+                 [vp, vp, ip, ip, vp, ip, fp]),
+                ("probe_diffuse", "die_probe_tc",
+                 [vp, vp, vp, ip, ip, ip, ip, fp, fp])):
+            entry_fn = getattr(_libs[lib], fn)
+            entry_fn.argtypes = args + [vp]  # the stream last
+            entry_fn.restype = ip
         return time.perf_counter() - t0
 
 
@@ -181,11 +216,10 @@ def check_launch(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-
-def gather_fields_entry():
-    """The C entry point of ``csrc/gather_fields.cu`` (after
-    :func:`build`); its wrapper is ``ops/gather.py::gather_fields``."""
-    return _libs["gather_fields"].die_gather_fields
+def entry(lib: str, fn: str):
+    """The C entry point ``fn`` of the library built from ``SOURCES[lib]``
+    (after :func:`build`)."""
+    return getattr(_libs[lib], fn)
 
 
 def _stream_ptr() -> int:

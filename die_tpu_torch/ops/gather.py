@@ -96,9 +96,9 @@ def gather_fields(fields, idx: torch.Tensor) -> torch.Tensor:
     ptrs = np.array([f.data_ptr() for f in fields], dtype=np.int64)
     strides = np.array([f.stride(0) if B > 1 else M for f in fields],
                        dtype=np.int64)
-    rc = cuda_step.gather_fields_entry()(
-        ptrs.ctypes.data, strides.ctypes.data, idx.data_ptr(), out.data_ptr(), B, F, N,
-        torch.cuda.current_stream().cuda_stream)
+    rc = cuda_step.entry("gather_fields", "die_gather_fields")(
+        ptrs.ctypes.data, strides.ctypes.data, idx.data_ptr(), out.data_ptr(),
+        B, F, N, torch.cuda.current_stream().cuda_stream)
     if rc == -1:
         raise RuntimeError(f"gather_fields: launch of {B} x {F} x {N} "
                            f"refused (too many blocks)")

@@ -1,0 +1,733 @@
+"""On-card probes of the lattice step's phases, with their plain versions.
+
+Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure.py``
+and ``tools/tpu_mxu_offload.py``; each asks the TPU probe's question of the
+card, at the TPU probe's shape (64 blocks of one 256x256 field):
+
+- P1 ``make_micro`` -> :func:`alu` (``csrc/probe_alu.cu``): ALU throughput
+  by kind (``fma``, ``cmpsel``, ``intops``) and dtype, 4 independent chains
+  of ``ALU_ROUNDS`` x 16 operations per element.
+- P2 ``make_roll`` -> :func:`roll` (``csrc/probe_shift.cu``): 4 chains of
+  ``roll(x, s, axis) + 1``, the four fields of an env held in the shared
+  memory of a cluster of 8 blocks (placement ``cluster8-dsmem``) or
+  ping-ponged through L2 (``l2``).
+- P3 ``make_rollk`` -> :func:`neighbour` (``csrc/probe_shift.cu``): rounds
+  of 8-neighbour sums against an 8-multiply stand-in, the field held in a
+  cluster of 4 blocks.  The TPU's two lowerings become the card's two ways
+  to reach a neighbour: ``smem`` (a read at an offset in shared memory,
+  twin of ``rolls``: neighbour ``x[i+o0, j+o1]``) and ``shfl`` (warp
+  shuffles along axis 1, twin of ``ptpu_rolls``, whose ``pltpu.roll`` by
+  ``+o1`` reads ``x[i+o0, j-o1]``).
+- P4 ``make_diffuse_kernel`` -> :func:`stencil` (``csrc/probe_diffuse.cu``,
+  the separable wrap Gaussian in K1's order) and :func:`tc_diffuse`
+  (``A x A^T`` on the tensor cores with ``mma.sync``, TF32 or BF16 inputs,
+  f32 accumulation).
+- P5 ``make_roll_kernel`` -> :func:`shift` (``roll(x, 1, 0) + 1``, a cluster
+  of 4) and :func:`tc_roll` (``P x + 1`` with the permutation ``P`` on the
+  tensor cores, TF32).
+
+Each wrapper given CPU tensors runs its plain version (``*_plain``); given
+CUDA tensors it launches its kernel or raises, and adds one to
+``cuda_step.launches[<its key>]``.  The ``measure_*`` functions run one
+probe item on the card at the TPU probe's shape: the kernel's output held
+against the plain version, CUDA-event times, the bound and, where one
+PyTorch call computes the same function, its time.  Inputs are made from a
+numpy seed (uniform in [0, 1) for floats, in [-8, 8) for integers) where the
+TPU tools take ``jr.uniform``, zeros or ones: the times do not depend on the
+values, and a comparison on distinct values shows more.
+"""
+from __future__ import annotations
+
+import subprocess
+from contextlib import contextmanager
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from die_tpu_torch.fast import cuda_step
+from die_tpu_torch.fast.config import DIR_OFFSETS
+from die_tpu_torch.ops.gaussian import gaussian_taps, separable_gaussian_wrap
+
+SIDE = 256  # a probe field is SIDE x SIDE f32 (the TPU probes' block)
+BLOCKS = 64  # fields a probe launch runs (the TPU tools' B and B_MICRO)
+ALU_ROUNDS = 256  # ROUNDS of tools/tpu_measure.py
+ALU_OPS = 16  # operations per chain per round: 8 (mul, add) or (cmp, sel)
+ROLL_ROUNDS = 64  # ROUNDS // 4 of make_roll
+NEIGHBOUR_ROUNDS = 64  # K of make_rollk
+DIFFUSE_APPS = 64  # K of tools/tpu_mxu_offload.py
+SHIFT_ROUNDS = 256  # K * 4 of make_roll_kernel
+CHAINS = 4
+
+ALU_CASES = (("fma", "float32"), ("fma", "bfloat16"), ("cmpsel", "float32"),
+             ("cmpsel", "bfloat16"), ("intops", "int32"), ("intops", "int16"),
+             ("intops", "int8"))
+ALU_CONSTS = {"fma": (0.999, 1e-3), "cmpsel": (0.5, 0.25, 0.5),
+              "intops": (3, 7, 5)}
+ROLL_CASES = ((0, 1), (0, 3), (1, 1), (1, 3))
+PLACEMENTS = {"cluster": "cluster8-dsmem", "l2": "l2"}
+NEIGHBOUR_KINDS = ("alu", "smem", "shfl")  # twins of alu, rolls, ptpu_rolls
+NEIGHBOUR_ALU = tuple(float(np.float32(0.1 + 0.01 * i)) for i in range(8))
+SIGMAS = (0.5, 1.25)
+TC_KINDS = ("tf32", "bf16")
+DECAY = float(np.float32(0.9))
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
+_ALU_KIND = {"fma": 0, "cmpsel": 1, "intops": 2}
+_ALU_DT = {"float32": 0, "bfloat16": 1, "int32": 2, "int16": 3, "int8": 4}
+_NEIGHBOUR_KIND = {"alu": 0, "smem": 1, "shfl": 2, "shift": 3}
+
+# counter key -> (source, the TPU kernel's pallas_call it replaces)
+_MEASURE = "tools/tpu_measure.py:"
+_MXU = "tools/tpu_mxu_offload.py:"
+KERNEL_INFO = {}
+for _k, _d in ALU_CASES:
+    KERNEL_INFO[f"probe_alu_{_k}_{_d}"] = ("probe_alu.cu", _MEASURE + "107")
+for _a, _s in ROLL_CASES:
+    for _p in PLACEMENTS:
+        KERNEL_INFO[f"probe_roll_ax{_a}_s{_s}_{_p}"] = ("probe_shift.cu",
+                                                         _MEASURE + "157")
+for _k in NEIGHBOUR_KINDS:
+    KERNEL_INFO[f"probe_rollk_{_k}"] = ("probe_shift.cu", _MEASURE + "283")
+KERNEL_INFO["probe_roll_kernel_shift"] = ("probe_shift.cu", _MXU + "180")
+for _s in SIGMAS:
+    KERNEL_INFO[f"probe_diffuse_stencil_s{_s}"] = ("probe_diffuse.cu",
+                                                   _MXU + "127")
+    for _k in TC_KINDS:
+        KERNEL_INFO[f"probe_diffuse_tc_{_k}_s{_s}"] = ("probe_diffuse.cu",
+                                                       _MXU + "127")
+KERNEL_INFO["probe_roll_kernel_tc"] = ("probe_diffuse.cu", _MXU + "180")
+
+
+# ---- plain versions -------------------------------------------------------------
+
+def _const(v, dtype, device):
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def alu_plain(x: torch.Tensor, kind: str, rounds: int = ALU_ROUNDS):
+    """P1: chains ``x + i`` (i < 4), each ``rounds`` x 8 times ``x * 0.999 +
+    1e-3`` (fma), ``where(x > 0.5, x * 0.25, x + 0.5)`` (cmpsel) or
+    ``where(x > 3, x - 7, x + 5)`` (intops) in ``x``'s dtype (integers
+    wrap), then the elementwise maximum of the chains."""
+    def c(v):
+        return _const(v, x.dtype, x.device)
+
+    ch = torch.stack([x + c(i) for i in range(CHAINS)])
+    k = [c(v) for v in ALU_CONSTS[kind]]
+    for _ in range(rounds):
+        for _ in range(ALU_OPS // 2):
+            if kind == "fma":
+                ch = ch * k[0] + k[1]
+            elif kind == "cmpsel":
+                ch = torch.where(ch > k[0], ch * k[1], ch + k[2])
+            else:
+                ch = torch.where(ch > k[0], ch - k[1], ch + k[2])
+    acc = ch[0]
+    for i in range(1, CHAINS):
+        acc = torch.maximum(acc, ch[i])
+    return acc
+
+
+def roll_plain(x: torch.Tensor, axis: int, shift: int,
+               rounds: int = ROLL_ROUNDS):
+    """P2: chains ``x + i`` (i < 4), each ``rounds`` times ``roll(c, shift,
+    axis) + 1`` over the trailing two axes, then their maximum."""
+    dim = x.dim() - 1 + axis  # in the stack of chains
+    ch = torch.stack([x + float(i) for i in range(CHAINS)])
+    for _ in range(rounds):
+        ch = torch.roll(ch, shift, dim) + 1.0
+    acc = ch[0]
+    for i in range(1, CHAINS):
+        acc = torch.maximum(acc, ch[i])
+    return acc
+
+
+def neighbour_plain(x: torch.Tensor, kind: str,
+                    rounds: int = NEIGHBOUR_ROUNDS):
+    """P3: ``rounds`` times ``x * 0.5 + acc * 0.0625`` with ``acc`` the sum,
+    in ``DIR_OFFSETS`` order, of the 8 neighbours ``x[i+o0, j+o1]``
+    (``smem``) or ``x[i+o0, j-o1]`` (``shfl``), or of ``x * c_i`` (``alu``)."""
+    r0, r1 = x.dim() - 2, x.dim() - 1
+    sign = -1 if kind == "smem" else 1
+    for _ in range(rounds):
+        if kind == "alu":
+            ys = [x * w for w in NEIGHBOUR_ALU]
+        else:
+            up, down = torch.roll(x, 1, r0), torch.roll(x, -1, r0)
+            ys = []
+            for o0, o1 in DIR_OFFSETS:
+                base = x if o0 == 0 else (down if o0 > 0 else up)
+                ys.append(base if o1 == 0 else
+                          torch.roll(base, sign * o1, r1))
+        acc = ys[0]
+        for y in ys[1:]:
+            acc = acc + y
+        x = x * 0.5 + acc * 0.0625
+    return x
+
+
+def shift_plain(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
+    """P5, shift leg: ``rounds`` times ``roll(x, 1, 0) + 1``."""
+    for _ in range(rounds):
+        x = torch.roll(x, 1, x.dim() - 2) + 1.0
+    return x
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest
+    of 10 mantissa bits, ties away from zero (low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to bf16 (nearest, ties to even) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+_ROUND = {"f32": lambda t: t, "tf32": tf32_round, "bf16": bf16_round}
+
+
+def circulant(n: int, taps) -> np.ndarray:
+    """``A[i, (i + k - r) % n] = taps[k]``: ``A @ x`` is the wrap stencil of
+    ``taps`` along axis 0 (the TPU tool's ``circulant``)."""
+    r = (len(taps) - 1) // 2
+    A = np.zeros((n, n), np.float32)
+    for k, w in enumerate(taps):
+        for i in range(n):
+            A[i, (i + k - r) % n] = w
+    return A
+
+
+def permutation(n: int) -> np.ndarray:
+    """``P @ x == roll(x, 1, 0)``."""
+    return np.roll(np.eye(n, dtype=np.float32), -1, axis=1)
+
+
+@contextmanager
+def tf32_matmul(on: bool):
+    """f32 products on the card with TF32 ``on`` or off (full f32); the
+    setting before is restored after."""
+    kept = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+
+
+def diffuse_plain(x: torch.Tensor, sigma: float, kind: str = "stencil",
+                  apps: int = DIFFUSE_APPS, decay: float = DECAY):
+    """P4: ``apps`` times ``y = G(x) * decay`` on ``[..., n, n]``.  ``G`` is
+    the separable wrap Gaussian (``stencil``, taps folded from -r to +r, axis
+    0 then axis 1) or ``A x A^T`` with the circulant ``A``: in f32
+    (``f32``, the TPU's ``mxu_f32``), or with A, x and the product between
+    the two sides rounded to TF32 (``tf32``) or bf16 (``bf16``) as the
+    tensor-core kernels round them, the sums in f32."""
+    if kind == "stencil":
+        for _ in range(apps):
+            x = separable_gaussian_wrap(x, sigma) * decay
+        return x
+    rnd = _ROUND[kind]
+    a = rnd(torch.from_numpy(circulant(x.shape[-1], gaussian_taps(sigma)))
+            .to(x.device))
+    with tf32_matmul(False):
+        for _ in range(apps):
+            x = torch.matmul(rnd(torch.matmul(a, rnd(x))), a.T) * decay
+    return x
+
+
+def tc_roll_plain(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
+    """P5, product leg: ``rounds`` times ``P x + 1`` with ``x`` rounded to
+    TF32 (what the permutation product on the tensor cores computes)."""
+    for _ in range(rounds):
+        x = torch.roll(tf32_round(x), 1, x.dim() - 2) + 1.0
+    return x
+
+
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two f32 tensors in units in the last place (as
+    the TPU tool's ``ulp_check``: difference of the int32 bit patterns)."""
+    ai = a.contiguous().view(torch.int32).to(torch.int64)
+    bi = b.contiguous().view(torch.int32).to(torch.int64)
+    return int((ai - bi).abs().max())
+
+
+# ---- wrappers -------------------------------------------------------------------
+
+def _check(x: torch.Tensor, dtype, what: str):
+    if x.dim() != 3 or tuple(x.shape[1:]) != (SIDE, SIDE) or \
+            x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{what}: need contiguous {dtype} [B, {SIDE}, {SIDE}]"
+                         f", got {x.dtype} {tuple(x.shape)}")
+    if x.shape[0] < 1 or x.shape[0] > 65535 // 8:
+        raise ValueError(f"{what}: 1 to {65535 // 8} fields, got "
+                         f"{x.shape[0]}")
+
+
+def _rounds(n: int, what: str):
+    if n < 0 or n > 2 ** 30:
+        raise ValueError(f"{what}: rounds out of range: {n}")
+
+
+def _launch(lib: str, fn: str, key: str, *args):
+    cuda_step.build()
+    rc = cuda_step.entry(lib, fn)(*args, torch.cuda.current_stream()
+                                  .cuda_stream)
+    cuda_step.check_launch(rc, key)
+    cuda_step.launches[key] += 1
+
+
+def _word(v, dtype) -> int:
+    """The 32-bit word of ``v`` in ``dtype``, repeated across the word's
+    lanes (two bf16 or int16, four int8)."""
+    t = torch.tensor(v, dtype=dtype)
+    size = t.element_size()
+    bits = int(t.reshape(1).view(torch.uint8).numpy().view(
+        {4: np.uint32, 2: np.uint16, 1: np.uint8}[size])[0])
+    word = 0
+    for lane in range(4 // size):
+        word |= bits << (8 * size * lane)
+    return word
+
+
+def alu(x: torch.Tensor, kind: str, rounds: int = ALU_ROUNDS):
+    """P1 on ``[B, 256, 256]`` of the kind's dtypes (see ``ALU_CASES``)."""
+    name = {v: k for k, v in DTYPES.items()}.get(x.dtype)
+    if (kind, name) not in ALU_CASES:
+        raise ValueError(f"alu probe: no case ({kind}, {x.dtype})")
+    _rounds(rounds, "alu")
+    if x.device.type == "cpu":
+        return alu_plain(x, kind, rounds)
+    _check(x, x.dtype, "alu")
+    out = torch.empty_like(x)
+    consts = [_word(i, x.dtype) for i in range(CHAINS)] + \
+        [_word(v, x.dtype) for v in ALU_CONSTS[kind]]
+    consts = np.array(consts + [0] * (7 - len(consts)), dtype=np.uint32)
+    _launch("probe_alu", "die_probe_alu", f"probe_alu_{kind}_{name}",
+            x.data_ptr(), out.data_ptr(), x.numel() * x.element_size() // 4,
+            _ALU_KIND[kind], _ALU_DT[name], rounds, consts.ctypes.data)
+    return out
+
+
+def roll(x: torch.Tensor, axis: int, shift: int, rounds: int = ROLL_ROUNDS,
+         placement: str = "cluster"):
+    """P2 on f32 ``[B, 256, 256]``: ``axis`` 0 or 1, ``shift`` 1 or 3; the
+    chains held in a cluster's shared memory (``cluster``) or in an L2
+    scratch (``l2``)."""
+    if (axis, shift) not in ROLL_CASES or placement not in PLACEMENTS:
+        raise ValueError(f"roll probe: no case axis={axis} shift={shift} "
+                         f"placement={placement!r}")
+    _rounds(rounds, "roll")
+    if x.device.type == "cpu":
+        return roll_plain(x, axis, shift, rounds)
+    _check(x, torch.float32, "roll")
+    out = torch.empty_like(x)
+    scratch = None if placement == "cluster" else torch.empty(
+        (x.shape[0], 2, CHAINS, SIDE, SIDE), dtype=torch.float32,
+        device=x.device)
+    _launch("probe_shift", "die_probe_roll",
+            f"probe_roll_ax{axis}_s{shift}_{placement}", x.data_ptr(),
+            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            x.shape[0], axis, shift, rounds)
+    return out
+
+
+def _neighbour(x, kind, rounds, key, plain):
+    _rounds(rounds, key)
+    if x.device.type == "cpu":
+        return plain()
+    _check(x, torch.float32, key)
+    out = torch.empty_like(x)
+    consts = np.array(NEIGHBOUR_ALU, dtype=np.float32)
+    _launch("probe_shift", "die_probe_neighbour", key, x.data_ptr(),
+            out.data_ptr(), x.shape[0], _NEIGHBOUR_KIND[kind], rounds,
+            consts.ctypes.data)
+    return out
+
+
+def neighbour(x: torch.Tensor, kind: str, rounds: int = NEIGHBOUR_ROUNDS):
+    """P3 on f32 ``[B, 256, 256]``, ``kind`` in ``NEIGHBOUR_KINDS``."""
+    if kind not in NEIGHBOUR_KINDS:
+        raise ValueError(f"neighbour probe: no kind {kind!r}")
+    return _neighbour(x, kind, rounds, f"probe_rollk_{kind}",
+                      lambda: neighbour_plain(x, kind, rounds))
+
+
+def shift(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
+    """P5's shift leg on f32 ``[B, 256, 256]``."""
+    return _neighbour(x, "shift", rounds, "probe_roll_kernel_shift",
+                      lambda: shift_plain(x, rounds))
+
+
+def _sigma(sigma: float, what: str) -> str:
+    if sigma not in SIGMAS:
+        raise ValueError(f"{what}: sigma must be one of {SIGMAS}, got "
+                         f"{sigma}")
+    return f"s{sigma}"
+
+
+def stencil(x: torch.Tensor, sigma: float, apps: int = DIFFUSE_APPS,
+            decay: float = DECAY):
+    """P4's stencil leg on f32 ``[B, 256, 256]``."""
+    key = f"probe_diffuse_stencil_{_sigma(sigma, 'stencil')}"
+    _rounds(apps, key)
+    if x.device.type == "cpu":
+        return diffuse_plain(x, sigma, "stencil", apps, decay)
+    _check(x, torch.float32, key)
+    taps = np.array(gaussian_taps(sigma), dtype=np.float32)
+    out = torch.empty_like(x)
+    _launch("probe_diffuse", "die_probe_stencil", key, x.data_ptr(),
+            out.data_ptr(), x.shape[0], apps, taps.ctypes.data, len(taps),
+            decay)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _operand(what: str, sigma: float, kind: str, device: str):
+    """The product's matrix on the card: the circulant of ``sigma`` or the
+    permutation, f32 (rounded by the kernel) or bf16."""
+    m = permutation(SIDE) if what == "perm" else \
+        circulant(SIDE, gaussian_taps(sigma))
+    t = torch.from_numpy(m).to(device)
+    return t.to(torch.bfloat16) if kind == "bf16" else t
+
+
+def tc_diffuse(x: torch.Tensor, sigma: float, kind: str,
+               apps: int = DIFFUSE_APPS, decay: float = DECAY):
+    """P4's tensor-core legs on f32 ``[B, 256, 256]``: ``kind`` ``tf32`` or
+    ``bf16``.  Plain version: :func:`diffuse_plain` with the same kind."""
+    key = f"probe_diffuse_tc_{kind}_{_sigma(sigma, 'tc_diffuse')}"
+    if kind not in TC_KINDS:
+        raise ValueError(f"tc_diffuse: kind must be one of {TC_KINDS}")
+    _rounds(apps, key)
+    if x.device.type == "cpu":
+        return diffuse_plain(x, sigma, kind, apps, decay)
+    _check(x, torch.float32, key)
+    a = _operand("circulant", sigma, kind, str(x.device))
+    out = torch.empty_like(x)
+    _launch("probe_diffuse", "die_probe_tc", key, x.data_ptr(),
+            out.data_ptr(), a.data_ptr(), x.shape[0], apps,
+            int(kind == "bf16"), 1, decay, 0.0)
+    return out
+
+
+def tc_roll(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
+    """P5's product leg on f32 ``[B, 256, 256]`` (TF32)."""
+    key = "probe_roll_kernel_tc"
+    _rounds(rounds, key)
+    if x.device.type == "cpu":
+        return tc_roll_plain(x, rounds)
+    _check(x, torch.float32, key)
+    p = _operand("perm", 0.0, "tf32", str(x.device))
+    out = torch.empty_like(x)
+    _launch("probe_diffuse", "die_probe_tc", key, x.data_ptr(),
+            out.data_ptr(), p.data_ptr(), x.shape[0], rounds, 0, 0, 1.0, 1.0)
+    return out
+
+
+# ---- measurement on the card ----------------------------------------------------
+
+MEM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}  # bytes/s
+TF32_RATE, BF16_TC_RATE = 495e12, 989e12  # dense tensor-core FLOP/s
+
+
+def card_rates() -> dict:
+    """Peak rates of card 0: per-SM lanes x SMs x the maximum SM clock that
+    ``nvidia-smi`` reports.  fp32: 128 lanes (a mul or an add each cycle;
+    twice that counts the 67 TFLOP/s of an FMA); bf16: 128 lanes of bf16x2;
+    int32: 64 lanes, int16 and int8 counted as packed 2 and 4 to a lane;
+    shared memory: 128 bytes a cycle per SM.  Device memory and the tensor
+    cores from the published table (H100 SXM, dense)."""
+    name = torch.cuda.get_device_name(0)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lane = sms * mhz * 1e6
+    hbm = next((r for k, r in MEM_RATE.items() if k in name), MEM_RATE["SXM"])
+    return {"sms": sms, "clock_mhz": mhz, "float32": 128 * lane,
+            "bfloat16": 256 * lane, "int32": 64 * lane, "int16": 128 * lane,
+            "int8": 256 * lane, "smem": 128 * lane, "hbm": hbm,
+            "tf32": TF32_RATE, "bf16": BF16_TC_RATE}
+
+
+def time_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Device ms per call of ``fn`` by CUDA events over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(ms, result) of one call of ``fn`` by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def seeded(shape, dtype=torch.float32, seed: int = 0, device="cuda"):
+    """Probe input from a numpy seed: uniform [0, 1) floats, or integers in
+    [-8, 8)."""
+    rs = np.random.RandomState(seed)
+    if dtype.is_floating_point:
+        a = torch.from_numpy(rs.uniform(0.0, 1.0, shape).astype(np.float32))
+        return a.to(device=device, dtype=dtype)
+    a = torch.from_numpy(rs.randint(-8, 8, shape).astype(np.int64))
+    return a.to(device=device, dtype=dtype)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype.is_floating_point:
+        isz = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.contiguous().view(isz), b.contiguous().view(isz)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _bound(nbytes, ops, op_rate, rates):
+    t_b, t_o = nbytes / rates["hbm"], ops / op_rate
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _row(item, key, ms, plain_ms, out, ref, nbytes, ops, op_rate, rates,
+         library_ms=None, **extra):
+    bound, by = _bound(nbytes, ops, op_rate, rates)
+    err = float((out.double() - ref.double()).abs().max())
+    src, rep = KERNEL_INFO[key]
+    return {"item": item, "kernel": key, "source": "die_tpu_torch/csrc/" + src,
+            "replaces": rep, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms, "max_abs_err": err,
+            **extra}
+
+
+def measure_alu(kind, dtype, rates, B=BLOCKS, rounds=ALU_ROUNDS, reps=3):
+    """P1 item ``alu_{kind}_{dtype}``.  Bound: ``B * 4 * 16 * rounds * 256^2``
+    operations (the TPU tool's count) over the dtype's lane rate."""
+    dt = DTYPES[dtype]
+    x = seeded((B, SIDE, SIDE), dt, 1)
+    out = alu(x, kind, rounds)
+    plain_ms, ref = timed_once(lambda: alu_plain(x, kind, rounds))
+    if not same_bits(out, ref):
+        raise AssertionError(f"alu_{kind}_{dtype} differs from its plain "
+                             f"version at the full shape")
+    ms = time_ms(lambda: alu(x, kind, rounds), reps)
+    ops = B * CHAINS * ALU_OPS * rounds * SIDE * SIDE
+    return _row(f"alu_{kind}_{dtype}", f"probe_alu_{kind}_{dtype}", ms,
+                plain_ms, out.float(), ref.float(),
+                2 * x.numel() * x.element_size(), ops, rates[dtype], rates,
+                placement="registers", teraops=ops / ms / 1e9,
+                int_form={"int16": "simd __vadd2/__vsub2/__vcmpgts2/__vmaxs2",
+                          "int8": "simd __vadd4/__vsub4/__vcmpgts4/__vmaxs4",
+                          "int32": "scalar int32"}.get(dtype))
+
+
+def _smem_bound(nbytes, rates):
+    return nbytes / rates["smem"] * 1e3
+
+
+def measure_roll(axis, shift_, placement, rates, B=BLOCKS,
+                 rounds=ROLL_ROUNDS, reps=3):
+    """P2 item ``roll_float32_ax{axis}_s{shift}`` (``_l2`` through L2).
+    Bound (contract): the field read and written once, and one add a cell
+    a round.  Phase bound: every round reads and writes the 4 chains once in
+    shared memory.  Library: ``rounds`` x one ``torch.roll`` of the chains."""
+    x = seeded((B, SIDE, SIDE), torch.float32, 2)
+    out = roll(x, axis, shift_, rounds, placement)
+    plain_ms, ref = timed_once(lambda: roll_plain(x, axis, shift_, rounds))
+    if not same_bits(out, ref):
+        raise AssertionError(f"roll ax{axis} s{shift_} {placement} differs "
+                             f"from its plain version at the full shape")
+    ms = time_ms(lambda: roll(x, axis, shift_, rounds, placement), reps)
+    chains = torch.stack([x + float(i) for i in range(CHAINS)])
+    lib = rounds * time_ms(lambda: torch.roll(chains, shift_, 2 + axis), 5)
+    cells = B * CHAINS * SIDE * SIDE
+    item = f"roll_float32_ax{axis}_s{shift_}" + (
+        "" if placement == "cluster" else "_l2")
+    return _row(item, f"probe_roll_ax{axis}_s{shift_}_{placement}", ms,
+                plain_ms, out, ref, 2 * x.numel() * 4, cells * rounds,
+                rates["float32"], rates, library_ms=lib,
+                placement=PLACEMENTS[placement],
+                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
+                phase_bound_by="shared-memory bytes",
+                gelems=cells * rounds / ms / 1e6,
+                ns_per_roll=ms * 1e6 / (B * CHAINS * rounds))
+
+
+NEIGHBOUR_OPS = {"alu": 8 + 7 + 3, "smem": 7 + 3, "shfl": 7 + 3}
+
+
+def measure_neighbour(kind, rates, B=BLOCKS, rounds=NEIGHBOUR_ROUNDS,
+                      reps=3):
+    """P3 item ``rollk_{kind}``.  Ops a cell a round: 8 muls and 7 adds
+    (alu) or 7 adds, and 3 for the update.  Phase bound: the field read and
+    written once a round in shared memory."""
+    x = seeded((B, SIDE, SIDE), torch.float32, 3)
+    out = neighbour(x, kind, rounds)
+    plain_ms, ref = timed_once(lambda: neighbour_plain(x, kind, rounds))
+    if not same_bits(out, ref):
+        raise AssertionError(f"rollk_{kind} differs from its plain version "
+                             f"at the full shape")
+    ms = time_ms(lambda: neighbour(x, kind, rounds), reps)
+    cells = B * SIDE * SIDE
+    return _row(f"rollk_{kind}", f"probe_rollk_{kind}", ms, plain_ms, out,
+                ref, 2 * x.numel() * 4, cells * rounds * NEIGHBOUR_OPS[kind],
+                rates["float32"], rates, placement="cluster4-dsmem",
+                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
+                phase_bound_by="shared-memory bytes",
+                us_per_env_round=ms * 1e3 / (B * rounds))
+
+
+def rollk_deltas(rows: dict, B=BLOCKS, rounds=NEIGHBOUR_ROUNDS) -> list:
+    """``(t_kind - t_alu) / (B * K * 8)`` per neighbour traversal, in ns."""
+    return [{"item": f"rollk_delta_{k}",
+             "ns_per_roll_traversal": (rows[k]["ms"] - rows["alu"]["ms"])
+             * 1e6 / (B * rounds * 8)} for k in ("smem", "shfl")]
+
+
+def measure_shift(rates, B=BLOCKS, rounds=SHIFT_ROUNDS, reps=3):
+    """P5 item ``roll_kernel_shift``; library: ``rounds`` x ``torch.roll``."""
+    x = seeded((B, SIDE, SIDE), torch.float32, 4)
+    out = shift(x, rounds)
+    plain_ms, ref = timed_once(lambda: shift_plain(x, rounds))
+    if not same_bits(out, ref):
+        raise AssertionError("roll_kernel_shift differs from its plain "
+                             "version at the full shape")
+    ms = time_ms(lambda: shift(x, rounds), reps)
+    lib = rounds * time_ms(lambda: torch.roll(x, 1, 1), 5)
+    cells = B * SIDE * SIDE
+    return _row("roll_kernel_shift", "probe_roll_kernel_shift", ms, plain_ms,
+                out, ref, 2 * x.numel() * 4, cells * rounds,
+                rates["float32"], rates, library_ms=lib,
+                placement="cluster4-dsmem",
+                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
+                phase_bound_by="shared-memory bytes",
+                ns_per_roll=ms * 1e6 / (B * rounds))
+
+
+# a tensor-core leg's max abs error against its plain twin, relative to the
+# plain result's max |value| (PERF.md, PR 5): the sums' order differs, and a
+# one-ulp f32 difference can flip the rounding of the product between the
+# two sides by one TF32 (2^-11) or bf16 (2^-8) ulp, which later
+# applications carry on (measured on an H100 after 64 applications: 1.6e-3
+# TF32, 2.1e-2 bf16)
+TC_REL_TOL = {"tf32": 4e-3, "bf16": 5e-2}
+
+
+def library_diffuse(x, sigma, kind, apps=DIFFUSE_APPS):
+    """One ``torch.matmul`` diffusion chain on the card: f32 with TF32 off
+    (``stencil``'s yardstick), TF32 on (``tf32``), or bf16 operands with the
+    product between the sides in bf16 (``bf16``); states and restores
+    ``allow_tf32``."""
+    a = torch.from_numpy(circulant(SIDE, gaussian_taps(sigma))).to(x.device)
+    with tf32_matmul(kind == "tf32"):
+        if kind == "bf16":
+            ab = a.to(torch.bfloat16)
+            for _ in range(apps):
+                x = (torch.matmul(torch.matmul(ab, x.to(torch.bfloat16)),
+                                  ab.T).float() * DECAY)
+            return x
+        for _ in range(apps):
+            x = torch.matmul(torch.matmul(a, x), a.T) * DECAY
+        return x
+
+
+def stencil_ops(sigma) -> int:
+    """Operations a cell of one application: two passes of ntaps muls and
+    ntaps - 1 adds, and the decay."""
+    n = len(gaussian_taps(sigma))
+    return 2 * (2 * n - 1) + 1
+
+
+def measure_diffuse(sigma, kind, rates, B=BLOCKS, apps=DIFFUSE_APPS, reps=3):
+    """P4 item ``diffuse_kernel_{stencil,tc_tf32,tc_bf16}_s{sigma}``.  Bound:
+    the stencil's operations over the fp32 lane rate; a product leg's
+    ``2 * 2 * 256^3`` FLOP an application over the tensor cores' rate.
+    Library: the ``torch.matmul`` chain of the same precision."""
+    x = seeded((B, SIDE, SIDE), torch.float32, 5)
+    cells = B * SIDE * SIDE
+    if kind == "stencil":
+        run = lambda: stencil(x, sigma, apps)  # noqa: E731
+        ref_fn = lambda: diffuse_plain(x, sigma, "stencil", apps)  # noqa
+        ops, rate = cells * apps * stencil_ops(sigma), rates["float32"]
+        lib_kind = "f32"
+        key = f"probe_diffuse_stencil_s{sigma}"
+    else:
+        run = lambda: tc_diffuse(x, sigma, kind, apps)  # noqa: E731
+        ref_fn = lambda: diffuse_plain(x, sigma, kind, apps)  # noqa: E731
+        ops, rate = B * apps * 4 * SIDE ** 3, rates[kind]
+        lib_kind = kind
+        key = f"probe_diffuse_tc_{kind}_s{sigma}"
+    out = run()
+    plain_ms, ref = timed_once(ref_fn)
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    if kind == "stencil":
+        if not same_bits(out, ref):
+            raise AssertionError(f"stencil s{sigma} differs from its plain "
+                                 f"version at the full shape")
+    elif not err <= TC_REL_TOL[kind] * scale:
+        raise AssertionError(f"tc_{kind} s{sigma}: max abs err {err} above "
+                             f"{TC_REL_TOL[kind]} x {scale}")
+    ms = time_ms(run, reps)
+    lib = time_ms(lambda: library_diffuse(x, sigma, lib_kind, apps), 1)
+    item = f"diffuse_kernel_{'stencil' if kind == 'stencil' else 'tc_' + kind}"
+    nbytes = 2 * x.numel() * 4 + (0 if kind == "stencil" else SIDE * SIDE * 4)
+    return _row(f"{item}_s{sigma}", key, ms, plain_ms, out, ref, nbytes, ops,
+                rate, rates, library_ms=lib,
+                placement="cluster4-dsmem" + (
+                    "" if kind == "stencil" else
+                    "; A streamed from L2 (__ldg), not in shared memory"),
+                us_per_app=ms * 1e3 / (B * apps),
+                max_ulp=max_ulp(out, ref), rel_err=err / scale)
+
+
+def measure_tc_roll(rates, B=BLOCKS, rounds=SHIFT_ROUNDS, reps=3):
+    """P5 item ``roll_kernel_tc`` (TF32), bitwise against
+    :func:`tc_roll_plain`; library: ``rounds`` x ``torch.matmul(P, x) + 1``
+    with TF32 on."""
+    x = seeded((B, SIDE, SIDE), torch.float32, 6)
+    out = tc_roll(x, rounds)
+    plain_ms, ref = timed_once(lambda: tc_roll_plain(x, rounds))
+    if not same_bits(out, ref):
+        raise AssertionError("roll_kernel_tc differs from its plain version "
+                             "at the full shape")
+    ms = time_ms(lambda: tc_roll(x, rounds), reps)
+    p = torch.from_numpy(permutation(SIDE)).cuda()
+    with tf32_matmul(True):
+        lib = rounds * time_ms(lambda: torch.matmul(p, x) + 1.0, 5)
+    return _row("roll_kernel_tc", "probe_roll_kernel_tc", ms, plain_ms, out,
+                ref, 2 * x.numel() * 4 + SIDE * SIDE * 4,
+                B * rounds * 2 * SIDE ** 3, rates["tf32"], rates,
+                library_ms=lib,
+                placement="cluster4-dsmem; P streamed from L2 (__ldg)",
+                ns_per_roll=ms * 1e6 / (B * rounds))
+
+
+def ulp_check(sigma, seed: int = 7) -> dict:
+    """Item ``ulp_sigma{sigma}``: one application of each tensor-core leg
+    (no decay) against one of the stencil kernel, on one field: max ulp and
+    max abs, as the TPU tool's ``ulp_check``."""
+    x = seeded((1, SIDE, SIDE), torch.float32, seed)
+    a = stencil(x, sigma, 1, 1.0)
+    out = {"item": f"ulp_sigma{sigma}"}
+    for kind in TC_KINDS:
+        b = tc_diffuse(x, sigma, kind, 1, 1.0)
+        out[f"tc_{kind}_max_ulp"] = max_ulp(a, b)
+        out[f"tc_{kind}_max_abs"] = float((a - b).abs().max())
+    return out
