@@ -64,19 +64,22 @@ Phases (any failure exits non-zero):
      ``check_env_state``, env-steps/s, each piece of a step alone, and K5
      at F = 1 and F = 2 beside its bound, its plain version and
      ``torch.gather`` (``--only-exact`` runs this phase alone);
- 10. the probes of the step's phases (``die_tpu_torch/tools/probes.py``,
-     the counterparts of the TPU probes of ``tools/tpu_measure.py`` and
-     ``tools/tpu_mxu_offload.py``): every probe kernel against its plain
-     version on small cases (2 fields, a few rounds; every kind, dtype,
-     axis, shift, placement and sigma), bitwise (bf16 too) except the
-     tensor-core legs (at ``probes.TC_REL_TOL``, max ulp printed), and the
-     one-application ulp of each tensor-core leg against the stencil; then,
-     counts read around it, every probe item at the TPU probe's full shape (64 fields of
-     256x256) as ``tools/gpu_measure.py`` and ``tools/gpu_tc_offload.py``
-     run it: held against its plain version once more, timed by CUDA
-     events beside its bound, its plain version and, where one PyTorch call
-     computes it, that call; one JSON line per item (``--only-probes`` runs
-     this phase alone).
+ 10. the probes (``die_tpu_torch/tools/probes.py``, the counterparts of the
+     TPU probes of ``tools/tpu_measure.py`` and ``tools/tpu_mxu_offload.py``;
+     ``tools/probes2.py``, of ``tools/tpu_measure2.py``): every probe kernel
+     against its plain version on small cases (2 fields, a few rounds; every
+     kind, dtype, axis, shift, placement, sigma, gather placement, one-hot
+     leg and word shape; words of random bit patterns), bitwise (bf16 and
+     the TF32 one-hot leg too) except the tensor-core diffusion legs (at
+     ``probes.TC_REL_TOL``, max ulp printed), and the one-application ulp
+     of each tensor-core leg against the stencil; then, counts read around
+     it, every probe item at the TPU probe's full shape (64 fields of
+     256x256; the gather and bit-plane items at B = 1 and B = 64) as
+     ``tools/gpu_measure.py``, ``tools/gpu_tc_offload.py`` and
+     ``tools/gpu_measure2.py`` run it: held against its plain version once
+     more, timed by CUDA events beside its bound, its plain version and,
+     where one PyTorch call computes it, that call; one JSON line per item
+     (``--only-probes`` runs this phase alone).
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -1475,12 +1478,60 @@ def phase_probe_parity():
                 f"{P.max_ulp(got, want)} against its plain twin (max abs "
                 f"{max_err(got, want):.3e}; tolerance {P.TC_REL_TOL[kind]} "
                 f"x max |y|)")
+    probe2_parity(check)
     torch.cuda.synchronize()
     log(f"probe parity: {len(errs)} probe kernels equal their plain versions "
-        f"on small cases (bitwise but the tensor-core legs)")
+        f"on small cases (bitwise but the tensor-core diffusion legs)")
     for sigma in P.SIGMAS:
         log(json.dumps(P.ulp_check(sigma)))
     return errs
+
+
+def probe2_parity(check):
+    """The gather and bit-plane probes (``tools/probes2.py``) against their
+    plain versions on small cases, bitwise: 2 fields; cell counts that end
+    inside a block and cells of any int32 (read mod 65536); 0, 1 and odd and
+    even reps; words of random bit patterns (non-0/1 words for the pack).
+    The TF32 one-hot leg is bitwise against its twin (the field rounded to
+    TF32) and its ulp against the exact gather is printed."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    field = P.seeded((2, P2.SIDE, P2.SIDE), torch.float32, 12)
+    for n in (1, 777, 8197):
+        cells = P2.seeded_cells((2, n), 13 + n)
+        if n == 777:  # every int32, read mod 65536
+            cells = P2.seeded_words((2, n), 14)
+        for placement in P2.GATHER_PLACEMENTS:
+            for reps in (0, 1, 3):
+                check(f"probe_gather_{placement}",
+                      P2.gather(field, cells, reps, placement),
+                      P2.gather_plain(field, cells, reps))
+    for n in (1024, 2048):
+        cells = P2.seeded_cells((n,), 15 + n)
+        for leg in P2.ONEHOT_LEGS:
+            for reps in (1, 3):
+                got = P2.onehot(field[0], cells, leg, reps)
+                check(f"probe_onehot_{leg}", got,
+                      P2.onehot_plain(field[0], cells, leg, reps))
+            exact = P2.gather_plain(field[:1], cells[None], 3)[0]
+            log(f"probe onehot_{leg}, {n} cells, 3 reps: max ulp "
+                f"{P.max_ulp(got, exact)} against the exact gather")
+    for tag, shape in P2.CHAIN_SHAPES.items():
+        x = P2.seeded_words((2, *shape), 16)
+        for rounds in (0, 3):
+            check(f"probe_chain_{tag}", P2.chain(x, rounds),
+                  P2.chain_plain(x, rounds))
+    x = P2.seeded_words((2, P2.SIDE, P2.SIDE), 17)  # not 0/1: any word
+    bits = P2.seeded_words((2, P2.SIDE, P2.SIDE), 18, bits=True)
+    for reps in (1, 2, 3):
+        check("probe_pack", P2.pack(x, reps), P2.pack_plain(x, reps))
+    check("probe_pack", P2.pack(bits, 1), P2.pack_plain(bits, 1))
+    w = P2.seeded_words((2, P2.WORD_ROWS, P2.SIDE), 19)
+    for reps in (1, 2, 3):
+        check("probe_unpack", P2.unpack(w, reps), P2.unpack_plain(w, reps))
+    for steps in (0, 1, 33):
+        check("probe_funnel", P2.funnel(w, steps), P2.funnel_plain(w, steps))
 
 
 def phase_probes(smi: str):
@@ -1489,6 +1540,7 @@ def phase_probes(smi: str):
     kernel rows of the kernels line."""
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
 
     t0 = time.perf_counter()
     errs = phase_probe_parity()
@@ -1504,16 +1556,20 @@ def phase_probes(smi: str):
     rows += [P.measure_shift(rates), P.measure_tc_roll(rates)]
     rows += [P.measure_diffuse(s, k, rates) for s in P.SIGMAS
              for k in ("stencil", *P.TC_KINDS)]
+    # the gather and bit-plane probes at the TPU's shape (B = 1) and at
+    # B = 64; the kernels line takes the TPU shape's row, the other beside it
+    rows2 = probe2_rows(rates)
     torch.cuda.synchronize()
     counts = dict(cuda_step.launches)
-    for row in rows + P.rollk_deltas(rollk):
+    for row in rows + rows2 + P.rollk_deltas(rollk):
         log(json.dumps({**row, "card": smi}))
+    at64 = {r["kernel"]: r for r in rows2 if r.get("B") == 64}
     kernels = []
-    for row in rows:
+    for row in rows + [r for r in rows2 if r.get("B", 1) == 1]:
         key = row["kernel"]
         if counts[key] < 1:
             raise AssertionError(f"{key} was not launched on the probe path")
-        kernels.append({
+        entry = {
             "name": key, "route": "cuda", "source": row["source"],
             "replaces": row["replaces"], "launches": counts[key],
             "match": True,
@@ -1522,15 +1578,37 @@ def phase_probes(smi: str):
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "item": row["item"],
             **{k: row[k] for k in ("placement", "phase_bound_ms",
-                                   "phase_bound_by", "max_ulp")
-               if k in row}})
-    missing = set(P.KERNEL_INFO) - {k["name"] for k in kernels}
+                                   "phase_bound_by", "max_ulp", "ms_1rep",
+                                   "max_ulp_vs_exact")
+               if k in row}}
+        if key in at64:
+            entry["at_B64"] = {k: at64[key][k] for k in (
+                "item", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "ms_1rep")}
+        kernels.append(entry)
+    missing = (set(P.KERNEL_INFO) | set(P2.KERNEL_INFO)) - \
+        {k["name"] for k in kernels}
     if missing:
         raise AssertionError(f"probe kernels without a row: {missing}")
     log(f"probe path launches: "
         f"{ {k: v for k, v in counts.items() if v} }; phase "
         f"{time.perf_counter() - t0:.1f} s")
     return kernels
+
+
+def probe2_rows(rates) -> list:
+    """Every item of ``tools/probes2.py`` at full shape: P6 and P8-P11 at
+    B = 1 and B = 64, P7 at the TPU's one field."""
+    from die_tpu_torch.tools import probes2 as P2
+
+    rows = []
+    for B in P2.BATCHES:
+        rows += [P2.measure_gather(p, rates, B) for p in P2.GATHER_PLACEMENTS]
+        rows += [P2.measure_chain(t, rates, B) for t in P2.CHAIN_SHAPES]
+        rows += [P2.measure_pack(rates, B), P2.measure_unpack(rates, B),
+                 P2.measure_funnel(rates, B)]
+    rows += [P2.measure_onehot(leg, rates) for leg in P2.ONEHOT_LEGS]
+    return rows
 
 
 def main():

@@ -23,8 +23,10 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
   too; its wrapper is ``ops/gather.py``.
 - The on-card probes of the step's phases (``probe_alu.cu``,
-  ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) are built
-  and counted here too; their wrappers are ``tools/probes.py``.
+  ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) and of
+  gathers and bit-plane words (``probe_gather.cu``, ``probe_bits.cu``;
+  ``PROBE2_KERNELS``) are built and counted here too; their wrappers are
+  ``tools/probes.py`` and ``tools/probes2.py``.
 
 Each source is built by its own ``nvcc`` (all started together) into a
 shared library with a plain C interface under ``build/die_tpu_torch/``,
@@ -77,7 +79,9 @@ SOURCES = {"lattice_step": "lattice_step.cu",
            "gather_fields": "gather_fields.cu",
            "probe_alu": "probe_alu.cu",
            "probe_shift": "probe_shift.cu",
-           "probe_diffuse": "probe_diffuse.cu"}
+           "probe_diffuse": "probe_diffuse.cu",
+           "probe_gather": "probe_gather.cu",
+           "probe_bits": "probe_bits.cu"}
 # counters of the probes' kernels, one per case (tools/probes.py KERNEL_INFO)
 PROBE_KERNELS = (
     *(f"probe_alu_{c}" for c in ("fma_float32", "fma_bfloat16",
@@ -91,6 +95,12 @@ PROBE_KERNELS = (
     *(f"probe_diffuse_{leg}_s{s}" for s in (0.5, 1.25)
       for leg in ("stencil", "tc_tf32", "tc_bf16")),
     "probe_roll_kernel_tc")
+# counters of the gather and bit-plane probes (tools/probes2.py KERNEL_INFO)
+PROBE2_KERNELS = (
+    "probe_gather_cluster", "probe_gather_l2", "probe_onehot_bf16x3",
+    "probe_onehot_tf32", "probe_chain_packed", "probe_chain_full",
+    "probe_chain_packed_x8envs", "probe_pack", "probe_unpack",
+    "probe_funnel")
 KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_step_learned_linear", "lattice_step_learned_mlp",
            "lattice_step_learned_wide", "lattice_step_learned_ctx",
@@ -102,7 +112,7 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_steps_fused_learned_ctx",
            "lattice_steps_fused_learned_perlin", "tree_sum_2d",
            "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
-           "gather_fields_f4", *PROBE_KERNELS)
+           "gather_fields_f4", *PROBE_KERNELS, *PROBE2_KERNELS)
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
@@ -202,7 +212,14 @@ def build() -> float:
                 ("probe_diffuse", "die_probe_stencil",
                  [vp, vp, ip, ip, vp, ip, fp]),
                 ("probe_diffuse", "die_probe_tc",
-                 [vp, vp, vp, ip, ip, ip, ip, fp, fp])):
+                 [vp, vp, vp, ip, ip, ip, ip, fp, fp]),
+                ("probe_gather", "die_probe_gather",
+                 [vp, vp, vp, ip, ip, ip, ip]),
+                ("probe_gather", "die_probe_onehot", [vp, vp, vp, ip, ip, ip]),
+                ("probe_bits", "die_probe_chain", [vp, vp, lp, ip]),
+                ("probe_bits", "die_probe_pack", [vp, vp, ip, ip]),
+                ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip]),
+                ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip])):
             entry_fn = getattr(_libs[lib], fn)
             entry_fn.argtypes = args + [vp]  # the stream last
             entry_fn.restype = ip

@@ -17,6 +17,7 @@ import torch
 
 from die_tpu_torch.core import channels as ch
 from die_tpu_torch.core.config import Dynamics
+from die_tpu_torch.core.device import resolve_device
 from die_tpu_torch.core.env import (agent_cells, env_step, env_step_carry,
                                     fused_sense_ok, gather_field, observe)
 from die_tpu_torch.core.rng import as_key_tensor, fold_in
@@ -97,8 +98,9 @@ def batched_rollout(dynamics: Dynamics, policy, params, states, pstates,
                    num_steps, t0)
 
 
-def batch_keys(key, batch: int, device="cpu") -> torch.Tensor:
-    """Per-env rollout keys ``fold_in(key, b)``: int64 ``[batch, 2]``."""
-    key = as_key_tensor(key, device)
+def batch_keys(key, batch: int, device="cuda") -> torch.Tensor:
+    """Per-env rollout keys ``fold_in(key, b)``: int64 ``[batch, 2]`` on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    key = as_key_tensor(key, resolve_device(device))
     return fold_in(key, torch.arange(batch, dtype=torch.int64,
                                      device=key.device))

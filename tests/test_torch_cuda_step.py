@@ -181,7 +181,8 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
     tools = [p for p in sources if p.parent.name == "tools"]
     assert {p.name for p in tools} >= {"bench_banded.py", "tree_timing.py",
                                        "step_shapes.py", "gpu_measure.py",
-                                       "gpu_tc_offload.py", "probes.py"}
+                                       "gpu_tc_offload.py", "probes.py",
+                                       "gpu_measure2.py", "probes2.py"}
     bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|die_tpu)\b",
                             re.M)
     for path in sources:
@@ -208,7 +209,7 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
         " 'die_tpu_torch.core.convert', 'die_tpu_torch.ops.gather',"
         " 'die_tpu_torch.models.base', 'die_tpu_torch.models.static',"
         " 'die_tpu_torch.models.gradient', 'die_tpu_torch.parallel.rollout',"
-        " 'die_tpu_torch.tools.probes',"
+        " 'die_tpu_torch.tools.probes', 'die_tpu_torch.tools.probes2',"
         " 'die_tpu_torch.utils.invariants'):\n"
         "    assert m in mods, m\n"
         "assert not bad, bad\n"

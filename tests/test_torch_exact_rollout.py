@@ -130,14 +130,15 @@ class _UnfusedPhysarum(PhysarumPolicy):
 def test_fused_sense_equals_unfused(food_infinite):
     tdyn = port_dynamics(Dynamics(init_agent_ratio=0.2,
                                   food_infinite=food_infinite))
-    keys = batch_keys(np_key(5), 2)
+    keys = batch_keys(np_key(5), 2, device="cpu")
     ts = init_env_state(keys, SIZE, tdyn, device="cpu")
     runs = []
     for cls in (PhysarumPolicy, _UnfusedPhysarum):
         policy = cls(**PHYS)
-        ps = policy.init_state(batch_keys(np_key(6), 2), device="cpu")
+        ps = policy.init_state(batch_keys(np_key(6), 2, device="cpu"),
+                               device="cpu")
         runs.append(rollout(tdyn, policy, None, ts, ps,
-                            batch_keys(np_key(7), 2), 12))
+                            batch_keys(np_key(7), 2, device="cpu"), 12))
     a, b = runs
     assert_bits(a.state.medium, b.state.medium, "medium")
     assert_bits(a.state.agents, b.state.agents, "agents")
@@ -148,7 +149,8 @@ def test_fused_sense_equals_unfused(food_infinite):
 def test_batched_rollout_equals_sequential_and_jax_vmap():
     dyn, B, steps = Dynamics(init_agent_ratio=0.15), 3, 8
     tdyn, policy = port_dynamics(dyn), PhysarumPolicy(**PHYS)
-    ekeys, pkeys, rkeys = (batch_keys(np_key(s), B) for s in (11, 12, 13))
+    ekeys, pkeys, rkeys = (batch_keys(np_key(s), B, device="cpu")
+                           for s in (11, 12, 13))
     assert_bits(rkeys.numpy().astype(np.uint32),
                 np.asarray(j_batch_keys(jr.PRNGKey(13), B)), "batch_keys")
     ts = init_env_state(ekeys, SIZE, tdyn, device="cpu")

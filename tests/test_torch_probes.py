@@ -323,7 +323,8 @@ def _no_cuda_env():
     return {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
 
-@pytest.mark.parametrize("tool", ["gpu_measure.py", "gpu_tc_offload.py"])
+@pytest.mark.parametrize("tool", ["gpu_measure.py", "gpu_tc_offload.py",
+                                  "gpu_measure2.py"])
 def test_tools_help_runs_without_cuda(tool):
     out = subprocess.run(
         [sys.executable, str(ROOT / "die_tpu_torch" / "tools" / tool),
@@ -333,7 +334,8 @@ def test_tools_help_runs_without_cuda(tool):
     assert "all" in out.stdout
 
 
-@pytest.mark.parametrize("tool", ["gpu_measure.py", "gpu_tc_offload.py"])
+@pytest.mark.parametrize("tool", ["gpu_measure.py", "gpu_tc_offload.py",
+                                  "gpu_measure2.py"])
 def test_tools_refuse_to_measure_without_cuda(tool):
     out = subprocess.run(
         [sys.executable, str(ROOT / "die_tpu_torch" / "tools" / tool), "all"],
