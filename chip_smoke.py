@@ -12,7 +12,16 @@ Phases (any failure exits non-zero):
      source, all started together; seconds printed);
   3. every kernel against its plain PyTorch version on the card, bitwise:
      the Jones step (K1 + reward fold K2) over 8 configs at 256x256, B=4,
-     8 steps; the reward fold alone on random fields; small kernel
+     8 steps (a block an item), and B=16, 4 steps (each block of K1's
+     persistent grid walks 3-8 items, under two input buffers and one);
+     the default and 16-direction configs at the main path's B=1024, 2
+     steps; the reward fold alone at every shape it is launched
+     at (``tools/tree_timing.py`` ``FOLD_SHAPES``: the main path, training,
+     held-out, large fields, K4's gain stacks, sides of 1 and 2) on values
+     of mixed magnitudes, also from an address that is not 16-byte aligned,
+     each timed (device time, CUDA graph, every call on the next of enough
+     copies of the field that its input has left L2) beside ``torch.sum``;
+     small kernel
      rollouts (Jones; ctx with per-env params under perlin flow) against
      the plain rollouts on the CPU; the learned step (K3)
      for every rule family with the committed artifacts and with random
@@ -48,7 +57,9 @@ Phases (any failure exits non-zero):
      rollout; and short runs of the other fused forms (perlin, linear, MLP,
      ctx, learned perlin) through the same entry points;
   8. timings (CUDA events) of the main rollout, of each kernel and of its
-     plain version, with each kernel's bound;
+     plain version, with each kernel's bound; K1's time taken apart
+     (``tools/step_split.py``: the region loads and tile stores alone, with
+     phases 1-3, whole, at ``FastDynamics()`` and ``tuned_dynamics(16)``);
   9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
      kernel (K5) against ``gather_fields_plain`` bitwise (F in 1..3, M in
      {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
@@ -169,8 +180,9 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
-def phase_parity(B: int, steps: int):
-    """Kernel rollout vs plain rollout on the card, compared each step."""
+def phase_parity(B: int, steps: int, names=None):
+    """Kernel rollout vs plain rollout on the card, compared each step, for
+    the parity configs (or those of ``names``)."""
     from die_tpu_torch.core.rng import as_key_tensor
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.env import fast_step_full
@@ -179,7 +191,11 @@ def phase_parity(B: int, steps: int):
 
     k1_err = 0.0
     k2_err = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, dyn in parity_configs().items():
+        if names is not None and name not in names:
+            continue
+        plan = cuda_step.step_plan(dyn, (B, *FIELD), sms)
         st_k = fast_init(env_keys(7, B), FIELD, dyn, device="cuda")
         st_p = st_k
         keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, steps)
@@ -206,24 +222,70 @@ def phase_parity(B: int, steps: int):
                                      f"{rew_k.tolist()} vs {rew_p.tolist()}")
             k2_err = max(k2_err, max_err(rew_k, rew_p))
         log(f"parity {name}: {steps} steps x {B} envs bitwise equal "
-            f"(agents {int(num_p.sum())}, cells entered {births})")
+            f"(agents {int(num_p.sum())}, cells entered {births}; "
+            f"{plan.items} items on {plan.grid} blocks, up to "
+            f"{-(-plan.items // plan.grid)} a block, {plan.stages} input "
+            f"buffers)")
+        del st_k, st_p, gained_k, gained_p
+    torch.cuda.empty_cache()
     return k1_err, k2_err
 
 
-def phase_fold_alone(B: int):
+def mixed_field(shape, g):
+    """Values of mixed magnitudes (2^-24 .. 2^24, either sign): any pairing
+    but the pinned one rounds differently."""
+    x = torch.randn(shape, device="cuda", generator=g)
+    return x * torch.exp2(torch.randint(-24, 25, shape, device="cuda",
+                                        generator=g).float())
+
+
+def phase_fold_alone(rate: float):
+    """The reward fold (K2) against its plain version on the card at every
+    shape it is launched at, bitwise (and from an address that is not 16-
+    byte aligned), each timed (device time, CUDA graph, every call on the
+    next of enough copies of the field that its input has left L2) beside
+    ``torch.sum`` and its byte bound."""
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.env import tree_sum_2d
+    from die_tpu_torch.tools.probes2 import device_ms
+    from die_tpu_torch.tools.tree_timing import (FOLD_SHAPES, cycling,
+                                                 fold_inputs, l2_bytes)
 
     g = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
-    for shape in [(B,) + FIELD, (3, 8, 128), (2, 64, 1024)]:
-        x = torch.randn(shape, device="cuda", generator=g)
+    rows = []
+    for shape in FOLD_SHAPES:
+        x = mixed_field(shape, g)
         a, b = cuda_step.tree_sum_2d(x), tree_sum_2d(x)
-        if not same(a, b):
+        flat = torch.empty(x.numel() + 1, device="cuda")
+        off = flat[1:].view(shape)
+        off.copy_(x)
+        if not (same(a, b) and same(cuda_step.tree_sum_2d(off), b)):
             raise AssertionError(f"tree_sum_2d differs at {shape}")
         err = max(err, max_err(a, b))
-    log("parity tree_sum_2d alone: bitwise equal on random fields")
-    return err
+        del flat, off
+        # device time from a CUDA graph: at most of these shapes a call
+        # takes less device time than the host takes to launch it
+        xs, resident = fold_inputs(shape, lambda: mixed_field(shape, g),
+                                   l2_bytes())
+        fn, calls = cycling(cuda_step.tree_sum_2d, xs)
+        ms = device_ms(fn, calls)
+        fn, calls = cycling(lambda t: t.sum(dim=(1, 2)), xs)
+        lib = device_ms(fn, calls)
+        bound = (x.numel() * F32_BYTES + shape[0] * 4) / rate * 1e3
+        rows.append({"shape": list(shape), "ms": ms, "torch_sum_ms": lib,
+                     "bound_ms": bound, "l2_resident": resident,
+                     "launches_a_call": len(cuda_step.fold_plans(*shape,
+                                                                 sms))})
+        log(f"tree_sum_2d {shape}: bitwise equal; {ms:.4f} ms device time "
+            f"(torch.sum {lib:.4f}, bound {bound:.4f}"
+            + (", inputs in L2" if resident else
+               f", {bound / ms:.0%} of it; {len(xs)} inputs in turn")
+            + f"), plans {cuda_step.fold_plans(*shape, sms)}")
+        del x, xs
+    torch.cuda.empty_cache()
+    return err, rows
 
 
 def phase_cpu_reference():
@@ -1674,7 +1736,16 @@ def main():
 
     # ---- 3. kernels against their plain versions
     k1_err, k2_err = phase_parity(args.parity_envs, args.parity_steps)
-    k2_err = max(k2_err, phase_fold_alone(args.parity_envs))
+    # blocks of the persistent grid that walk several items: the next
+    # item's region loading into the other buffer (two buffers), or each
+    # item's loading after the last one's (one buffer), at B = 16 and at
+    # the main path's batch
+    for pB, psteps, names in ((16, 4, None),
+                              (1024, 2, ("default_8dir", "tuned_16dir"))):
+        e1, e2 = phase_parity(pB, psteps, names)
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    fold_err, fold_rows = phase_fold_alone(mem_rate(kind))
+    k2_err = max(k2_err, fold_err)
     phase_cpu_reference()
     k3_err = phase_learned_parity(args.parity_envs, args.parity_steps)
     phase_rule_edges()
@@ -1779,6 +1850,15 @@ def main():
         f"{k1_plain_ms:.3f} ms")
     log(f"tree_sum_2d: {k2_ms:.4f} ms/launch (bound {k2_bound:.4f} ms); "
         f"plain {k2_plain_ms:.4f} ms; torch.sum {k2_lib_ms:.4f} ms")
+    # K1's time taken apart: loads and stores alone, with phases 1-3, whole
+    from die_tpu_torch.tools.step_split import split_ms
+
+    split = split_ms(B)
+    for cname, rec in split.items():
+        log(f"lattice_step split ({cname}): "
+            + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in
+                        rec.items() if k[0] in "abc")
+            + f"; registers {rec['registers']}")
 
     kernels = [
         {"name": "lattice_step", "route": "cuda",
@@ -1786,14 +1866,15 @@ def main():
          "replaces": "die_tpu/fast/pallas_step.py:162",
          "launches": counts["lattice_step"], "match": True,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "split": split},
         {"name": "tree_sum_2d", "route": "cuda",
          "source": "die_tpu_torch/csrc/tree_sum_2d.cu",
          "replaces": "die_tpu/fast/env.py:193",
          "launches": counts["tree_sum_2d"], "match": True,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": "bytes",
-         "library_ms": k2_lib_ms},
+         "library_ms": k2_lib_ms, "shapes": fold_rows},
     ]
     kernels += time_learned(B, rate, serve_counts, train_counts, k3_err)
     kernels += time_perlin(rate, pstate, perlin_counts, k1_err)

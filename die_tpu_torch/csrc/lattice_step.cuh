@@ -1,18 +1,18 @@
 // lattice_step.cuh: the tiled step kernel of the field-centric lattice
 // engine for a lockstep batch of envs, f32 [B, W, H] per state field (W, H
 // powers of 2), templated on the lattice (N directions) and on the turn
-// rule (FAM).  Two translation units instantiate it, so nvcc builds them in
-// parallel:
-//   lattice_step.cu          FAM = kJones: the Jones argmax (K1), replacing
-//                            die_tpu/fast/pallas_step.py::_multi_step_kernel
+// rule (FAM), and the per-cell bodies of a step's phases, which the
+// template and the Jones step kernel K1 (lattice_step.cu, a persistent
+// double-buffered kernel of its own) both run.  One translation unit
+// instantiates the template's one-step form:
 //   lattice_step_learned.cu  FAM = kLinear, kMlp, kWide, kCtx: the learned
 //                            rule of fast/learned.py::make_turn_rule (K3),
 //                            replacing _multi_step_kernel_learned
-// Both take an optional precomputed flow field (f32 [W, H] shared by the
-// batch, or [B, W, H] per env), replacing _multi_step_kernel_perlin and
-// _multi_step_kernel_perlin_learned (B3).  One step per launch (K = 1).
-// The plain twin is die_tpu_torch/fast/env.py::fast_step_full (with the
-// rule of die_tpu_torch/fast/learned.py); the two agree bit for bit.
+// It takes an optional precomputed flow field (f32 [W, H] shared by the
+// batch, or [B, W, H] per env), replacing _multi_step_kernel_perlin_learned
+// (B3).  One step per launch (K = 1).  The plain twin is
+// die_tpu_torch/fast/env.py::fast_step_full with the rule of
+// die_tpu_torch/fast/learned.py; the two agree bit for bit.
 //
 // The same template with FUSED = true is the large-field kernel (K4),
 // instantiated by lattice_step_fused.cu (Jones) and
@@ -79,20 +79,9 @@
 
 namespace {
 
-// Block shape: threads and the largest tile; -D overrides exist for
-// measuring other shapes without editing the source.
-#ifndef DIE_THREADS
-#define DIE_THREADS 512
-#endif
-#ifndef DIE_TILE_ROWS
-#define DIE_TILE_ROWS 32
-#endif
-#ifndef DIE_TILE_COLS
-#define DIE_TILE_COLS 32
-#endif
-
 constexpr int kMaxTaps = 33;
-constexpr int kThreads = DIE_THREADS;
+constexpr int kThreads = 512;          // the template's block
+constexpr int kTile = 32;              // its largest tile side (one step)
 constexpr int kFields = 10;            // shared-memory fields of the region
 constexpr int kMaxSmem = 232448 - 1024;  // opt-in limit less static smem
 constexpr int kMaxParams = 1024;       // floats of one env's rule params
@@ -167,6 +156,15 @@ __device__ __forceinline__ void carve(uint32_t rand, uint32_t* prio,
   }
 }
 
+// The u32 bits of global cell (gi, gj) under the step key (k0, k1), from
+// its flat index gi * H + gj.
+__device__ __forceinline__ uint32_t bits_at(const Params& p, uint32_t k0,
+                                            uint32_t k1, int gi, int gj) {
+  const uint32_t count = ((uint32_t)gi << p.lh) | (uint32_t)gj;
+  return p.threefry ? die::threefry_bits(k0, k1, count)
+                    : die::murmur_bits(k0, k1, count);
+}
+
 // The block's view: region cell (u, v) is global cell (grow, gcol) of env b.
 struct Tile {
   int b, i0, j0;  // env and the tile's first global row/col
@@ -184,16 +182,14 @@ __device__ __forceinline__ int gcol(const Params& p, const Tile& t, int v) {
 
 __device__ __forceinline__ uint32_t cell_bits(const Params& p, const Tile& t,
                                               int u, int v) {
-  const uint32_t count =
-      ((uint32_t)grow(p, t, u) << p.lh) | (uint32_t)gcol(p, t, v);
-  return p.threefry ? die::threefry_bits(t.k0, t.k1, count)
-                    : die::murmur_bits(t.k0, t.k1, count);
+  return bits_at(p, t.k0, t.k1, grow(p, t, u), gcol(p, t, v));
 }
 
+// The winner priority of a cell: its own bits' or the step's rotation.
 template <int N>
-__device__ __forceinline__ float prio_r(const Params& p, const Tile& t,
+__device__ __forceinline__ float prio_r(const Params& p, float rot,
                                         uint32_t rand) {
-  if (!p.per_cell_priority) return t.rot;
+  if (!p.per_cell_priority) return rot;
   uint32_t prio, block, birth;
   carve<N>(rand, &prio, &block, &birth);
   float r = (float)prio;
@@ -225,36 +221,59 @@ __device__ float wave_field(const Params& p, int gi, int gj, float t) {
   return 0.75f * z_waves + 0.25f * z_islands;
 }
 
-// Calls f(u, v) for every region cell at least m cells inside the region.
+// Calls f(u, v) for u in [u0, u1), v in [v0, v1), the block's threads in
+// row-major order, each stepping its (u, v) by the block size (one divide,
+// none an element).
 template <typename F>
-__device__ __forceinline__ void for_region(const Tile& t, int m, F f) {
-  const int h = t.RH - 2 * m;
-  const int n = (t.RW - 2 * m) * h;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int du = e / h;
-    f(m + du, m + e - du * h);
+__device__ __forceinline__ void for_rect(int u0, int u1, int v0, int v1,
+                                         F f) {
+  const int w = v1 - v0;
+  const int n = (u1 - u0) * w;
+  const int T = blockDim.x;
+  const int su = T / w, sv = T - su * w;
+  int du = threadIdx.x / w;
+  int dv = threadIdx.x - du * w;
+  for (int e = threadIdx.x; e < n; e += T) {
+    f(u0 + du, v0 + dv);
+    du += su;
+    dv += sv;
+    if (dv >= w) {
+      dv -= w;
+      ++du;
+    }
   }
+}
+
+// The direction a heading selects: d for a heading equal to d in
+// {0..N-1}, else -1 (NaN, out of range, not an integer).
+template <int N>
+__device__ __forceinline__ int heading(float dirf) {
+  const int d = (int)dirf;
+  return (dirf == (float)d && d >= 0 && d < N) ? d : -1;
+}
+
+// Fills off[d] (shared, N entries) with the region offset of the neighbour
+// in direction d, for a region of row stride rs; a barrier must follow.
+template <int N>
+__device__ __forceinline__ void fill_offsets(int* off, int rs) {
+  if (threadIdx.x < N)
+    off[threadIdx.x] = off_row<N>(threadIdx.x) * rs + off_col<N>(threadIdx.x);
 }
 
 // (left, fwd, right) probes of a shared field at dist cells along the
 // heading dirf (probe_trio): fwd reads direction dirf, left dirf + 1, right
-// dirf - 1; a heading outside {0..N-1} reads nothing and leaves 0.
+// dirf - 1, one shared load each through the offsets off; a heading
+// outside {0..N-1} reads nothing and leaves 0.
 template <int N>
-__device__ __forceinline__ void probe_trio(const float* s, int e, int RH,
-                                           float dirf, int dist, float* left,
-                                           float* fwd, float* right) {
-  float f = 0.0f, l = 0.0f, r = 0.0f;
-#pragma unroll
-  for (int d = 0; d < N; ++d) {
-    const bool is_f = dirf == (float)d;
-    const bool is_l = dirf == (float)((d + N - 1) % N);
-    const bool is_r = dirf == (float)((d + 1) % N);
-    if (is_f || is_l || is_r) {
-      const float pv = s[e + off_row<N>(d) * dist * RH + off_col<N>(d) * dist];
-      if (is_f) f = pv;
-      if (is_l) l = pv;
-      if (is_r) r = pv;
-    }
+__device__ __forceinline__ void probe(const float* s, int e, const int* off,
+                                      int dist, float dirf, float* left,
+                                      float* fwd, float* right) {
+  const int d = heading<N>(dirf);
+  float l = 0.0f, f = 0.0f, r = 0.0f;
+  if (d >= 0) {
+    f = s[e + dist * off[d]];
+    l = s[e + dist * off[(d + 1) % N]];
+    r = s[e + dist * off[(d + N - 1) % N]];
   }
   *left = l;
   *fwd = f;
@@ -319,31 +338,248 @@ __device__ __forceinline__ float depthwise3x3(const float* s, int e, int RH,
   return acc;
 }
 
-// Adds the block's exact count of live cells to *dst: warp sums, then one
-// atomic per block.
-__device__ __forceinline__ void block_count_add(int alive_count, int* dst) {
+// Adds the block's exact count of live cells to *dst: warp sums into
+// slots (shared, a warp each), one atomic.  Its barrier also closes the
+// pass: every thread has done its reads of the step's shared fields.
+__device__ __forceinline__ void count_add(int c, int* dst, int* slots) {
   for (int off = 16; off > 0; off >>= 1)
-    alive_count += __shfl_down_sync(0xffffffffu, alive_count, off);
-  __shared__ int warp_counts[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = alive_count;
+    c += __shfl_down_sync(0xffffffffu, c, off);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = c;
   __syncthreads();
   if (threadIdx.x == 0) {
     int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_counts[w];
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += slots[w];
     if (total) atomicAdd(dst, total);
   }
 }
 
-// Two blocks an SM for the Jones rule (at the default config's halo 7 its
-// 46x46 one-step region fits twice in shared memory), which caps it at 64
-// registers a thread and measured faster at halo 13 as well; one for the
-// learned rules, whose larger halos leave room for one block only.  The
-// fused Jones form asks for two as well: its K = 1 launch, which large
-// fields take by default, then runs as fast as the one-step kernel.
+// ---- The phases of a step, one cell each --------------------------------
+// Both step kernels (the template below and K1 in lattice_step.cu) run
+// these bodies over their regions; the kernels differ in what surrounds
+// them (loads, margins, where the bits come from, stores).
+
+// The shared fields of a region, row stride rs.  Later phases reuse earlier
+// fields in place, as noted.
+struct Region {
+  float* chem;   // chem, then chem + deposit
+  float* occ;    // occ, then post-move, then final occ
+  float* dir;    // dir, then post-move, then final dir
+  float* af;     // agent_food, likewise
+  float* ef;     // env_food
+  float* dirt;   // the turned heading (may be dir itself: a cell reads only
+                 // its own)
+  float* code;   // neighbour code, then deposit mask
+  float* acc;    // accepted code, then birth acceptance
+  float* inf;    // incoming food, then received flag
+  float* tmp;    // parent food (birth), then the diffusion's axis-0 pass
+  float* bcode;  // birth code (may be dirt: read after the update only)
+  int rs;
+};
+
+// The Jones rule: keep the heading if fwd is no less than either side,
+// else turn toward the larger side, a tie broken by the cell's bit 0.
+__device__ __forceinline__ float jones_turn(float left, float fwd,
+                                            float right, uint32_t rand) {
+  const bool keep = (fwd >= left) && (fwd >= right);
+  const float rand_sign = (float)(rand & 1u) * 2.0f - 1.0f;
+  return keep ? 0.0f
+              : (left > right ? 1.0f : (right > left ? -1.0f : rand_sign));
+}
+
+// 1. The turned heading of cell e and its neighbour code (the heading
+// where an agent is, -1 where none).
+template <int N>
+__device__ __forceinline__ void set_heading(const Region& R, int e,
+                                            float dirf, float occ,
+                                            float turn) {
+  const float dirt = mod_dirs<N>(dirf + turn);
+  R.dirt[e] = dirt;
+  R.code[e] = dirt * occ - (1.0f - occ);
+}
+
+// 2. The move winner of cell e among the agents that point at it (code d
+// from the neighbour opposite d; scores from -r up, wrapped at N, the lowest
+// wins, d in order), accepted where e is empty: its heading (acc, -1 where
+// none) and its food (inf).
+template <int N>
+__device__ __forceinline__ void move_cell(const Region& R, int e, float r) {
+  const float nf = (float)N;
+  const bool empty = R.occ[e] <= 0.0f;
+  float best = 0.0f + nf, winner = 0.0f;
+  int wo = 0;  // the winner's offset
+  float s = mod_dirs<N>(-r);
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    const int opp = (d + N / 2) % N;
+    const int o = off_row<N>(opp) * R.rs + off_col<N>(opp);
+    if (R.code[e + o] == (float)d && s < best) {
+      winner = (float)d;
+      wo = o;
+      best = s;
+    }
+    if (d + 1 < N) {
+      const float s1 = s + 1.0f;
+      s = (s1 == nf) ? 0.0f : s1;
+    }
+  }
+  const bool received = (best < nf) && empty;
+  R.acc[e] = received ? winner : -1.0f;
+  // the incoming food, read by the update of a cell that received only
+  R.inf[e] = received ? R.af[e + wo] : 0.0f;
+}
+
+// 3. The update of cell e: moves resolved (an agent moved if the cell its
+// heading points at accepted that heading; direction 0 for a heading
+// outside {1..N-1}), the deposit, and the birth proposal.
+template <int N>
+__device__ __forceinline__ void update_cell(const Params& p, const Region& R,
+                                            int e, const int* off,
+                                            uint32_t bits) {
+  const float occ = R.occ[e];
+  const float dirt = R.dirt[e];
+  const float acc = R.acc[e];
+  const bool empty = occ <= 0.0f;
+  const bool received = acc >= 0.0f;
+  const int hd = heading<N>(dirt);
+  const float acc_sel = R.acc[e + off[hd > 0 ? hd : 0]];
+  const bool moved = !empty && (acc_sel == dirt);
+  const bool blocked = !empty && !moved;
+  uint32_t pr, block, birth;
+  carve<N>(bits, &pr, &block, &birth);
+  const float stay = (p.randomize_on_block && blocked) ? (float)block : dirt;
+  const float new_occ = received ? 1.0f : (moved ? 0.0f : occ);
+  const float new_dir = received ? acc : (moved ? 0.0f : stay);
+  const float new_af = received ? R.inf[e] : (moved ? 0.0f : R.af[e]);
+  const float dep_mask =
+      received ? 1.0f : (moved ? 0.0f : occ * p.idle_deposit);
+  R.occ[e] = new_occ;
+  R.dir[e] = new_dir;
+  R.af[e] = new_af;
+  R.code[e] = dep_mask;
+  R.inf[e] = received ? 1.0f : 0.0f;
+  R.chem[e] = R.chem[e] + p.deposit_coef * R.ef[e] * dep_mask;
+  if (p.agents_born) {
+    const float fert =
+        (new_occ > 0.0f && new_af > p.birth_threshold) ? 1.0f : 0.0f;
+    R.bcode[e] = (float)birth * fert - (1.0f - fert);
+  }
+}
+
+// 2b. The birth winner of cell e among the children proposed to it, as the
+// move winner: its direction (acc, -1 where none) and its parent's food
+// (tmp).
+template <int N>
+__device__ __forceinline__ void birth_winner_cell(const Region& R, int e,
+                                                  float r) {
+  const float nf = (float)N;
+  const bool post_empty = R.occ[e] <= 0.0f;
+  float b_best = 0.0f + nf, b_win = 0.0f;
+  int wo = 0;  // the winning parent's offset
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    const int opp = (d + N / 2) % N;
+    const int o = off_row<N>(opp) * R.rs + off_col<N>(opp);
+    const bool cand = (R.bcode[e + o] == (float)d) && post_empty;
+    const float score = cand ? mod_dirs<N>((float)d - r) : nf;
+    if (score < b_best) {
+      b_win = (float)d;
+      wo = o;
+      b_best = score;
+    }
+  }
+  const bool born = b_best < nf;
+  R.acc[e] = born ? b_win : -1.0f;
+  R.tmp[e] = born ? R.af[e + wo] : 0.0f;
+}
+
+// 2b. Parents split their food, children arrive (reads the neighbours of
+// acc only).  The reference sums, over d, [birth_dir == d] * [acceptance
+// of the neighbour at d == d]: one term can be 1, the rest are 0.
+template <int N>
+__device__ __forceinline__ void birth_update_cell(const Params& p,
+                                                  const Region& R, int e,
+                                                  const int* off,
+                                                  uint32_t bits) {
+  const float pm_occ = R.occ[e];
+  const float pm_af = R.af[e];
+  uint32_t pr, block, birth;
+  carve<N>(bits, &pr, &block, &birth);
+  const float birth_dir = (float)birth;
+  const bool fertile = pm_occ > 0.0f && pm_af > p.birth_threshold;
+  const bool spawned = fertile && R.acc[e + off[birth]] == birth_dir;
+  const float bacc = R.acc[e];
+  const bool born = bacc >= 0.0f;
+  const float bornf = born ? 1.0f : 0.0f;
+  const float b_windir = born ? bacc : 0.0f;
+  float new_af = spawned ? pm_af * 0.5f : pm_af;
+  new_af = new_af + bornf * R.tmp[e] * 0.5f;
+  R.af[e] = new_af;
+  R.dir[e] = R.dir[e] * (1.0f - bornf) + b_windir * bornf;
+  R.occ[e] = pm_occ + bornf;
+}
+
+// 4-5. Feed and lifecycle of cell e: the agent's new state, the env food
+// before the flow, the agent's gain.
+struct Fed {
+  float occ, dir, af, env, gained;
+};
+__device__ __forceinline__ Fed feed_cell(const Params& p, const Region& R,
+                                         int e) {
+  Fed o;
+  o.occ = R.occ[e];
+  o.dir = R.dir[e];
+  o.af = R.af[e];
+  const float efood = R.ef[e];
+  const float deposit = p.deposit_coef * efood * R.code[e];
+  const float consumed = p.rate_feed * efood * o.occ;
+  o.env = efood;
+  if (!p.food_infinite) o.env = o.env - consumed;
+  const float cost = p.cost_deposit * deposit + p.cost_move * R.inf[e];
+  o.gained = consumed - cost * o.occ;
+  o.af = o.af + o.gained;
+  if (p.agents_die) {
+    const float dead = o.occ * (o.af <= p.death_threshold ? 1.0f : 0.0f);
+    const float alive = 1.0f - dead;
+    o.occ = o.occ * alive;
+    o.dir = o.dir * alive;
+    o.af = o.af * alive;
+  }
+  return o;
+}
+
+// 6. The food flow at global cell (gi, gj): the wave at time t, or the
+// flow field's value at index fi.
+__device__ __forceinline__ float flow_food(const Params& p, const Buffers& q,
+                                           float env, int gi, int gj,
+                                           float t, long long fi) {
+  if (p.flow_kind == kFlowWave)
+    return p.flow_scale * wave_field(p, gi, gj, t) + p.flow_keep * env;
+  if (p.flow_kind == kFlowField)
+    return p.flow_scale * q.flow_f[fi] + p.flow_keep * env;
+  return env;
+}
+
+// 7. One axis of the diffusion at e (stride: the row stride for axis 0, 1
+// for axis 1), its taps folded from -r to +r.
+__device__ __forceinline__ float taps_at(const Params& p, const float* s,
+                                         int e, int stride) {
+  const int dr = (p.ntaps - 1) / 2;
+  float acc = p.taps[0] * s[e - dr * stride];
+  for (int k = 1; k < p.ntaps; ++k)
+    acc = acc + p.taps[k] * s[e + (k - dr) * stride];
+  return acc;
+}
+
+// Two blocks an SM for the fused Jones form (K4: at the default config's
+// halo 7 its 46x46 one-step region fits twice in shared memory), which caps
+// it at 64 registers a thread; one for the learned rules, whose larger
+// halos leave room for one block only.
 template <int N, int FAM, bool FUSED>
 __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
     k_lattice_step(Params p, Buffers q) {
   extern __shared__ float sm[];
+  __shared__ int slots[kThreads / 32];
+  __shared__ int s_off[N];  // region offset of the neighbour in direction d
   Tile t;
   t.b = blockIdx.y;
   const int tiles_c = p.H / p.tc;
@@ -358,36 +594,37 @@ __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
                     (uint32_t)(N - 1));
   }
   const int RC = t.RW * t.RH;
-  const int RH = t.RH;
-  // region fields; later phases reuse earlier ones in place (noted below)
-  float* s_chem = sm;           // chem, then chem + deposit
-  float* s_occ = sm + RC;       // occ, then post-move, then final occ
-  float* s_dir = sm + 2 * RC;   // dir, then post-move, then final dir
-  float* s_af = sm + 3 * RC;    // agent_food, likewise
-  float* s_ef = sm + 4 * RC;    // env_food (fused: then after the flow)
-  float* s_dirt = sm + 5 * RC;  // turned heading, then birth code
-  float* s_code = sm + 6 * RC;  // neighbour code, then deposit mask
-  float* s_acc = sm + 7 * RC;   // [ctx: left probe], accepted code, then
-                                // birth acceptance
-  float* s_inf = sm + 8 * RC;   // [ctx: fwd probe], incoming food, then
-                                // received flag
-  float* s_tmp = sm + 9 * RC;   // [ctx: right probe], parent food (birth),
-                                // then diffusion
+  const int RW = t.RW, RH = t.RH;
+  fill_offsets<N>(s_off, RH);
+  // region fields (Region notes their reuse); the ctx rule keeps its
+  // (left, fwd, right) probes in acc, inf and tmp during the turn phase
+  Region R;
+  R.chem = sm;
+  R.occ = sm + RC;
+  R.dir = sm + 2 * RC;
+  R.af = sm + 3 * RC;
+  R.ef = sm + 4 * RC;  // fused: then after the flow
+  R.dirt = sm + 5 * RC;
+  R.bcode = R.dirt;
+  R.code = sm + 6 * RC;
+  R.acc = sm + 7 * RC;
+  R.inf = sm + 8 * RC;
+  R.tmp = sm + 9 * RC;
+  R.rs = RH;
   float* s_par = sm + kFields * RC;  // rule params [rows, cols]
   const long long base = (long long)t.b << (p.lw + p.lh);
   const int hop = N == 16 ? 2 : 1;
   const int S = p.sense_dist;
-  const float nf = (float)N;
 
-  for_region(t, 0, [&](int u, int v) {
+  for_rect(0, RW, 0, RH, [&](int u, int v) {
     const long long g =
         base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
     const int e = u * RH + v;
-    s_chem[e] = q.chem[g];
-    s_occ[e] = q.occ[g];
-    s_dir[e] = q.dir[g];
-    s_af[e] = q.afood[g];
-    s_ef[e] = q.efood[g];
+    R.chem[e] = q.chem[g];
+    R.occ[e] = q.occ[g];
+    R.dir[e] = q.dir[g];
+    R.af[e] = q.afood[g];
+    R.ef[e] = q.efood[g];
   });
   if (FAM != kJones) {
     const int np = p.rows * p.cols;
@@ -411,6 +648,8 @@ __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
       t.rot = (float)(die::murmur_finalize(t.k0 ^ t.k1 ^ 0x9E3779B9u) &
                       (uint32_t)(N - 1));
     }
+    // region cells from margin m inwards
+    auto inner = [&](int m, auto f) { for_rect(m, RW - m, m, RH - m, f); };
 
     // ---- 1. sense + turn --------------------------------------------------
     // the reach is hop * S but for the wide and ctx rules; written so, the
@@ -418,35 +657,30 @@ __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
     const int m1 = mb + (FAM == kWide || FAM == kCtx ? p.reach : hop * S);
     if (FAM == kCtx) {
       // pass A: the chem probes at sense_dist, kept for the neighbours' taps
-      for_region(t, mb + hop * S, [&](int u, int v) {
+      inner(mb + hop * S, [&](int u, int v) {
         const int e = u * RH + v;
-        probe_trio<N>(s_chem, e, RH, s_dir[e], S, &s_acc[e], &s_inf[e],
-                      &s_tmp[e]);
+        probe<N>(R.chem, e, s_off, S, R.dir[e], &R.acc[e], &R.inf[e],
+                 &R.tmp[e]);
       });
       __syncthreads();
     }
-    for_region(t, m1, [&](int u, int v) {
+    inner(m1, [&](int u, int v) {
       const int e = u * RH + v;
-      const float occ = s_occ[e];
-      const float dirf = s_dir[e];
+      const float occ = R.occ[e];
+      const float dirf = R.dir[e];
       float left, fwd, right;
       if (FAM == kCtx) {
-        left = s_acc[e];
-        fwd = s_inf[e];
-        right = s_tmp[e];
+        left = R.acc[e];
+        fwd = R.inf[e];
+        right = R.tmp[e];
       } else {
-        probe_trio<N>(s_chem, e, RH, dirf, S, &left, &fwd, &right);
+        probe<N>(R.chem, e, s_off, S, dirf, &left, &fwd, &right);
       }
       float turn;
       if (FAM == kJones) {
-        const uint32_t rand = cell_bits(p, t, u, v);
-        const bool keep = (fwd >= left) && (fwd >= right);
-        const float rand_sign = (float)(rand & 1u) * 2.0f - 1.0f;
-        turn = keep ? 0.0f
-                    : (left > right ? 1.0f
-                                    : (right > left ? -1.0f : rand_sign));
+        turn = jones_turn(left, fwd, right, cell_bits(p, t, u, v));
       } else if (FAM == kLinear) {
-        const float feat[6] = {left, fwd, right, s_ef[e], s_af[e], s_chem[e]};
+        const float feat[6] = {left, fwd, right, R.ef[e], R.af[e], R.chem[e]};
         float lg[3];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
@@ -458,166 +692,68 @@ __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
         }
         turn = decide(lg[0], lg[1], lg[2]);
       } else if (FAM == kMlp) {
-        const float feat[7] = {left, fwd, right, occ, s_af[e], s_ef[e],
-                               s_chem[e]};
+        const float feat[7] = {left, fwd, right, occ, R.af[e], R.ef[e],
+                               R.chem[e]};
         turn = mlp_turn<7>(s_par, p.cols, 0, p.hidden, feat);
       } else {
         float fl, ff, fr, el, ef, er;
-        probe_trio<N>(s_chem, e, RH, dirf, 2 * S, &fl, &ff, &fr);
-        probe_trio<N>(s_ef, e, RH, dirf, S, &el, &ef, &er);
+        probe<N>(R.chem, e, s_off, 2 * S, dirf, &fl, &ff, &fr);
+        probe<N>(R.ef, e, s_off, S, dirf, &el, &ef, &er);
         if (FAM == kWide) {
           const float feat[13] = {left, fwd, right, fl, ff, fr, el, ef, er,
-                                  occ, s_af[e], s_ef[e], s_chem[e]};
+                                  occ, R.af[e], R.ef[e], R.chem[e]};
           turn = mlp_turn<13>(s_par, p.cols, 0, p.hidden, feat);
         } else {
           const float* c = s_par;
           const int C = p.cols;
           const float feat[20] = {
-              left, fwd, right, fl, ff, fr, el, ef, er, occ, s_af[e], s_ef[e],
-              s_chem[e],
-              depthwise3x3(s_acc, e, RH, c),
-              depthwise3x3(s_inf, e, RH, c + C),
-              depthwise3x3(s_tmp, e, RH, c + 2 * C),
-              depthwise3x3(s_occ, e, RH, c + 3 * C),
-              depthwise3x3(s_af, e, RH, c + 4 * C),
-              depthwise3x3(s_ef, e, RH, c + 5 * C),
-              depthwise3x3(s_chem, e, RH, c + 6 * C)};
+              left, fwd, right, fl, ff, fr, el, ef, er, occ, R.af[e],
+              R.ef[e], R.chem[e],
+              depthwise3x3(R.acc, e, RH, c),
+              depthwise3x3(R.inf, e, RH, c + C),
+              depthwise3x3(R.tmp, e, RH, c + 2 * C),
+              depthwise3x3(R.occ, e, RH, c + 3 * C),
+              depthwise3x3(R.af, e, RH, c + 4 * C),
+              depthwise3x3(R.ef, e, RH, c + 5 * C),
+              depthwise3x3(R.chem, e, RH, c + 6 * C)};
           turn = mlp_turn<20>(s_par, C, 7, p.hidden, feat);
         }
       }
-      const float dirt = mod_dirs<N>(dirf + turn);
-      s_dirt[e] = dirt;
-      s_code[e] = dirt * occ - (1.0f - occ);
+      set_heading<N>(R, e, dirf, occ, turn);
     });
     __syncthreads();
 
     // ---- 2. move: winner among incoming candidates ------------------------
     const int m2 = m1 + hop;
-    for_region(t, m2, [&](int u, int v) {
-      const int e = u * RH + v;
-      const bool empty = s_occ[e] <= 0.0f;
-      const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
-      float best = 0.0f + nf, winner = 0.0f, in_food = 0.0f;
-      float s = mod_dirs<N>(-r);
-#pragma unroll
-      for (int d = 0; d < N; ++d) {
-        const int opp = (d + N / 2) % N;
-        const int o = off_row<N>(opp) * RH + off_col<N>(opp);
-        if (s_code[e + o] == (float)d && s < best) {
-          winner = (float)d;
-          in_food = s_af[e + o];
-          best = s;
-        }
-        if (d + 1 < N) {
-          const float s1 = s + 1.0f;
-          s = (s1 == nf) ? 0.0f : s1;
-        }
-      }
-      const bool received = (best < nf) && empty;
-      s_acc[e] = received ? winner : -1.0f;
-      s_inf[e] = in_food;
+    inner(m2, [&](int u, int v) {
+      move_cell<N>(R, u * RH + v, prio_r<N>(p, t.rot, cell_bits(p, t, u, v)));
     });
     __syncthreads();
 
     // ---- 3. update: moves resolved, deposit; birth proposal ---------------
-    // (reads its own cell of every field it overwrites; neighbours of s_acc)
     const int m3 = m2 + hop;
-    for_region(t, m3, [&](int u, int v) {
-      const int e = u * RH + v;
-      const float occ = s_occ[e];
-      const float dirt = s_dirt[e];
-      const float acc = s_acc[e];
-      const bool empty = occ <= 0.0f;
-      const bool received = acc >= 0.0f;
-      float acc_sel = s_acc[e + off_row<N>(0) * RH + off_col<N>(0)];
-#pragma unroll
-      for (int d = 1; d < N; ++d)
-        if (dirt == (float)d)
-          acc_sel = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
-      const bool moved = !empty && (acc_sel == dirt);
-      const bool blocked = !empty && !moved;
-      uint32_t prio, block, birth;
-      carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
-      const float stay =
-          (p.randomize_on_block && blocked) ? (float)block : dirt;
-      const float new_occ = received ? 1.0f : (moved ? 0.0f : occ);
-      const float new_dir = received ? acc : (moved ? 0.0f : stay);
-      const float new_af = received ? s_inf[e] : (moved ? 0.0f : s_af[e]);
-      const float dep_mask =
-          received ? 1.0f : (moved ? 0.0f : occ * p.idle_deposit);
-      s_occ[e] = new_occ;
-      s_dir[e] = new_dir;
-      s_af[e] = new_af;
-      s_code[e] = dep_mask;
-      s_inf[e] = received ? 1.0f : 0.0f;
-      s_chem[e] = s_chem[e] + p.deposit_coef * s_ef[e] * dep_mask;
-      if (p.agents_born) {
-        const float fert =
-            (new_occ > 0.0f && new_af > p.birth_threshold) ? 1.0f : 0.0f;
-        s_dirt[e] = (float)birth * fert - (1.0f - fert);
-      }
+    inner(m3, [&](int u, int v) {
+      update_cell<N>(p, R, u * RH + v, s_off, cell_bits(p, t, u, v));
     });
     __syncthreads();
 
     // the margin this step's results are valid from: the tile in the one-step
     // form and in the fused form's last pass
-    const int R = FUSED ? mb + p.step_halo : p.halo;
+    const int M = FUSED ? mb + p.step_halo : p.halo;
     if (p.agents_born) {
       // ---- 2b. reproduction: winner among proposed children ---------------
-      for_region(t, m3 + hop, [&](int u, int v) {
-        const int e = u * RH + v;
-        const bool post_empty = s_occ[e] <= 0.0f;
-        const float r = prio_r<N>(p, t, cell_bits(p, t, u, v));
-        float b_best = 0.0f + nf, b_win = 0.0f, b_pfood = 0.0f;
-#pragma unroll
-        for (int d = 0; d < N; ++d) {
-          const int opp = (d + N / 2) % N;
-          const int o = off_row<N>(opp) * RH + off_col<N>(opp);
-          const bool cand = (s_dirt[e + o] == (float)d) && post_empty;
-          const float score = cand ? mod_dirs<N>((float)d - r) : nf;
-          if (score < b_best) {
-            b_win = (float)d;
-            b_pfood = s_af[e + o];
-            b_best = score;
-          }
-        }
-        s_acc[e] = (b_best < nf) ? b_win : -1.0f;
-        s_tmp[e] = b_pfood;
+      inner(m3 + hop, [&](int u, int v) {
+        birth_winner_cell<N>(R, u * RH + v,
+                             prio_r<N>(p, t.rot, cell_bits(p, t, u, v)));
       });
       __syncthreads();
-      // parents split their food, children arrive (cells from margin R;
-      // reads neighbours of s_acc only)
-      for_region(t, R, [&](int u, int v) {
-        const int e = u * RH + v;
-        const float pm_occ = s_occ[e];
-        const float pm_af = s_af[e];
-        uint32_t prio, block, birth;
-        carve<N>(cell_bits(p, t, u, v), &prio, &block, &birth);
-        const float birth_dir = (float)birth;
-        const bool fertile = pm_occ > 0.0f && pm_af > p.birth_threshold;
-        float spawned_f = 0.0f;
-#pragma unroll
-        for (int d = 0; d < N; ++d) {
-          const float b_acc_o = s_acc[e + off_row<N>(d) * RH + off_col<N>(d)];
-          const float t2 = (birth_dir == (float)d ? 1.0f : 0.0f) *
-                           (b_acc_o == (float)d ? 1.0f : 0.0f);
-          spawned_f = d == 0 ? t2 : spawned_f + t2;
-        }
-        const bool spawned = fertile && spawned_f > 0.0f;
-        const float bacc = s_acc[e];
-        const bool born = bacc >= 0.0f;
-        const float bornf = born ? 1.0f : 0.0f;
-        const float b_windir = born ? bacc : 0.0f;
-        float new_af = spawned ? pm_af * 0.5f : pm_af;
-        new_af = new_af + bornf * s_tmp[e] * 0.5f;
-        s_af[e] = new_af;
-        s_dir[e] = s_dir[e] * (1.0f - bornf) + b_windir * bornf;
-        s_occ[e] = pm_occ + bornf;
+      inner(M, [&](int u, int v) {
+        birth_update_cell<N>(p, R, u * RH + v, s_off, cell_bits(p, t, u, v));
       });
       __syncthreads();
     }
 
-    // ---- 4-6. feed, lifecycle, food flow (cells from margin R) ------------
+    // ---- 4-6. feed, lifecycle, food flow (cells from margin M) ------------
     int alive_count = 0;
     const float flow_t = p.flow_kind == kFlowWave
                              ? q.flow_t[FUSED ? t.b * p.K + k : t.b]
@@ -628,104 +764,71 @@ __global__ void __launch_bounds__(kThreads, FAM != kJones ? 1 : 2)
               : (p.flow_env_stride ? (long long)t.b << (p.lw + p.lh) : 0);
     const long long gained_base =
         FUSED ? ((long long)k * p.B + t.b) << (p.lw + p.lh) : base;
-    for_region(t, R, [&](int u, int v) {
+    inner(M, [&](int u, int v) {
       const int e = u * RH + v;
-      float new_occ = s_occ[e];
-      float new_dir = s_dir[e];
-      float new_af = s_af[e];
-      const float efood = s_ef[e];
-      const float deposit = p.deposit_coef * efood * s_code[e];
-      const float consumed = p.rate_feed * efood * new_occ;
-      float env = efood;
-      if (!p.food_infinite) env = env - consumed;
-      const float cost = p.cost_deposit * deposit + p.cost_move * s_inf[e];
-      const float gained = consumed - cost * new_occ;
-      new_af = new_af + gained;
-      if (p.agents_die) {
-        const float dead =
-            new_occ * (new_af <= p.death_threshold ? 1.0f : 0.0f);
-        const float alive = 1.0f - dead;
-        new_occ = new_occ * alive;
-        new_dir = new_dir * alive;
-        new_af = new_af * alive;
-      }
+      const Fed o = feed_cell(p, R, e);
       const int gi = grow(p, t, u), gj = gcol(p, t, v);
       const long long cell = ((long long)gi << p.lh) + gj;
-      if (p.flow_kind == kFlowWave) {
-        const float f = wave_field(p, gi, gj, flow_t);
-        env = p.flow_scale * f + p.flow_keep * env;
-      } else if (p.flow_kind == kFlowField) {
-        const float f = q.flow_f[flow_base + cell];
-        env = p.flow_scale * f + p.flow_keep * env;
-      }
+      const float env = flow_food(p, q, o.env, gi, gj, flow_t,
+                                  flow_base + cell);
       if (last) {
         const long long g = base + cell;
-        q.occ_o[g] = new_occ;
-        q.dir_o[g] = new_dir;
-        q.afood_o[g] = new_af;
+        q.occ_o[g] = o.occ;
+        q.dir_o[g] = o.dir;
+        q.afood_o[g] = o.af;
         q.efood_o[g] = env;
-        q.gained_o[gained_base + cell] = gained * new_occ;
-        alive_count += new_occ > 0.0f ? 1 : 0;
+        q.gained_o[gained_base + cell] = o.gained * o.occ;
+        alive_count += o.occ > 0.0f ? 1 : 0;
       } else {
-        s_occ[e] = new_occ;
-        s_dir[e] = new_dir;
-        s_af[e] = new_af;
-        s_ef[e] = env;
+        R.occ[e] = o.occ;
+        R.dir[e] = o.dir;
+        R.af[e] = o.af;
+        R.ef[e] = env;
         // the step's gain and count are the tile's cells only
         if (u >= p.halo && u < p.halo + p.tr && v >= p.halo &&
             v < p.halo + p.tc) {
-          q.gained_o[gained_base + cell] = gained * new_occ;
-          alive_count += new_occ > 0.0f ? 1 : 0;
+          q.gained_o[gained_base + cell] = o.gained * o.occ;
+          alive_count += o.occ > 0.0f ? 1 : 0;
         }
       }
     });
 
     // ---- 7. diffuse (taps folded from -r to +r, axis 0 then axis 1) -------
-    // s_tmp takes the axis-0 pass on the rows from margin R, widened by r
+    // tmp takes the axis-0 pass on the rows from margin M, widened by r
     // columns
     const int dr = (p.ntaps - 1) / 2;
-    {
-      const int h = (FUSED ? t.RH - 2 * R : p.tc) + 2 * dr;
-      const int n = (FUSED ? t.RW - 2 * R : p.tr) * h;
-      for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const int du = e / h;
-        const int u = R + du, v = R - dr + (e - du * h);
-        float acc = p.taps[0] * s_chem[(u - dr) * RH + v];
-        for (int k2 = 1; k2 < p.ntaps; ++k2)
-          acc = acc + p.taps[k2] * s_chem[(u + k2 - dr) * RH + v];
-        s_tmp[u * RH + v] = acc;
-      }
-    }
-    __syncthreads();
-    for_region(t, R, [&](int u, int v) {
+    for_rect(M, RW - M, M - dr, RH - M + dr, [&](int u, int v) {
       const int e = u * RH + v;
-      float acc = p.taps[0] * s_tmp[e - dr];
-      for (int k2 = 1; k2 < p.ntaps; ++k2)
-        acc = acc + p.taps[k2] * s_tmp[e + k2 - dr];
-      if (last) {
-        const long long g =
-            base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
-        q.chem_o[g] = acc * p.chem_keep;
-      } else {
-        s_chem[e] = acc * p.chem_keep;
-      }
+      R.tmp[e] = taps_at(p, R.chem, e, RH);
+    });
+    __syncthreads();
+    inner(M, [&](int u, int v) {
+      const int e = u * RH + v;
+      const float c = taps_at(p, R.tmp, e, 1) * p.chem_keep;
+      if (last)
+        q.chem_o[base + ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v)] =
+            c;
+      else
+        R.chem[e] = c;
     });
 
     // exact agent count of this step (its barrier also closes the pass: the
     // next one reads what this one wrote to shared memory)
-    block_count_add(alive_count, q.num_o + (FUSED ? t.b * p.K + k : t.b));
+    count_add(alive_count, q.num_o + (FUSED ? t.b * p.K + k : t.b), slots);
   }
 }
 
-// The one-step launch (K1, K3).
+// The one-step launch of the learned rules (K3; the Jones step is K1,
+// lattice_step.cu).
 template <int N, int FAM>
 cudaError_t launch(Params p, const Buffers& q, cudaStream_t st) {
-  // the largest tile (at most DIE_TILE_ROWS x DIE_TILE_COLS, halved until
-  // its region and the rule params fit in shared memory)
-  const size_t par = FAM == kJones ? 0 : (size_t)p.rows * p.cols;
+  static_assert(FAM != kJones, "the one-step Jones kernel is K1");
+  // the largest tile (at most kTile x kTile, halved until its region and
+  // the rule params fit in shared memory)
+  const size_t par = (size_t)p.rows * p.cols;
   for (int k = 1; k <= 8; k *= 2) {
-    p.tr = DIE_TILE_ROWS / k < p.W ? DIE_TILE_ROWS / k : p.W;
-    p.tc = DIE_TILE_COLS / k < p.H ? DIE_TILE_COLS / k : p.H;
+    p.tr = kTile / k < p.W ? kTile / k : p.W;
+    p.tc = kTile / k < p.H ? kTile / k : p.H;
     if (p.tr < 1 || p.tc < 1) break;
     const size_t smem = ((size_t)kFields * (p.tr + 2 * p.halo) *
                              (p.tc + 2 * p.halo) +

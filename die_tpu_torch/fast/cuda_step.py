@@ -5,11 +5,14 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
 
 - ``lattice_step`` (``lattice_step.cu``, K1): one full step of a lockstep
   batch ``[B, W, H]`` with the Jones rule; replaces ``_multi_step_kernel``
-  at K = 1 and, given a flow field, ``_multi_step_kernel_perlin`` (B3).
+  at K = 1 and, given a flow field, ``_multi_step_kernel_perlin`` (B3).  A
+  persistent grid whose blocks walk the (tile, env) items and load the
+  next item's region by ``cp.async`` while they compute the current one;
+  :func:`step_plan` is its launch.
 - ``lattice_step_learned`` (``lattice_step_learned.cu``, K3): the same step
   with a learned turn rule, each env with its own params; replaces
   ``_multi_step_kernel_learned`` (B2) and, given a flow field,
-  ``_multi_step_kernel_perlin_learned`` (B3).  Both instantiate the one
+  ``_multi_step_kernel_perlin_learned`` (B3): the one-step form of the
   kernel template of ``lattice_step.cuh``.
 - ``lattice_steps`` / ``learned_lattice_steps`` (``lattice_step_fused.cu``,
   ``lattice_step_fused_learned.cu``, K4): ``K`` fused steps per launch of
@@ -19,7 +22,9 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
   :func:`check_kernel_supported` stand where the JAX package has
   ``choose_bands`` and the banded constructor's refusals: a (config, K,
   tile) whose region does not fit a block's shared memory raises.
-- ``tree_sum_2d`` (``tree_sum_2d.cu``): the order-pinned reward fold.
+- ``tree_sum_2d`` (``tree_sum_2d.cu``, K2): the order-pinned reward fold,
+  streamed through registers in one launch (two where the columns split
+  over blocks); :func:`fold_plans` is its launch.
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
   too; its wrapper is ``ops/gather.py``.
 - The on-card probes of the step's phases (``probe_alu.cu``,
@@ -43,6 +48,7 @@ does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,6 +56,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -196,7 +203,7 @@ def build() -> float:
         _libs["lattice_step"].die_error_string.argtypes = [ip]
         _libs["lattice_step"].die_error_string.restype = ctypes.c_char_p
         fold = _libs["tree_sum_2d"].die_tree_sum_2d
-        fold.argtypes = [vp, vp, vp, ip, ip, ip, vp]
+        fold.argtypes = [vp, vp, vp, ip, ip, ip, vp, vp]
         fold.restype = ip
         gather = _libs["gather_fields"].die_gather_fields
         gather.argtypes = [vp, vp, vp, vp, ip, ip, ip, vp]
@@ -315,6 +322,72 @@ def choose_tile(dyn: FastDynamics, field_size, params_shape=None,
         f"shared memory, a block has {MAX_SMEM}; use fewer inner steps")
 
 
+class StepPlan(NamedTuple):
+    """The Jones step kernel's launch (``lattice_step.cu``): the tile, the
+    halo ``h`` and the column margin ``hc`` (``h`` rounded up to ``cw``,
+    the floats of one copy), the rounded region ``rows x cols``, the input
+    buffers, the shared fields and bytes, the threads of a block and the
+    persistent grid (one block an SM)."""
+    tile: tuple
+    h: int
+    hc: int
+    cw: int
+    rows: int
+    cols: int
+    stages: int
+    fields: int
+    smem: int
+    threads: int
+    grid: int
+    items: int
+
+
+# Tiles the Jones step kernel may run, largest first (cut to the field).
+STEP_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8),
+              (4, 8), (4, 4))
+STEP_THREADS = 512  # threads of a block (csrc kStepThreads)
+
+
+def step_plan(dyn: FastDynamics, shape, num_sms: int,
+              aligned: bool = True) -> StepPlan:
+    """The launch of the Jones step kernel for a ``[B, W, H]`` state on a
+    card of ``num_sms`` SMs: the first of ``STEP_TILES`` whose region fits
+    shared memory, with two buffers of the five inputs (the next item loads
+    while the block computes this one) where they fit, else one, and five
+    work fields (a sixth with reproduction); a grid of one block an SM,
+    each walking (tile, env) items ``blockIdx + n * grid``.  On this card a
+    larger tile with one buffer ran faster than a smaller one with two,
+    and a block of fewer threads with more registers each faster than
+    more threads (``PERF.md``).
+    Columns are copied 16 bytes at a time (``cw`` = 4) unless ``H`` < 4 or
+    the state is not 16-byte aligned (``aligned``)."""
+    B, W, H = shape
+    h = learned_halo_radius(dyn)
+    cw = 4 if H >= 4 and aligned else 1
+    hc = -(-h // cw) * cw
+    fit = None
+    for tr, tc in dict.fromkeys((min(r, W), min(c, H))
+                                for r, c in STEP_TILES):
+        rows, cols = tr + 2 * h, tc + 2 * hc
+        for stages in (2, 1):
+            fields = 5 * stages + 5 + int(dyn.agents_born)
+            smem = 4 * fields * rows * cols
+            if smem <= MAX_SMEM:
+                fit = stages, fields, smem
+                break
+        if fit:
+            break
+    else:
+        raise ValueError(f"the step's region does not fit shared memory at "
+                         f"halo {h}: {smem} bytes at tile {tr}x{tc}")
+    stages, fields, smem = fit
+    items = B * (W // tr) * (H // tc)
+    return StepPlan(tile=(tr, tc), h=h, hc=hc, cw=cw, rows=rows, cols=cols,
+                    stages=stages, fields=fields, smem=smem,
+                    threads=STEP_THREADS, grid=min(items, num_sms),
+                    items=items)
+
+
 def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None,
                            num_inner=None, tile=None):
     """Raise unless the kernels take this config, ``[B, W, H]`` shape and
@@ -427,6 +500,11 @@ def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
     build()
     outs = [torch.empty_like(state.occ) for _ in range(6)]
     num = torch.zeros(B, dtype=torch.int32, device=dev)
+    plan = None if learned else step_plan(
+        dyn, (B, W, H), torch.cuda.get_device_properties(dev)
+        .multi_processor_count,
+        aligned=all(getattr(state, f).data_ptr() % 16 == 0 for f in
+                    ("occ", "dir", "agent_food", "env_food", "chem")))
     flow_step = state.flow_step
     flow_t = None
     env_stride = 0
@@ -454,6 +532,11 @@ def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
                     dtype=np.int64)
     ip, fp = _params(dyn, B, W, H, env_stride,
                      None if not learned else tuple(params.shape))
+    if plan is not None:
+        ip = np.concatenate([ip, np.array(
+            [*plan.tile, plan.hc, plan.cw, plan.threads, plan.grid,
+             plan.stages],
+            dtype=np.int32)])
     name = "lattice_step_learned" if learned else "lattice_step"
     fn = getattr(_libs[name], "die_" + name)
     rc = fn(ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
@@ -578,8 +661,88 @@ def learned_lattice_steps(dyn: FastDynamics, state: FastEnvState,
     return _steps(dyn, state, keys, params, flow_stack, tile)
 
 
+class FoldPlan(NamedTuple):
+    """One launch of the reward fold: ``V`` columns a vector load, ``G``
+    row groups and ``QT`` vectors a block (``G * QT`` threads), ``S``
+    blocks an env, ``CH`` rows a chunk of a thread's rows."""
+    V: int
+    G: int
+    QT: int
+    S: int
+    CH: int
+
+
+FOLD_MAX_ROWS = 64   # rows a thread folds in registers (csrc kMaxStack)
+FOLD_BLOCKS_AN_SM = 2  # blocks an SM that fill the card
+FOLD_MIN_QT = 16     # vectors a block row: 256 contiguous bytes
+FOLD_MIN_CELLS = 2 ** 16  # cells a block keeps when the columns split
+
+
+def fold_plan(B: int, W: int, H: int, num_sms: int,
+              V: int = 4) -> FoldPlan:
+    """The launch of ``tree_sum_2d.cu`` for a ``[B, W, H]`` field read in
+    vectors of ``V`` columns (4 when the data is 16-byte aligned) on a card
+    of ``num_sms`` SMs, filled by ``FOLD_BLOCKS_AN_SM`` blocks an SM.  Many
+    envs: 512 threads a block, one block an env.  Few envs: 1024 threads,
+    and the columns split over blocks (``S`` > 1) until the batch fills the
+    card, a block row is ``FOLD_MIN_QT`` vectors or a block would keep
+    fewer than ``FOLD_MIN_CELLS`` cells; a thread folds at most
+    ``FOLD_MAX_ROWS`` rows."""
+    fill = FOLD_BLOCKS_AN_SM * num_sms
+    V = min(V, H)
+    Q = H // V
+    threads = 512 if B >= fill else 1024
+    gmin = max(1, W // FOLD_MAX_ROWS)
+    if gmin > 1024:
+        raise ValueError(f"tree_sum_2d kernel takes at most "
+                         f"{1024 * FOLD_MAX_ROWS} rows, got {W}")
+    qt = min(Q, max(1, threads // gmin))
+    while (B * (Q // qt) < fill and qt > FOLD_MIN_QT
+           and W * H // (2 * (Q // qt)) >= FOLD_MIN_CELLS):
+        qt //= 2
+    g = min(W, threads // qt)
+    return FoldPlan(V=V, G=g, QT=qt, S=Q // qt, CH=min(8, W // g))
+
+
+def fold_plans(B: int, W: int, H: int, num_sms: int, V: int = 4):
+    """The launches of one fold on a card of ``num_sms`` SMs: the field's,
+    then, when its columns split over blocks, the fold of the ``[B, H]``
+    column sums as a ``[B, H/V, V]`` field."""
+    first = fold_plan(B, W, H, num_sms, V)
+    if first.S == 1:
+        return [((B, W, H), first)]
+    Vc = first.V
+    return [((B, W, H), first),
+            ((B, H // Vc, Vc), fold_plan(B, H // Vc, Vc, num_sms, Vc))]
+
+
+@functools.lru_cache(maxsize=64)
+def _fold_words(B: int, W: int, H: int, num_sms: int, V: int):
+    """The plans of :func:`fold_plans` as the int32 words the entry point
+    reads (kept, so a call builds nothing on the host)."""
+    plans = fold_plans(B, W, H, num_sms, V)
+    return len(plans), np.array([x for _, plan in plans for x in plan],
+                                dtype=np.int32)
+
+
+def _fold_vector(t: torch.Tensor, H: int) -> int:
+    """The widest vector (4, 2 or 1 floats) the field's address allows."""
+    for v in (4, 2):
+        if H >= v and t.data_ptr() % (4 * v) == 0:
+            return v
+    return 1
+
+
+@functools.lru_cache(maxsize=16)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
-    """Pinned-order fp32 sum of each ``[W, H]`` field of ``[B, W, H]``."""
+    """Pinned-order fp32 sum of each ``[W, H]`` field of ``[B, W, H]``.
+    ``launches["tree_sum_2d"]`` counts calls: one C entry, whose launches
+    (one, or two where the columns split over blocks) :func:`fold_plans`
+    lists."""
     if field.device.type == "cpu":
         return plain_tree_sum_2d(field)
     if field.dim() != 3:
@@ -589,12 +752,15 @@ def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
     if (W & (W - 1)) or (H & (H - 1)):
         raise ValueError(f"tree_sum_2d kernel needs pow2 W, H, got {W}x{H}")
     _require_cuda(field, torch.float32, (B, W, H), "field")
+    n, words = _fold_words(B, W, H, _num_sms(field.device),
+                           _fold_vector(field, H))
     build()
     out = torch.empty(B, dtype=torch.float32, device=field.device)
-    colsum = torch.empty((B, H), dtype=torch.float32, device=field.device)
+    colsum = out if n == 1 else torch.empty(
+        (B, H), dtype=torch.float32, device=field.device)
     rc = _libs["tree_sum_2d"].die_tree_sum_2d(
         field.data_ptr(), colsum.data_ptr(), out.data_ptr(), B, W, H,
-        _stream_ptr())
+        words.ctypes.data, _stream_ptr())
     check_launch(rc, "tree_sum_2d")
     launches["tree_sum_2d"] += 1
     return out

@@ -180,7 +180,7 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
         [root / "chip_smoke.py"]
     tools = [p for p in sources if p.parent.name == "tools"]
     assert {p.name for p in tools} >= {"bench_banded.py", "tree_timing.py",
-                                       "step_shapes.py", "gpu_measure.py",
+                                       "step_split.py", "gpu_measure.py",
                                        "gpu_tc_offload.py", "probes.py",
                                        "gpu_measure2.py", "probes2.py"}
     bad_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|die_tpu)\b",
@@ -222,12 +222,17 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
 
 # ---- on the card ---------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dyn", [
+PARITY_CONFIGS = [
     FastDynamics(), FastDynamics(num_dirs=4), tuned_dynamics(16),
     FastDynamics(agents_born=True, agents_die=True, birth_threshold=0.5),
+    FastDynamics(num_dirs=16, agents_born=True, agents_die=True,
+                 birth_threshold=0.5),
     FastDynamics(per_cell_priority=False), FastDynamics(rng_kind="threefry"),
-    FastDynamics(flow=FlowConfig(kind="wave"))])
+    FastDynamics(flow=FlowConfig(kind="wave"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dyn", PARITY_CONFIGS)
 def test_kernels_match_plain_on_card(cuda_device, dyn):
     st = fast_init(_keys(7, 3), SHAPE, dyn, device=cuda_device)
     cuda_step.reset_launches()
@@ -240,9 +245,46 @@ def test_kernels_match_plain_on_card(cuda_device, dyn):
 
 
 @pytest.mark.cuda
-def test_tree_sum_kernel_matches_plain_on_card(cuda_device):
-    x = torch.randn((5, 64, 512), device=cuda_device)
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("dyn", PARITY_CONFIGS + [
+    FastDynamics(flow=FlowConfig(kind="perlin"))])
+def test_step_kernel_matches_plain_step_on_card(cuda_device, dyn, B):
+    # 256x256: real tile edges; at B = 16 each block of the persistent grid
+    # walks several items (the next one's region loading into the second
+    # input buffer, or after this one's with one buffer)
+    if B == 16:
+        props = torch.cuda.get_device_properties(cuda_device)
+        plan = cuda_step.step_plan(dyn, (B, 256, 256),
+                                   props.multi_processor_count)
+        assert plan.items > 2 * plan.grid
+    st = fast_init(_keys(9, B), (256, 256), dyn, device=cuda_device)
+    keys = step_keys(as_key_tensor(_keys(10, B), "cuda"), 0, 3)
+    ref = st
+    for t in range(3):
+        st, num, gained = cuda_step.lattice_step(dyn, st, keys[t])
+        ref, rew, rnum, rgained = tenv.fast_step_full(
+            dyn, ref, step_bits(dyn, keys[t], (256, 256)))
+        assert all(torch.equal(a, b) for a, b in zip(st, ref))
+        assert torch.equal(num, rnum) and torch.equal(gained, rgained)
+        assert torch.equal(cuda_step.tree_sum_2d(gained), rew)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1024, 256, 256), (1024, 64, 128), (32, 64, 64), (32, 512, 512),
+    (8, 1024, 1024), (64, 2048, 2048), (64, 512, 512), (5, 64, 512),
+    (4, 1, 1), (4, 2, 2), (3, 256, 1), (3, 1, 256)])
+def test_tree_sum_kernel_matches_plain_on_card(cuda_device, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(shape, device=cuda_device, generator=g) * torch.exp2(
+        torch.randint(-24, 25, shape, device=cuda_device,
+                      generator=g).float())
     assert torch.equal(cuda_step.tree_sum_2d(x), tenv.tree_sum_2d(x))
+    # from an address that is not 16-byte aligned
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    flat[1:].copy_(x.reshape(-1))
+    assert torch.equal(cuda_step.tree_sum_2d(flat[1:].view(shape)),
+                       tenv.tree_sum_2d(x))
 
 
 @pytest.mark.cuda
