@@ -27,7 +27,10 @@ Phases (any failure exits non-zero):
      for every rule family with the committed artifacts and with random
      all-live params, with birth and death, wave flow, perlin flow (B3,
      shared and per-env fields) and a population of distinct params, at
-     256x256, B=4, 8 steps; and the rule on NaN and +-0.0 food;
+     256x256, B=4, 8 steps, then each at B=16, 2 steps, where each block
+     of the persistent grid walks 3 or more items (asserted from the plan),
+     under the plan's own input buffers, one, two (where they fit) and
+     4-byte copies; and the rule on NaN and +-0.0 food;
   4. the main path: ``fast_init`` + ``fast_rollout_auto`` with
      ``FastDynamics()`` at 256x256, with launch counts read around it,
      finite rewards and a conserved agent count;
@@ -36,7 +39,9 @@ Phases (any failure exits non-zero):
      ``learned_fast_rollout_auto`` (bitwise against the plain rollout on
      the card, mean score beside the JAX package's documented one);
      ``train_lattice`` at the wide record's configuration (popsize 64 x 16
-     envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed; and the
+     envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed, each
+     generation taken apart by CUDA events (keys, ask, ``fast_init``, K3,
+     folds, tell and its ``eigh``, the device waiting on the host); and the
      perlin path (Jones at the main path's size, wide at 64x128);
   6. the fused tiled kernel (K4) against its plain version
      (``tiled_steps_plain``) and against the plain whole-field steps on the
@@ -45,6 +50,9 @@ Phases (any failure exits non-zero):
      printed), at 256x256, on a 128x512 field and at 512x512; every learned
      family at K = 2 (8 or 4 directions) and K = 1 (16 directions); wave and
      perlin flow at K = 2 with per-env flow steps and a resume at t0 = 4;
+     then every case at K = 1, 2 and 3 (where the plan fits) with enough
+     envs that each block walks 3 or more items, under the same four walks
+     as phase 3;
   7. the large-field path, counts read around each run: ``fast_init`` +
      ``fast_rollout_auto`` with ``FastDynamics()`` at 512x512 x 32 envs and
      1024x1024 x 8 envs (T = 256) and 2048x2048 x 64 envs (T = 32), each at
@@ -57,9 +65,11 @@ Phases (any failure exits non-zero):
      rollout; and short runs of the other fused forms (perlin, linear, MLP,
      ctx, learned perlin) through the same entry points;
   8. timings (CUDA events) of the main rollout, of each kernel and of its
-     plain version, with each kernel's bound; K1's time taken apart
-     (``tools/step_split.py``: the region loads and tile stores alone, with
-     phases 1-3, whole, at ``FastDynamics()`` and ``tuned_dynamics(16)``);
+     plain version, with each kernel's bound and launch plan (tile, buffers,
+     grid); the step kernel's time taken apart (``tools/step_split.py``: the
+     region loads and tile stores alone, with phase 1, with phases 1-3,
+     whole; K1 at ``FastDynamics()`` and ``tuned_dynamics(16)``, K3 wide,
+     K4 at K = 1); the training generation taken apart by part (phase 5);
   9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
      kernel (K5) against ``gather_fields_plain`` bitwise (F in 1..3, M in
      {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
@@ -97,6 +107,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -500,9 +511,102 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
         torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
 
 
-def phase_learned_parity(B: int, steps: int):
+class Unfit(Exception):
+    """A forced plan does not fit shared memory."""
+
+
+@contextlib.contextmanager
+def forced_stages(stages):
+    """Every step plan made inside with ``stages`` input buffers (None:
+    the plan's own), at the first of ``cuda_step.STEP_TILES`` where they
+    fit when they do not at the plan's own tile; raises ``Unfit`` where
+    they fit no tile."""
+    from die_tpu_torch.fast import cuda_step
+
+    plan_of = cuda_step.step_plan
+
+    def forced(*a, **k):
+        plan = plan_of(*a, **k)
+        if stages is None or plan.stages == stages:
+            return plan
+        tiles = [plan.tile] if k.get("tile") is not None else \
+            [plan.tile, *cuda_step.STEP_TILES]
+        _, W, H = a[1]
+        for tile in tiles:
+            if W % tile[0] or H % tile[1] or (
+                    plan.num_inner > 1
+                    and min(tile) < cuda_step.FUSED_MIN_SIDE):
+                continue
+            try:
+                pl = plan_of(*a, **{**k, "tile": tile}).with_stages(stages)
+            except ValueError:
+                continue
+            if pl.smem <= cuda_step.MAX_SMEM:
+                return pl
+        raise Unfit(f"{stages} input buffers fit no tile")
+
+    cuda_step.step_plan = forced
+    try:
+        yield
+    finally:
+        cuda_step.step_plan = plan_of
+
+
+def unaligned(st):
+    """The state with every field copied to an address 4 bytes past a
+    16-byte boundary: the step plans 4-byte copies (cw = 1)."""
+    def shift(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:].copy_(x.reshape(-1))
+        return flat[1:].view(x.shape)
+    return st._replace(**{f: shift(getattr(st, f)) for f in
+                          ("occ", "dir", "agent_food", "env_food", "chem")})
+
+
+# the persistent grid's walks held against the plain versions: blocks of
+# several items under the plan's own buffers, one, two, and 4-byte copies
+WALKS = (("own plan", None, False), ("1 buffer", 1, False),
+         ("2 buffers", 2, False), ("4-byte copies", None, True))
+WALK_ITEMS = 3  # items a block walks at least
+
+
+def walk_plan(dyn, shape, params, K, stages, cw1, tile=None, fused=False):
+    """(plan, turn plan or None, items a block) a walk variant launches
+    with (the wrappers' own, ``cuda_step.launch_plans``, forced as
+    ``forced_stages`` does); raises ``Unfit``."""
+    from die_tpu_torch.fast import cuda_step
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pshape = None if params is None else tuple(params.shape[-2:])
+    with forced_stages(stages):
+        plan, turn = cuda_step.launch_plans(dyn, shape, sms, pshape, K,
+                                            aligned=not cw1, tile=tile,
+                                            fused=fused)
+    for pl in (plan, turn):
+        if pl is not None and (pl.grid > sms or (cw1 and pl.cw != 1)):
+            raise AssertionError(f"plan {pl}: grid above {sms} SMs, or not "
+                                 f"4-byte copies")
+    return plan, turn, -(-plan.items // plan.grid)
+
+
+def plan_text(plan, turn=None) -> str:
+    text = (f"tile {plan.tile[0]}x{plan.tile[1]}, margin {plan.h} (columns "
+            f"{plan.hc}, {4 * plan.cw}-byte copies), {plan.stages} input "
+            f"buffers, {plan.smem} bytes, grid {plan.grid} x {plan.threads} "
+            f"threads, {plan.items} items ({-(-plan.items // plan.grid)} a "
+            f"block)")
+    if turn is not None:
+        text += f"; after a turn pass of {plan_text(turn)}"
+    return text
+
+
+def phase_learned_parity(B: int, steps: int, walk_envs: int = 16,
+                         walk_steps: int = 2):
     """K3 and the flow-field operand (B3) against the plain step on the card,
-    every field, reward and count each step, at 256x256 (real tile edges)."""
+    every field, reward and count each step, at 256x256 (real tile edges):
+    each case at ``B`` envs (a block an item), then at ``walk_envs`` under
+    every walk of ``WALKS`` (each block of the persistent grid walks at
+    least ``WALK_ITEMS`` items)."""
     from die_tpu_torch.core.rng import as_key_tensor
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.env import fast_step_full
@@ -512,34 +616,64 @@ def phase_learned_parity(B: int, steps: int):
 
     err = 0.0
     for name, dyn, params, offsets in learned_cases():
-        st_k = fast_init(env_keys(7, B), FIELD, dyn, device="cuda")
-        if offsets is not None:
-            st_k = st_k._replace(flow_step=torch.tensor(
-                offsets, dtype=torch.int32, device="cuda"))
-        st_p = st_k
-        rule = None if params is None else make_turn_rule(params, dyn)
-        keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, steps)
-        turned = 0
-        for t in range(steps):
-            st_k, num_k, gained_k = kernel_step(dyn, st_k, keys[t], params)
-            rew_k = cuda_step.tree_sum_2d(gained_k)
-            prev = st_p
-            st_p, rew_p, num_p, gained_p = fast_step_full(
-                dyn, st_p, step_bits(dyn, keys[t], FIELD), turn_rule=rule)
-            turned += int(((st_p.dir != prev.dir) & (prev.occ > 0)).sum())
-            for f in st_p._fields:
-                a, b = getattr(st_k, f), getattr(st_p, f)
-                if not same(a, b):
-                    raise AssertionError(f"{name} step {t}: {f} differs, "
-                                         f"max abs err {max_err(a, b)}")
-                if f != "flow_step":
-                    err = max(err, max_err(a, b))
-            if not (same(gained_k, gained_p) and same(num_k, num_p)
-                    and same(rew_k, rew_p)):
-                raise AssertionError(f"{name} step {t}: gain, count or "
-                                     f"reward differs")
-        log(f"parity {name}: {steps} steps x {B} envs bitwise equal "
-            f"(agents {int(num_p.sum())}, headings changed {turned})")
+        runs = [(B, steps, "", None, False)]
+        for walk, stages, cw1 in WALKS:
+            runs.append((walk_envs, walk_steps, f", {walk}", stages, cw1))
+        for envs, nsteps, label, stages, cw1 in runs:
+            pr = params
+            if pr is not None and pr.dim() == 3:  # one set an env
+                pr = pr.repeat((-(-envs // pr.shape[0]), 1, 1))[:envs]
+                pr = pr.contiguous()
+            if label:
+                try:
+                    plan, turn, per_block = walk_plan(dyn, (envs, *FIELD),
+                                                      pr, 1, stages, cw1)
+                except Unfit as e:
+                    log(f"parity {name}{label}: not run ({e})")
+                    continue
+                if per_block < WALK_ITEMS:
+                    raise AssertionError(f"{name}{label}: {per_block} items "
+                                         f"a block")
+            st_k = fast_init(env_keys(7, envs), FIELD, dyn, device="cuda")
+            if offsets is not None:
+                st_k = st_k._replace(flow_step=torch.tensor(
+                    (offsets * envs)[:envs], dtype=torch.int32,
+                    device="cuda"))
+            st_p = st_k
+            if cw1:
+                st_k = unaligned(st_k)
+            rule = None if pr is None else make_turn_rule(pr, dyn)
+            keys = step_keys(as_key_tensor(env_keys(8, envs), "cuda"), 0,
+                             nsteps)
+            turned = 0
+            for t in range(nsteps):
+                with forced_stages(stages):
+                    st_k, num_k, gained_k = kernel_step(dyn, st_k, keys[t],
+                                                        pr)
+                rew_k = cuda_step.tree_sum_2d(gained_k)
+                prev = st_p
+                st_p, rew_p, num_p, gained_p = fast_step_full(
+                    dyn, st_p, step_bits(dyn, keys[t], FIELD),
+                    turn_rule=rule)
+                turned += int(((st_p.dir != prev.dir) & (prev.occ > 0)).sum())
+                for f in st_p._fields:
+                    a, b = getattr(st_k, f), getattr(st_p, f)
+                    if not same(a, b):
+                        raise AssertionError(
+                            f"{name}{label} step {t}: {f} differs, max abs "
+                            f"err {max_err(a, b)}")
+                    if f != "flow_step":
+                        err = max(err, max_err(a, b))
+                if not (same(gained_k, gained_p) and same(num_k, num_p)
+                        and same(rew_k, rew_p)):
+                    raise AssertionError(f"{name}{label} step {t}: gain, "
+                                         f"count or reward differs")
+            log(f"parity {name}{label}: {nsteps} steps x {envs} envs bitwise "
+                f"equal (agents {int(num_p.sum())}, headings changed "
+                f"{turned})" + (f"; {plan_text(plan, turn)}" if label
+                                 else ""))
+            del st_k, st_p
+    torch.cuda.empty_cache()
     return err
 
 
@@ -624,35 +758,120 @@ def phase_heldout():
     return scores
 
 
+class GenerationParts:
+    """CUDA events around each call of the parts of a ``train_lattice``
+    generation, the functions patched in place for the run (``train_lattice``
+    itself is not changed): ``generation_keys``; the searcher's ``ask``;
+    ``fast_init``; the K3 launches; the folds (``tree_sum_2d`` of each
+    step's gain, ``tree_sum_1d`` of the fitnesses); the searcher's ``tell``,
+    of which the CMA-ES ``torch.linalg.eigh`` (``_eig``).  A generation's
+    span runs from the event before its ``generation_keys`` to one recorded
+    after ``train_lattice`` has read its fitnesses to the host (its
+    ``log_fn``); what the parts leave of it is the device waiting on the
+    host: the host syncs and the host's own work between launches."""
+
+    PARTS = ("generation_keys", "ask", "fast_init", "k3", "folds", "tell",
+             "eigh")
+
+    def __init__(self):
+        self.calls = []    # [(part, start event, end event, host s)]
+        self.marks = []    # [(first call index, end event)] a generation
+        self.first = 0
+
+    def timed(self, part: str, fn):
+        def call(*a, **k):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            ev0.record()
+            out = fn(*a, **k)
+            ev1.record()
+            self.calls.append((part, ev0, ev1, time.perf_counter() - h0))
+            return out
+        return call
+
+    def end_generation(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((self.first, ev))
+        self.first = len(self.calls)
+
+    def table(self):
+        """[{part: device ms, ...}] a generation, with ``span_ms``,
+        ``host_wait_ms`` (span less the parts) and ``host_ms`` (host clock
+        a part)."""
+        torch.cuda.synchronize()
+        out = []
+        for i, (first, end) in enumerate(self.marks):
+            last = self.marks[i + 1][0] if i + 1 < len(self.marks) else \
+                len(self.calls)
+            rows = self.calls[first:last]
+            rec = {part: 0.0 for part in self.PARTS}
+            host = {part: 0.0 for part in self.PARTS}
+            for part, ev0, ev1, h in rows:
+                rec[part] += ev0.elapsed_time(ev1)
+                host[part] += h * 1e3
+            rec["span_ms"] = rows[0][1].elapsed_time(end)
+            # eigh lies inside tell
+            rec["host_wait_ms"] = rec["span_ms"] - sum(
+                rec[p] for p in self.PARTS if p != "eigh")
+            rec["k3_launches"] = sum(1 for r in rows if r[0] == "k3")
+            rec["host_ms"] = host
+            out.append(rec)
+        return out
+
+
 def phase_train(gens: int):
     """train_lattice at the wide record's configuration (warm CMAES s0.1,
-    64 x 16 envs per generation, CRN, seed 52), timed per generation."""
+    64 x 16 envs per generation, CRN, seed 52), timed per generation and
+    taken apart (``GenerationParts``)."""
     from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast import init as fast_init_mod
+    from die_tpu_torch.fast import learned as L
     from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
-    from die_tpu_torch.fast.learned import LatticeTrainConfig, train_lattice
     from die_tpu_torch.learn.es import CMAES
 
     dyn = eval_protocol_dynamics(16)
-    cfg = LatticeTrainConfig(field_size=(64, 128), epochs=gens,
-                             epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
-                             envs_per_eval=16, seed=52)
+    cfg = L.LatticeTrainConfig(field_size=(64, 128), epochs=gens,
+                               epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
+                               envs_per_eval=16, seed=52)
     warm = artifact("lattice16_mlp_wide")
     stamps = []
+    parts = GenerationParts()
 
     def log_fn(epoch, m):
+        parts.end_generation()
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         log(f"  generation {epoch}: best {m['best']:.4f} mean "
             f"{m['mean']:.4f}")
 
+    def searcher_fn(d):
+        s = CMAES(d, popsize=64, stdev_init=0.1)
+        s.ask = parts.timed("ask", s.ask)
+        s.tell = parts.timed("tell", s.tell)
+        s._eig = parts.timed("eigh", s._eig)
+        return s
+
+    patches = [(L, "generation_keys", "generation_keys"),
+               (fast_init_mod, "fast_init", "fast_init"),
+               (cuda_step, "learned_lattice_step", "k3"),
+               (cuda_step, "tree_sum_2d", "folds"),
+               (L, "tree_sum_1d", "folds")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     cuda_step.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    best, es_state, history = train_lattice(
-        dyn, cfg, log_fn=log_fn, params_init=warm, common_random_envs=True,
-        searcher_fn=lambda d: CMAES(d, popsize=64, stdev_init=0.1),
-        device="cuda")
-    torch.cuda.synchronize()
+    try:
+        for mod, name, part in patches:
+            setattr(mod, name, parts.timed(part, getattr(mod, name)))
+        best, es_state, history = L.train_lattice(
+            dyn, cfg, log_fn=log_fn, params_init=warm,
+            common_random_envs=True, searcher_fn=searcher_fn, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     counts = dict(cuda_step.launches)
     log(f"learned path (train_lattice) launches: {counts}")
     if counts["lattice_step_learned_wide"] < 1 or counts["tree_sum_2d"] < 1:
@@ -670,7 +889,18 @@ def phase_train(gens: int):
         f"steps at {cfg.field_size}; seconds per generation "
         f"{[round(x, 4) for x in per_gen]}; {rate:.1f} train env-steps/s "
         f"after the first generation")
-    return rate, counts, per_gen
+    breakdown = parts.table()
+    if len(breakdown) != gens or any(
+            r["k3_launches"] != cfg.epoch_iters for r in breakdown):
+        raise AssertionError("the generation breakdown missed a generation "
+                             "or a K3 launch")
+    for i, rec in enumerate(breakdown):
+        log(f"  generation {i} taken apart (device ms, CUDA events): "
+            + ", ".join(f"{p} {rec[p]:.4f}" for p in GenerationParts.PARTS)
+            + f"; span {rec['span_ms']:.4f}, device waiting on the host "
+            f"{rec['host_wait_ms']:.4f}; host ms "
+            + ", ".join(f"{p} {v:.4f}" for p, v in rec["host_ms"].items()))
+    return rate, counts, per_gen, breakdown
 
 
 def phase_perlin_path(B: int, steps: int):
@@ -779,10 +1009,12 @@ def fused_launch(dyn, st, chunk, params, tile=None):
     return out, stack
 
 
-def phase_fused_parity(B: int, steps: int):
-    """K4 against tiled_steps_plain on the same inputs, and against K plain
-    whole-field steps, every launch: state fields, counts, gain fields and
-    folded rewards, bitwise."""
+def fused_check(name, dyn, field, params, offsets, B, K, launches,
+                stages=None, cw1=False, tile=None):
+    """``launches`` K4 launches (K steps each) of ``B`` envs against
+    tiled_steps_plain on the same inputs and against K plain whole-field
+    steps: state fields, counts, gain fields and folded rewards, bitwise.
+    Returns (max abs err, the plan, agents at the end)."""
     from die_tpu_torch.core.rng import as_key_tensor
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.env import fast_step_full
@@ -791,62 +1023,110 @@ def phase_fused_parity(B: int, steps: int):
     from die_tpu_torch.fast.rollout import step_bits, step_keys
     from die_tpu_torch.fast.tiled import tiled_steps_plain
 
+    W, H = field
+    if params is not None and params.dim() == 3:  # one set an env
+        params = params.repeat((-(-B // params.shape[0]), 1, 1))[:B]
+        params = params.contiguous()
+    plan, _, _ = walk_plan(dyn, (B, W, H), params, K, stages, cw1, tile,
+                           fused=True)
+    rule = None if params is None else make_turn_rule(params, dyn)
+    st_k = fast_init(env_keys(7, B), field, dyn, device="cuda")
+    if offsets is not None:
+        st_k = st_k._replace(flow_step=torch.tensor(
+            (offsets * B)[:B], dtype=torch.int32, device="cuda"))
+    st_p = st_k
+    keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, K * launches)
+    err = 0.0
+    for i in range(0, K * launches, K):
+        chunk = keys[i:i + K].transpose(0, 1).contiguous()
+        with forced_stages(stages):
+            (new_k, num_k, gained_k), stack = fused_launch(
+                dyn, unaligned(st_k) if cw1 else st_k, chunk, params, tile)
+        rew_k = cuda_step.tree_sum_2d(
+            gained_k.reshape(K * B, W, H)).reshape(K, B)
+        new_t, num_t, gained_t = tiled_steps_plain(
+            dyn, st_k, chunk, plan.tile, plan.h, params=params,
+            flow_stack=stack)
+        for k in range(K):
+            st_p, rew_p, num_p, gained_p = fast_step_full(
+                dyn, st_p, step_bits(dyn, keys[i + k], field),
+                turn_rule=rule)
+            if not (same(gained_k[k], gained_p) and same(num_k[:, k], num_p)
+                    and same(rew_k[k], rew_p)):
+                raise AssertionError(
+                    f"fused {name} K={K} step {i + k}: gain, count or "
+                    f"reward differs from the whole-field step")
+        for f in st_p._fields:
+            a = getattr(new_k, f)
+            for what, b in (("tiled plain", getattr(new_t, f)),
+                            ("whole-field", getattr(st_p, f))):
+                if not same(a, b):
+                    raise AssertionError(
+                        f"fused {name} K={K} step {i + K}: {f} differs "
+                        f"from the {what} version, max abs err "
+                        f"{max_err(a, b)}")
+                if f != "flow_step":
+                    err = max(err, max_err(a, b))
+        if not (same(num_k, num_t) and same(gained_k, gained_t)):
+            raise AssertionError(f"fused {name} K={K}: count or gain "
+                                 f"differs from the tiled plain one")
+        st_k = new_k
+    return err, plan, int(num_p.sum())
+
+
+def phase_fused_parity(B: int, steps: int):
+    """K4 against tiled_steps_plain on the same inputs, and against K plain
+    whole-field steps, every launch: state fields, counts, gain fields and
+    folded rewards, bitwise.  Each case at its K values over ``steps``
+    steps of ``B`` envs; then every case at K = 1, 2 and 3 (where the plan
+    fits), one launch of enough envs that each block of the persistent grid
+    walks at least ``WALK_ITEMS`` items, under every walk of ``WALKS``."""
+    from die_tpu_torch.fast import cuda_step
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
     for name, dyn, field, params, inner, offsets in fused_cases():
-        pshape = None if params is None else tuple(params.shape)
-        rule = None if params is None else make_turn_rule(params, dyn)
-        W, H = field
+        pshape = None if params is None else tuple(params.shape[-2:])
         for K in inner:
             try:
-                tile = cuda_step.choose_tile(dyn, field, pshape, K)
+                cuda_step.step_plan(dyn, (B, *field), sms, pshape, K)
             except ValueError as e:
                 log(f"fused parity {name} K={K}: refused ({e})")
                 continue
-            margin = cuda_step.fused_margin(dyn, pshape, K)
-            st_k = fast_init(env_keys(7, B), field, dyn, device="cuda")
-            if offsets is not None:
-                st_k = st_k._replace(flow_step=torch.tensor(
-                    offsets, dtype=torch.int32, device="cuda"))
-            st_p = st_k
-            keys = step_keys(as_key_tensor(env_keys(8, B), "cuda"), 0, steps)
-            for i in range(0, steps, K):
-                chunk = keys[i:i + K].transpose(0, 1).contiguous()
-                (new_k, num_k, gained_k), stack = fused_launch(
-                    dyn, st_k, chunk, params)
-                rew_k = cuda_step.tree_sum_2d(
-                    gained_k.reshape(K * B, W, H)).reshape(K, B)
-                new_t, num_t, gained_t = tiled_steps_plain(
-                    dyn, st_k, chunk, tile, margin, params=params,
-                    flow_stack=stack)
-                for k in range(K):
-                    st_p, rew_p, num_p, gained_p = fast_step_full(
-                        dyn, st_p, step_bits(dyn, keys[i + k], field),
-                        turn_rule=rule)
-                    if not (same(gained_k[k], gained_p)
-                            and same(num_k[:, k], num_p)
-                            and same(rew_k[k], rew_p)):
-                        raise AssertionError(
-                            f"fused {name} K={K} step {i + k}: gain, count "
-                            f"or reward differs from the whole-field step")
-                for f in st_p._fields:
-                    a = getattr(new_k, f)
-                    for what, b in (("tiled plain", getattr(new_t, f)),
-                                    ("whole-field", getattr(st_p, f))):
-                        if not same(a, b):
-                            raise AssertionError(
-                                f"fused {name} K={K} step {i + K}: {f} "
-                                f"differs from the {what} version, max abs "
-                                f"err {max_err(a, b)}")
-                        if f != "flow_step":
-                            err = max(err, max_err(a, b))
-                if not (same(num_k, num_t) and same(gained_k, gained_t)):
-                    raise AssertionError(f"fused {name} K={K}: count or gain "
-                                         f"differs from the tiled plain one")
-                st_k = new_k
+            e, plan, agents = fused_check(name, dyn, field, params, offsets,
+                                          B, K, steps // K)
+            err = max(err, e)
             log(f"fused parity {name} K={K}: {steps} steps x {B} envs at "
-                f"{W}x{H}, tile {tile[0]}x{tile[1]}, margin {margin}: bitwise "
-                f"equal to tiled_steps_plain and to the whole-field steps "
-                f"(agents {int(num_p.sum())})")
+                f"{field[0]}x{field[1]}, {plan_text(plan)}: bitwise equal "
+                f"to tiled_steps_plain and to the whole-field steps (agents "
+                f"{agents})")
+        for K in (1, 2, 3):
+            try:
+                one = cuda_step.step_plan(dyn, (1, *field), sms, pshape, K)
+            except ValueError as e:
+                log(f"fused walks {name} K={K}: refused ({e})")
+                continue
+            envs = -(-WALK_ITEMS * sms // one.items)
+            for walk, stages, cw1 in WALKS:
+                try:
+                    plan, _, per_block = walk_plan(dyn, (envs, *field),
+                                                   params, K, stages, cw1,
+                                                   fused=True)
+                except Unfit as e:
+                    log(f"fused walks {name} K={K}, {walk}: not run ({e})")
+                    continue
+                if per_block < WALK_ITEMS:
+                    raise AssertionError(f"fused {name} K={K}, {walk}: "
+                                         f"{per_block} items a block")
+                e, plan, agents = fused_check(name, dyn, field, params,
+                                              offsets, envs, K, 1, stages,
+                                              cw1)
+                err = max(err, e)
+                log(f"fused walks {name} K={K}, {walk}: {envs} envs at "
+                    f"{field[0]}x{field[1]}, {plan_text(plan)}: bitwise "
+                    f"equal to tiled_steps_plain and to the whole-field "
+                    f"steps (agents {agents})")
+    torch.cuda.empty_cache()
     return err
 
 
@@ -974,11 +1254,16 @@ def phase_large_field(smi: str):
                          "num_inner": K, "env_steps_per_s": B * T / ms * 1e3,
                          "ms_per_launch": ms / (T // K),
                          "fold_ms_one_field": fold_ms})
+            plan, _ = cuda_step.launch_plans(
+                dyn, (B, *field), torch.cuda.get_device_properties(
+                    0).multi_processor_count, None, K, fused=True)
+            rows[-1]["plan"] = plan._asdict()
             log(f"large field {field[0]}x{field[1]} x {B} envs, T={T}, "
                 f"num_inner={K}: {B * T / ms * 1e3:.1f} env-steps/s, "
                 f"{ms / (T // K):.4f} ms per launch with its fold "
                 f"({T // K} launches; the fold of one gain field alone "
-                f"{fold_ms:.4f} ms; init {init_s:.2f} s; {smi})")
+                f"{fold_ms:.4f} ms; init {init_s:.2f} s; {plan_text(plan)}; "
+                f"{smi})")
         a, b = outs[1], outs[2]
         if not (all(same(x, y) for x, y in zip(a[0], b[0]))
                 and same(a[1], b[1]) and same(a[2], b[2])):
@@ -1097,8 +1382,10 @@ def time_fused(rate, counts, err):
             else:
                 ms = time_ms(lambda: cuda_step.learned_lattice_steps(
                     dyn, st, chunk, params, flow_stack=stack), 10)
-            tile = cuda_step.choose_tile(dyn, field, pshape, K)
-            margin = cuda_step.fused_margin(dyn, pshape, K)
+            plan = cuda_step.step_plan(
+                dyn, (B, *field), torch.cuda.get_device_properties(
+                    0).multi_processor_count, pshape, K)
+            tile, margin = plan.tile, plan.h
             plain = time_ms(lambda: tiled_steps_plain(
                 dyn, st, chunk, tile, margin, params=params,
                 flow_stack=stack), 1, warmup=1)
@@ -1109,12 +1396,11 @@ def time_fused(rate, counts, err):
                 0 if params is None else rule_ops_per_cell(dyn, pshape)))
             bound, by = bound_ms(cells, nbytes, ops, rate)
             by_inner[K] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                           "bound_by": by, "tile": list(tile),
-                           "margin": margin}
-            log(f"{key} K={K}: {ms:.4f} ms/launch at {B} x 512x512, tile "
-                f"{tile[0]}x{tile[1]}, margin {margin} (bound {bound:.4f} ms "
-                f"by {by}, {nbytes / 1e6:.1f} MB); tiled plain {plain:.2f} "
-                f"ms; launches {counts[key]}")
+                           "bound_by": by, "plan": plan._asdict()}
+            log(f"{key} K={K}: {ms:.4f} ms/launch at {B} x 512x512, "
+                f"{plan_text(plan)} (bound {bound:.4f} ms by {by}, "
+                f"{nbytes / 1e6:.1f} MB); tiled plain {plain:.2f} ms; "
+                f"launches {counts[key]}")
         first = by_inner[inner[0]]
         learned = params is not None
         out.append({
@@ -1793,7 +2079,8 @@ def main():
         if serve_counts[f"lattice_step_learned_{fam}"] < 1:
             raise AssertionError(f"K3 ({fam}) was not launched in the "
                                  f"held-out replay")
-    train_rate, train_counts, per_gen = phase_train(args.train_gens)
+    train_rate, train_counts, per_gen, train_parts = phase_train(
+        args.train_gens)
     perlin_counts, pstate = phase_perlin_path(B, args.perlin_steps)
 
     # ---- 6-7. the fused tiled kernel and the large-field path
@@ -1850,12 +2137,15 @@ def main():
         f"{k1_plain_ms:.3f} ms")
     log(f"tree_sum_2d: {k2_ms:.4f} ms/launch (bound {k2_bound:.4f} ms); "
         f"plain {k2_plain_ms:.4f} ms; torch.sum {k2_lib_ms:.4f} ms")
-    # K1's time taken apart: loads and stores alone, with phases 1-3, whole
+    # the step kernel's time taken apart (K1 at both configs, K3 wide, K4
+    # at K = 1): loads and stores alone, with phase 1, with phases 1-3,
+    # whole
     from die_tpu_torch.tools.step_split import split_ms
 
-    split = split_ms(B)
+    split = split_ms(B, targets=("default", "tuned16", "k3_wide16",
+                                 "k4_jones_k1"))
     for cname, rec in split.items():
-        log(f"lattice_step split ({cname}): "
+        log(f"step split ({cname}, {rec['kernel']}): "
             + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in
                         rec.items() if k[0] in "abc")
             + f"; registers {rec['registers']}")
@@ -1896,6 +2186,7 @@ def main():
               "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,
+              "train_generation_parts": train_parts,
               "heldout": scores,
               "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
@@ -1942,15 +2233,21 @@ def time_learned(B, rate, serve_counts, train_counts, k3_err):
         bound, by = bound_ms(cells, nbytes, ops, rate)
         key = f"lattice_step_learned_{fam}"
         launches = serve_counts[key] + train_counts[key]
+        plan, turn = cuda_step.launch_plans(
+            dyn, (B, *shape), torch.cuda.get_device_properties(
+                0).multi_processor_count, tuple(params.shape))
         log(f"{key} ({name}, {ops} ops/cell): {ms:.4f} ms/launch at "
-            f"{B} x {shape[0]}x{shape[1]} (bound {bound:.4f} ms by {by}); "
-            f"plain {plain:.3f} ms; learned-path launches {launches}")
+            f"{B} x {shape[0]}x{shape[1]}, {plan_text(plan, turn)} (bound "
+            f"{bound:.4f} ms by {by}); plain {plain:.3f} ms; learned-path "
+            f"launches {launches}")
         out.append({"name": key, "route": "cuda",
                     "source": "die_tpu_torch/csrc/lattice_step_learned.cu",
                     "replaces": "die_tpu/fast/pallas_step.py:199",
                     "launches": launches, "match": True,
                     "max_abs_err": k3_err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+                    "bound_ms": bound, "bound_by": by, "library_ms": None,
+                    "plan": plan._asdict(),
+                    "turn_plan": None if turn is None else turn._asdict()})
     return out
 
 

@@ -9,29 +9,21 @@
 // (_kernel_bits_banded), a flow field per inner step.  The plain twin is
 // die_tpu_torch/fast/tiled.py::tiled_steps_plain; the two agree bit for bit,
 // and both agree with K whole-field steps of fast/env.py::fast_step_full.
-// The kernel is the FUSED instantiation of the template in lattice_step.cuh,
-// where its bound (bytes, 4 * (10 + K) a cell) and its design are noted.
-#include "lattice_step.cuh"
+// In place of the TPU kernel's row bands, double-buffered DMA and 8-row
+// rounding stand 2-D tiles walked by a persistent grid, an exact margin
+// (columns rounded to the copy width) and the host's shared-memory plan
+// (fast/cuda_step.py::step_plan), which refuses a (config, K, tile) that
+// does not fit.  The kernel is lattice_persistent.cuh's, where its bound
+// (bytes, 4 * (10 + K) a cell) and its design are noted; at K = 1 it runs
+// K1's schedule.
+#include "lattice_persistent.cuh"
 
 // ptrs: as die_lattice_step (lattice_step.cu), with keys [B, K, 2],
 //   flow_t [B, K], flow_f [K, W, H] (flow_env_stride 0) or [B, K, W, H],
 //   gained_o [K, B, W, H] and num_o [B, K].
-// ip: as die_lattice_step with halo the ONE-step halo, then K, tile rows,
-//   tile cols.  fp: as die_lattice_step.
+// ip, fp: as die_lattice_step, with K inner steps (ip[27]).
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int die_lattice_step_fused(const long long* ptrs, const int* ip,
                                       const float* fp, void* stream) {
-  Params p;
-  Buffers q;
-  int n_dirs, family;
-  if (!unpack(ptrs, ip, fp, &p, &q, &n_dirs, &family, true) ||
-      family != kJones)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (n_dirs) {
-    case 4: return (int)launch_fused<4, kJones>(p, q, st);
-    case 8: return (int)launch_fused<8, kJones>(p, q, st);
-    case 16: return (int)launch_fused<16, kJones>(p, q, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run_entry<true, false>(ptrs, ip, fp, stream);
 }

@@ -12,37 +12,17 @@
 // Its plain twin is die_tpu_torch/fast/env.py::fast_step_full with the rule
 // of die_tpu_torch/fast/learned.py; the two agree bit for bit.
 //
-// Form: the rule family is a template parameter of the one step kernel in
-// lattice_step.cuh (FAM), so every phase after the turn is K1's code; this
-// file instantiates the four learned families for 4, 8 and 16 directions.
-// The halo counts the rule's reach (learned_halo_radius in
-// fast/cuda_step.py), which the JAX package's halo_radius does not.
-#include "lattice_step.cuh"
+// The kernel is lattice_persistent.cuh's, the rule family a template
+// parameter (FAM), so every phase after the turn is K1's code; this file
+// instantiates the four learned families for 4, 8 and 16 directions.  The
+// halo counts the rule's reach (learned_halo_radius in fast/cuda_step.py),
+// which the JAX package's halo_radius does not.
+#include "lattice_persistent.cuh"
 
 // Arguments as die_lattice_step (lattice_step.cu); family is 1 linear,
 // 2 MLP, 3 wide, 4 ctx, and tparams [P, rows, cols] with member [B] give
 // env b the params tparams[member[b]].
 extern "C" int die_lattice_step_learned(const long long* ptrs, const int* ip,
                                         const float* fp, void* stream) {
-  Params p;
-  Buffers q;
-  int n_dirs, family;
-  if (!unpack(ptrs, ip, fp, &p, &q, &n_dirs, &family) || family < kLinear ||
-      family > kCtx)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-#define DIE_FAMILIES(N)                                     \
-  switch (family) {                                         \
-    case kLinear: return (int)launch<N, kLinear>(p, q, st); \
-    case kMlp: return (int)launch<N, kMlp>(p, q, st);       \
-    case kWide: return (int)launch<N, kWide>(p, q, st);     \
-    default: return (int)launch<N, kCtx>(p, q, st);         \
-  }
-  switch (n_dirs) {
-    case 4: DIE_FAMILIES(4)
-    case 8: DIE_FAMILIES(8)
-    case 16: DIE_FAMILIES(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DIE_FAMILIES
+  return run_entry<false, true>(ptrs, ip, fp, stream);
 }

@@ -3,25 +3,26 @@
 Counterpart of the JAX package's ``fast/pallas_step.py``.  Its kernels, in
 CUDA C++ under ``die_tpu_torch/csrc/``:
 
-- ``lattice_step`` (``lattice_step.cu``, K1): one full step of a lockstep
-  batch ``[B, W, H]`` with the Jones rule; replaces ``_multi_step_kernel``
-  at K = 1 and, given a flow field, ``_multi_step_kernel_perlin`` (B3).  A
-  persistent grid whose blocks walk the (tile, env) items and load the
-  next item's region by ``cp.async`` while they compute the current one;
-  :func:`step_plan` is its launch.
-- ``lattice_step_learned`` (``lattice_step_learned.cu``, K3): the same step
-  with a learned turn rule, each env with its own params; replaces
-  ``_multi_step_kernel_learned`` (B2) and, given a flow field,
-  ``_multi_step_kernel_perlin_learned`` (B3): the one-step form of the
-  kernel template of ``lattice_step.cuh``.
-- ``lattice_steps`` / ``learned_lattice_steps`` (``lattice_step_fused.cu``,
-  ``lattice_step_fused_learned.cu``, K4): ``K`` fused steps per launch of
-  the same template on 2-D tiles with a ``K * halo`` margin, for fields of
-  any power-of-two size; replaces the banded large-field kernel of
-  ``make_pallas_banded_step`` (B4).  :func:`choose_tile` and
-  :func:`check_kernel_supported` stand where the JAX package has
-  ``choose_bands`` and the banded constructor's refusals: a (config, K,
-  tile) whose region does not fit a block's shared memory raises.
+- The step kernel of ``lattice_persistent.cuh``, one persistent grid whose
+  blocks walk the (tile, env) items and load the next item's region (and
+  its env's rule params) by ``cp.async`` while they compute the current
+  one, ``K`` steps an item; :func:`step_plan` is the one launch plan of its
+  four entries:
+  - ``lattice_step`` (``lattice_step.cu``, K1): one step with the Jones
+    rule; replaces ``_multi_step_kernel`` at K = 1 and, given a flow field,
+    ``_multi_step_kernel_perlin`` (B3);
+  - ``lattice_step_learned`` (``lattice_step_learned.cu``, K3): one step
+    with a learned turn rule, each env with its own params; replaces
+    ``_multi_step_kernel_learned`` (B2) and, given a flow field,
+    ``_multi_step_kernel_perlin_learned`` (B3);
+  - ``lattice_steps`` / ``learned_lattice_steps``
+    (``lattice_step_fused.cu``, ``lattice_step_fused_learned.cu``, K4):
+    ``K`` fused steps per launch with a ``K * halo`` margin, for fields of
+    any power-of-two size; replaces the banded large-field kernel of
+    ``make_pallas_banded_step`` (B4).  :func:`step_plan` and
+    :func:`check_kernel_supported` stand where the JAX package has
+    ``choose_bands`` and the banded constructor's refusals: a (config, K,
+    tile) whose region does not fit a block's shared memory raises.
 - ``tree_sum_2d`` (``tree_sum_2d.cu``, K2): the order-pinned reward fold,
   streamed through registers in one launch (two where the columns split
   over blocks); :func:`fold_plans` is its launch.
@@ -123,11 +124,6 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
-SMEM_FIELDS = 10  # shared-memory fields of the region (csrc kFields)
-# Tiles the fused kernel may run, largest first.  Below 16x16 the margin's
-# redundant work passes 20 times the tile's own, so a region that fits no
-# tile of these is refused instead.
-FUSED_TILES = (32, 16)
 MAX_CELLS = 2 ** 31 - 1
 FAMILY_CODE = {"linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
 FLOW_CODE = {"none": 0, "wave": 1, "perlin": 2}
@@ -288,46 +284,16 @@ def fused_margin(dyn: FastDynamics, params_shape=None,
     return num_inner * learned_halo_radius(dyn, params_shape)
 
 
-def region_bytes(tile, margin: int, params_shape=None) -> int:
-    """Shared memory a block needs: ten fields of tile + 2 * margin cells a
-    side, plus the rule's params."""
-    par = 0 if params_shape is None else \
-        int(params_shape[-2]) * int(params_shape[-1])
-    return 4 * (SMEM_FIELDS * (tile[0] + 2 * margin) * (tile[1] + 2 * margin)
-                + par)
-
-
-def choose_tile(dyn: FastDynamics, field_size, params_shape=None,
-                num_inner: int = 1, tile=None):
-    """The fused kernel's tile for a ``(W, H)`` field: the largest of
-    ``FUSED_TILES`` (cut to the field) whose region fits a block's shared
-    memory, or ``tile`` itself when given.  Raises, with the numbers, when
-    nothing fits: the caller asks for fewer inner steps; the kernel never
-    runs fewer than it was asked for."""
-    W, H = field_size
-    margin = fused_margin(dyn, params_shape, num_inner)
-    tried = [tuple(tile)] if tile is not None else \
-        [(min(t, W), min(t, H)) for t in FUSED_TILES]
-    for tr, tc in tried:
-        if tr < 1 or tc < 1 or W % tr or H % tc:
-            raise ValueError(f"tile {tr}x{tc} does not divide the field "
-                             f"{W}x{H}")
-        if region_bytes((tr, tc), margin, params_shape) <= MAX_SMEM:
-            return tr, tc
-    need = region_bytes(tried[-1], margin, params_shape)
-    raise ValueError(
-        f"num_inner={num_inner} does not fit: margin {margin} cells "
-        f"({num_inner} x halo {learned_halo_radius(dyn, params_shape)}) "
-        f"around a {tried[-1][0]}x{tried[-1][1]} tile needs {need} bytes of "
-        f"shared memory, a block has {MAX_SMEM}; use fewer inner steps")
-
-
 class StepPlan(NamedTuple):
-    """The Jones step kernel's launch (``lattice_step.cu``): the tile, the
-    halo ``h`` and the column margin ``hc`` (``h`` rounded up to ``cw``,
-    the floats of one copy), the rounded region ``rows x cols``, the input
-    buffers, the shared fields and bytes, the threads of a block and the
-    persistent grid (one block an SM)."""
+    """A launch of the step kernel (``lattice_persistent.cuh``), the one
+    plan of all four entries: the tile, the margin ``h`` (``num_inner``
+    one-step halos) and the column margin ``hc`` (``h`` rounded up to
+    ``cw``, the floats of one copy), the rounded region ``rows x cols``,
+    the input buffers (each holding the five inputs and then, 16-byte
+    aligned, the rule's params, rows rounded up to 4 floats: ``params``
+    floats with the alignment), the shared fields and bytes, the
+    threads of a block, the persistent grid (one block an SM), the items
+    and the inner steps."""
     tile: tuple
     h: int
     hc: int
@@ -336,63 +302,155 @@ class StepPlan(NamedTuple):
     cols: int
     stages: int
     fields: int
+    params: int
     smem: int
     threads: int
     grid: int
     items: int
+    num_inner: int
+
+    def with_stages(self, stages: int) -> "StepPlan":
+        """The same plan with ``stages`` input buffers."""
+        fields = self.fields + INPUT_FIELDS * (stages - self.stages)
+        return self._replace(stages=stages, fields=fields, smem=_step_smem(
+            fields, self.rows, self.cols, stages, self.params))
+
+    def words(self) -> np.ndarray:
+        """The plan as the entry points read it (ip[20..27])."""
+        return np.array([*self.tile, self.hc, self.cw, self.threads,
+                         self.grid, self.stages, self.num_inner],
+                        dtype=np.int32)
 
 
-# Tiles the Jones step kernel may run, largest first (cut to the field).
+# Tiles the step kernel may run, largest first (cut to the field).  With
+# more than one inner step a tile has sides of 16 or more: below 16x16 the
+# margin's redundant work passes 20 times the tile's own, so a margin that
+# fits no such tile is refused instead.
 STEP_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8),
               (4, 8), (4, 4))
+FUSED_MIN_SIDE = 16
 STEP_THREADS = 512  # threads of a block (csrc kStepThreads)
+INPUT_FIELDS = 5    # chem, occ, dir, agent_food, env_food (csrc kInputs)
+WORK_FIELDS = 5     # code, acc, inf, tmp, bits (csrc kWork)
 
 
-def step_plan(dyn: FastDynamics, shape, num_sms: int,
-              aligned: bool = True) -> StepPlan:
-    """The launch of the Jones step kernel for a ``[B, W, H]`` state on a
-    card of ``num_sms`` SMs: the first of ``STEP_TILES`` whose region fits
-    shared memory, with two buffers of the five inputs (the next item loads
-    while the block computes this one) where they fit, else one, and five
-    work fields (a sixth with reproduction); a grid of one block an SM,
-    each walking (tile, env) items ``blockIdx + n * grid``.  On this card a
-    larger tile with one buffer ran faster than a smaller one with two,
-    and a block of fewer threads with more registers each faster than
-    more threads (``PERF.md``).
-    Columns are copied 16 bytes at a time (``cw`` = 4) unless ``H`` < 4 or
-    the state is not 16-byte aligned (``aligned``)."""
+def _step_smem(fields: int, rows: int, cols: int, stages: int,
+               params: int) -> int:
+    return 4 * (fields * rows * cols + stages * params)
+
+
+def _stage_params(pr: int, rows: int, cols: int) -> int:
+    """Floats a buffer holds beyond its inputs: ``pr`` floats of params
+    after the inputs rounded up to 4 floats (csrc Plan po)."""
+    return pr + (-INPUT_FIELDS * rows * cols) % 4 if pr else 0
+
+
+def step_plan(dyn: FastDynamics, shape, num_sms: int, params_shape=None,
+              num_inner: int = 1, aligned: bool = True, tile=None,
+              part: str = "whole") -> StepPlan:
+    """The launch of the step kernel for a ``[B, W, H]`` state, the rule of
+    ``params_shape`` (None: Jones) and ``num_inner`` steps an item, on a
+    card of ``num_sms`` SMs.  The first of ``STEP_TILES`` (or ``tile``
+    itself) whose region fits shared memory: with 16-byte copies (``cw`` =
+    4, the columns rounded out to 4 floats) where ``H`` >= 4, the state is
+    16-byte aligned (``aligned``) and the rounded region fits, else 4-byte
+    copies at the exact margin; with two buffers of the inputs and the
+    params (the next item loads while the block computes this one) where
+    they fit, else one (the next item then lands in it while the last pass
+    runs its second diffusion axis); five work fields.  A grid of one block
+    an SM, each walking (tile, env) items ``blockIdx + n * grid``.  On this
+    card a
+    larger tile with one buffer ran faster than a smaller one with two, and
+    a block of fewer threads with more registers each faster than more
+    threads (``PERF.md``).  Raises, with the numbers, when nothing fits:
+    the caller asks for fewer inner steps; the kernel never runs fewer than
+    it was asked for.
+
+    ``part`` (one step of a learned rule, :func:`launch_plans`): "turn",
+    the turn pass alone (the halo is the rule's reach); "turned", the step
+    after it (the halo less the reach, no params)."""
     B, W, H = shape
-    h = learned_halo_radius(dyn)
-    cw = 4 if H >= 4 and aligned else 1
-    hc = -(-h // cw) * cw
-    fit = None
-    for tr, tc in dict.fromkeys((min(r, W), min(c, H))
-                                for r, c in STEP_TILES):
-        rows, cols = tr + 2 * h, tc + 2 * hc
-        for stages in (2, 1):
-            fields = 5 * stages + 5 + int(dyn.agents_born)
-            smem = 4 * fields * rows * cols
-            if smem <= MAX_SMEM:
-                fit = stages, fields, smem
-                break
-        if fit:
-            break
+    r = learned_halo_radius(dyn, params_shape)
+    if part != "whole":
+        if num_inner != 1 or params_shape is None:
+            raise ValueError("a turn pass is one step of a learned rule")
+        reach = turn_reach(dyn, params_shape)
+        r = reach if part == "turn" else r - reach
+    h = num_inner * r
+    # the params' rows, 4 floats a load apart (a multiple of 4), after the
+    # inputs rounded up to 4 floats (csrc Plan po, cs)
+    pr = 0 if params_shape is None or part == "turned" else \
+        int(params_shape[-2]) * -(-int(params_shape[-1]) // 4) * 4
+    if tile is not None:
+        tr, tc = tile
+        if tr < 1 or tc < 1 or W % tr or H % tc:
+            raise ValueError(f"tile {tr}x{tc} does not divide the field "
+                             f"{W}x{H}")
+        tiles = [(tr, tc)]
     else:
-        raise ValueError(f"the step's region does not fit shared memory at "
-                         f"halo {h}: {smem} bytes at tile {tr}x{tc}")
-    stages, fields, smem = fit
-    items = B * (W // tr) * (H // tc)
-    return StepPlan(tile=(tr, tc), h=h, hc=hc, cw=cw, rows=rows, cols=cols,
-                    stages=stages, fields=fields, smem=smem,
-                    threads=STEP_THREADS, grid=min(items, num_sms),
-                    items=items)
+        tiles = dict.fromkeys((min(r_, W), min(c_, H)) for r_, c_ in
+                              STEP_TILES if num_inner == 1
+                              or min(r_, c_) >= FUSED_MIN_SIDE)
+    widths = (4, 1) if H >= 4 and aligned else (1,)
+    for tr, tc in tiles:
+        for cw in widths:
+            if tc % cw:
+                continue
+            hc = -(-h // cw) * cw
+            rows, cols = tr + 2 * h, tc + 2 * hc
+            par = _stage_params(pr, rows, cols)
+            for stages in (2, 1):
+                fields = INPUT_FIELDS * stages + WORK_FIELDS
+                smem = _step_smem(fields, rows, cols, stages, par)
+                if smem <= MAX_SMEM:
+                    items = B * (W // tr) * (H // tc)
+                    return StepPlan(
+                        tile=(tr, tc), h=h, hc=hc, cw=cw, rows=rows,
+                        cols=cols, stages=stages, fields=fields, params=par,
+                        smem=smem, threads=STEP_THREADS,
+                        grid=min(items, num_sms), items=items,
+                        num_inner=num_inner)
+    rows, cols = tr + 2 * h, tc + 2 * h
+    need = _step_smem(INPUT_FIELDS + WORK_FIELDS, rows, cols, 1,
+                      _stage_params(pr, rows, cols))
+    raise ValueError(
+        f"num_inner={num_inner} does not fit: margin {h} cells "
+        f"({num_inner} x halo {r}) around a {tr}x{tc} tile needs {need} "
+        f"bytes of shared memory, a block has {MAX_SMEM}; use fewer inner "
+        f"steps")
+
+
+# Learned rules whose one-step launch computes the turned heading in a pass
+# of its own (PERF.md): their reach is twice the others', so the turn
+# phase's MLP ran on 2.4 times the tile's cells, at a halo that left room
+# for a 32x32 tile only.
+TURN_PASS_FAMILIES = ("wide", "ctx")
+
+
+def launch_plans(dyn: FastDynamics, shape, num_sms: int, params_shape=None,
+                 num_inner: int = 1, aligned: bool = True, tile=None,
+                 fused: bool = False):
+    """(plan, turn plan or None): what one call of an entry launches.  The
+    one-step learned entry of a rule of ``TURN_PASS_FAMILIES`` launches a
+    turn pass (its plan second), then the step after it (first); every
+    other call one kernel under :func:`step_plan`'s plan."""
+    if not fused and num_inner == 1 and tile is None and \
+            params_shape is not None and \
+            rule_family(params_shape).name in TURN_PASS_FAMILIES:
+        return (step_plan(dyn, shape, num_sms, params_shape, 1, aligned,
+                          part="turned"),
+                step_plan(dyn, shape, num_sms, params_shape, 1, aligned,
+                          part="turn"))
+    return step_plan(dyn, shape, num_sms, params_shape, num_inner, aligned,
+                     tile=tile), None
 
 
 def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None,
                            num_inner=None, tile=None):
     """Raise unless the kernels take this config, ``[B, W, H]`` shape and
     (for the learned kernel) params shape.  With ``num_inner`` the check is
-    the fused kernel's and returns its tile (:func:`choose_tile`).
+    the fused form's and returns its plan (:func:`step_plan`, on a card of
+    one SM: the grid aside, the plan does not depend on the card).
 
     The kernels' offsets are 64-bit, but a state above 2**31 - 1 cells
     (with the fused kernel's ``num_inner`` gain fields: ``num_inner * B * W
@@ -423,7 +481,7 @@ def check_kernel_supported(dyn: FastDynamics, shape, params_shape=None,
         return None
     if num_inner < 1:
         raise ValueError(f"num_inner must be >= 1, got {num_inner}")
-    return choose_tile(dyn, (W, H), params_shape, num_inner, tile)
+    return step_plan(dyn, shape, 1, params_shape, num_inner, tile=tile)
 
 
 def _require_cuda(t: torch.Tensor, dtype, shape, what: str):
@@ -483,73 +541,99 @@ def _plain_step(dyn, state, keys_t, params, flow_field):
     return new_state, num, gained
 
 
-def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
-          params, flow_field):
-    if state.occ.device.type == "cpu":
-        return _plain_step(dyn, state, keys_t, params, flow_field)
-    learned = params is not None
-    check_kernel_supported(dyn, tuple(state.occ.shape),
-                           None if not learned else tuple(params.shape))
+def _aligned(state: FastEnvState) -> bool:
+    """Every state field 16-byte aligned (16-byte copies)."""
+    return all(getattr(state, f).data_ptr() % 16 == 0 for f in
+               ("occ", "dir", "agent_food", "env_food", "chem"))
+
+
+def _launch(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
+            params, flow, plan: StepPlan, fused: bool, turn=None):
+    """One call of a step entry under ``plan`` (and, for the learned
+    one-step entry, a turn pass under ``turn``, :func:`launch_plans`):
+    ``keys`` int64 ``[B, K, 2]`` (fused) or ``[B, 2]``; ``flow`` (perlin):
+    the K steps' fields, ``[K, W, H]`` / ``[B, K, W, H]`` (fused) or ``[W,
+    H]`` / ``[B, W, H]``, computed per env from ``state.flow_step`` when
+    None.  Returns (state, num i32 ``[B, K]``, gained f32 ``[K, B, W, H]``)
+    and counts the call under the entry's name (``*_perlin`` with a flow
+    field)."""
     B, W, H = state.occ.shape
+    K = plan.num_inner
     dev = state.occ.device
+    learned = params is not None
     for name in ("occ", "dir", "agent_food", "env_food", "chem"):
         _require_cuda(getattr(state, name), torch.float32, (B, W, H), name)
     _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
-    _require_cuda(keys_t, torch.int64, (B, 2), "keys")
+    _require_cuda(keys, torch.int64, (B, K, 2) if fused else (B, 2), "keys")
     params, member = _member_params(params, B, dev)
     build()
-    outs = [torch.empty_like(state.occ) for _ in range(6)]
-    num = torch.zeros(B, dtype=torch.int32, device=dev)
-    plan = None if learned else step_plan(
-        dyn, (B, W, H), torch.cuda.get_device_properties(dev)
-        .multi_processor_count,
-        aligned=all(getattr(state, f).data_ptr() % 16 == 0 for f in
-                    ("occ", "dir", "agent_food", "env_food", "chem")))
+    outs = [torch.empty_like(state.occ) for _ in range(5)]
+    gained = torch.empty((K, B, W, H), dtype=torch.float32, device=dev)
+    num = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    turned = None if turn is None else torch.empty_like(state.occ)
     flow_step = state.flow_step
     flow_t = None
     env_stride = 0
     if dyn.flow.kind == "wave":
-        flow_t = flow_time(dyn.flow, flow_step).contiguous()
+        ks = torch.arange(K, dtype=torch.int32, device=dev)
+        flow_t = flow_time(dyn.flow, flow_step[:, None] + ks).contiguous()
     elif dyn.flow.kind == "perlin":
-        if flow_field is None:
-            flow_field = flow_field_for(dyn, (W, H), flow_step)
-        if flow_field.dim() == 3:
+        if flow is None:
+            flow = flow_stack_for(dyn, (W, H), flow_step, K) if fused \
+                else flow_field_for(dyn, (W, H), flow_step)
+        shared = (K, W, H) if fused else (W, H)
+        if flow.dim() == len(shared) + 1:
             env_stride = 1
-            _require_cuda(flow_field, torch.float32, (B, W, H), "flow_field")
+            _require_cuda(flow, torch.float32, (B, *shared), "flow field")
         else:
-            _require_cuda(flow_field, torch.float32, (W, H), "flow_field")
+            _require_cuda(flow, torch.float32, shared, "flow field")
     if dyn.flow.kind != "none":
-        flow_step = flow_step + 1
+        flow_step = flow_step + K
     ptrs = np.array([state.occ.data_ptr(), state.dir.data_ptr(),
                      state.agent_food.data_ptr(), state.env_food.data_ptr(),
-                     state.chem.data_ptr(), keys_t.data_ptr(),
+                     state.chem.data_ptr(), keys.data_ptr(),
                      0 if flow_t is None else flow_t.data_ptr(),
-                     0 if dyn.flow.kind != "perlin"
-                     else flow_field.data_ptr(),
+                     0 if dyn.flow.kind != "perlin" else flow.data_ptr(),
                      0 if member is None else params.data_ptr(),
                      0 if member is None else member.data_ptr(),
-                     *(o.data_ptr() for o in outs), num.data_ptr()],
+                     *(o.data_ptr() for o in outs), gained.data_ptr(),
+                     num.data_ptr(),
+                     0 if turned is None else turned.data_ptr()],
                     dtype=np.int64)
     ip, fp = _params(dyn, B, W, H, env_stride,
                      None if not learned else tuple(params.shape))
-    if plan is not None:
-        ip = np.concatenate([ip, np.array(
-            [*plan.tile, plan.hc, plan.cw, plan.threads, plan.grid,
-             plan.stages],
-            dtype=np.int32)])
-    name = "lattice_step_learned" if learned else "lattice_step"
-    fn = getattr(_libs[name], "die_" + name)
-    rc = fn(ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    check_launch(rc, name)
+    ip = np.concatenate([ip, plan.words(), np.zeros(8, np.int32)
+                         if turn is None else turn.words()])
+    lib = ("lattice_step_fused" if fused else "lattice_step") + \
+        ("_learned" if learned else "")
+    rc = getattr(_libs[lib], "die_" + lib)(
+        ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
+    check_launch(rc, lib)
+    name = ("lattice_steps_fused" if fused else "lattice_step") + \
+        ("_learned" if learned else "")
     if dyn.flow.kind == "perlin":
         launches[name + "_perlin"] += 1
     else:
         launches[name + ("_" + rule_family(params.shape).name if learned
                          else "")] += 1
-    occ, dirf, afood, efood, chem, gained = outs
+    occ, dirf, afood, efood, chem = outs
     new_state = FastEnvState(occ=occ, dir=dirf, agent_food=afood,
                              env_food=efood, chem=chem, flow_step=flow_step)
     return new_state, num, gained
+
+
+def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
+          params, flow_field):
+    if state.occ.device.type == "cpu":
+        return _plain_step(dyn, state, keys_t, params, flow_field)
+    pshape = None if params is None else tuple(params.shape)
+    shape = tuple(state.occ.shape)
+    check_kernel_supported(dyn, shape, pshape)
+    plan, turn = launch_plans(dyn, shape, _num_sms(state.occ.device), pshape,
+                              1, aligned=_aligned(state))
+    new_state, num, gained = _launch(dyn, state, keys_t, params, flow_field,
+                                     plan, fused=False, turn=turn)
+    return new_state, num.view(shape[0]), gained.view(shape)
 
 
 def lattice_step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
@@ -576,68 +660,15 @@ def _steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
     if keys.dim() != 3 or keys.shape[-1] != 2:
         raise ValueError(f"keys must be [B, K, 2], got {tuple(keys.shape)}")
     K = int(keys.shape[1])
-    learned = params is not None
-    pshape = None if not learned else tuple(params.shape)
-    tile = check_kernel_supported(dyn, tuple(state.occ.shape), pshape,
-                                  num_inner=K, tile=tile)
+    pshape = None if params is None else tuple(params.shape)
+    shape = tuple(state.occ.shape)
+    plan = check_kernel_supported(dyn, shape, pshape, num_inner=K, tile=tile)
     if state.occ.device.type == "cpu":
-        return tiled_steps_plain(dyn, state, keys, tile,
-                                 fused_margin(dyn, pshape, K), params=params,
-                                 flow_stack=flow_stack)
-    B, W, H = state.occ.shape
-    dev = state.occ.device
-    for name in ("occ", "dir", "agent_food", "env_food", "chem"):
-        _require_cuda(getattr(state, name), torch.float32, (B, W, H), name)
-    _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
-    _require_cuda(keys, torch.int64, (B, K, 2), "keys")
-    params, member = _member_params(params, B, dev)
-    build()
-    outs = [torch.empty_like(state.occ) for _ in range(5)]
-    gained = torch.empty((K, B, W, H), dtype=torch.float32, device=dev)
-    num = torch.zeros((B, K), dtype=torch.int32, device=dev)
-    flow_step = state.flow_step
-    flow_t = None
-    env_stride = 0
-    if dyn.flow.kind == "wave":
-        ks = torch.arange(K, dtype=torch.int32, device=dev)
-        flow_t = flow_time(dyn.flow, flow_step[:, None] + ks).contiguous()
-    elif dyn.flow.kind == "perlin":
-        if flow_stack is None:
-            flow_stack = flow_stack_for(dyn, (W, H), flow_step, K)
-        if flow_stack.dim() == 4:
-            env_stride = 1
-            _require_cuda(flow_stack, torch.float32, (B, K, W, H),
-                          "flow_stack")
-        else:
-            _require_cuda(flow_stack, torch.float32, (K, W, H), "flow_stack")
-    if dyn.flow.kind != "none":
-        flow_step = flow_step + K
-    ptrs = np.array([state.occ.data_ptr(), state.dir.data_ptr(),
-                     state.agent_food.data_ptr(), state.env_food.data_ptr(),
-                     state.chem.data_ptr(), keys.data_ptr(),
-                     0 if flow_t is None else flow_t.data_ptr(),
-                     0 if dyn.flow.kind != "perlin"
-                     else flow_stack.data_ptr(),
-                     0 if member is None else params.data_ptr(),
-                     0 if member is None else member.data_ptr(),
-                     *(o.data_ptr() for o in outs), gained.data_ptr(),
-                     num.data_ptr()], dtype=np.int64)
-    ip, fp = _params(dyn, B, W, H, env_stride, pshape)
-    ip = np.concatenate([ip, np.array([K, *tile], dtype=np.int32)])
-    lib = "lattice_step_fused" + ("_learned" if learned else "")
-    rc = getattr(_libs[lib], "die_" + lib)(
-        ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    check_launch(rc, lib)
-    name = "lattice_steps_fused" + ("_learned" if learned else "")
-    if dyn.flow.kind == "perlin":
-        launches[name + "_perlin"] += 1
-    else:
-        launches[name + ("_" + rule_family(pshape).name if learned
-                         else "")] += 1
-    occ, dirf, afood, efood, chem = outs
-    new_state = FastEnvState(occ=occ, dir=dirf, agent_food=afood,
-                             env_food=efood, chem=chem, flow_step=flow_step)
-    return new_state, num, gained
+        return tiled_steps_plain(dyn, state, keys, plan.tile, plan.h,
+                                 params=params, flow_stack=flow_stack)
+    plan, _ = launch_plans(dyn, shape, _num_sms(state.occ.device), pshape,
+                           K, aligned=_aligned(state), tile=tile, fused=True)
+    return _launch(dyn, state, keys, params, flow_stack, plan, fused=True)
 
 
 def lattice_steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
@@ -648,7 +679,7 @@ def lattice_steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
     ``fold_in(rollout_key_b, t0 + k)``.  ``flow_stack`` (perlin flow): the
     fields of the ``K`` steps, ``[K, W, H]`` shared or ``[B, K, W, H]`` per
     env; computed per env from ``state.flow_step`` when not given.
-    ``tile``: (rows, cols) to run instead of :func:`choose_tile`'s.  A
+    ``tile``: (rows, cols) to run instead of :func:`step_plan`'s.  A
     (config, K, tile) that does not fit shared memory raises."""
     return _steps(dyn, state, keys, None, flow_stack, tile)
 

@@ -10,13 +10,14 @@ kernel variants), for one NVIDIA GPU.  For each size ``WxHxB`` (default
 512x512x32 and 1024x1024x8, ``FastDynamics()``, T = 256, cut to a multiple
 of ``num_inner``) it times, with CUDA events after a warm-up:
 
-- ``one_step``: ``kernel_rollout``, one launch of the one-step kernel (K1)
+- ``one_step``: ``kernel_rollout``, one launch of the one-step entry (K1)
   and one reward fold a step, as the baseline;
 - ``fused``: for each ``num_inner`` of ``--inner`` and each tile of
   ``--tiles``, the kernel alone (``lattice_steps``, 10 launches) beside the
-  reward fold alone; for the tile ``auto`` (the wrapper's choice, the only
-  one the rollouts use) also ``banded_rollout_batch``.  A (K, tile) that
-  does not fit shared memory is reported as such.
+  reward fold alone, with the plan (``cuda_step.step_plan``); for the tile
+  ``auto`` (the plan's choice, the only one the rollouts use) also
+  ``banded_rollout_batch``.  A (K, tile) that does not fit shared memory is
+  reported as such.
 
 Variants run in the order A..Z then Z..A so that drift shows, and each is
 held bitwise against the first at its ``num_inner``.  Prints one JSON line
@@ -103,7 +104,9 @@ def main():
         for K, tile in cases + cases[::-1]:
             key = (K, tile)
             try:
-                used = cuda_step.choose_tile(dyn, (W, H), None, K, tile)
+                plan = cuda_step.step_plan(
+                    dyn, (B, W, H), torch.cuda.get_device_properties(
+                        dev).multi_processor_count, None, K, tile=tile)
             except ValueError as e:
                 rows[key] = {"refused": str(e)}
                 continue
@@ -118,7 +121,7 @@ def main():
                                      f"K={K}")
             gained = out[2].reshape(K * B, W, H)
             row = rows.setdefault(key, {
-                "tile": list(used), "steps": T - T % K, "kernel_ms": [],
+                "plan": plan._asdict(), "steps": T - T % K, "kernel_ms": [],
                 "fold_ms": [], "rollout_ms": [], "env_steps_per_s": []})
             row["kernel_ms"].append(events_ms(
                 lambda: cuda_step.lattice_steps(dyn, state, chunk,

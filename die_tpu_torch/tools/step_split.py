@@ -1,28 +1,42 @@
-"""Take the Jones step kernel's time apart on the card.
+"""Take the step kernels' time apart on the card.
 
     python3 die_tpu_torch/tools/step_split.py [--envs 1024] [--forms 32x32]
+        [--targets default tuned16 k3_wide16 k4_jones_k1 ...]
     python3 die_tpu_torch/tools/step_split.py --tree PARENT   # another tree
 
-Builds two cut copies of the step kernel's source into
+Builds cut copies of the step kernel's source into
 ``build/die_tpu_torch/split/`` (the source itself has no switch for them):
-(a) the region loads and the tile stores alone, every phase cut; (b) (a)
-plus phases 1-3 (sense and turn, move, update), the rest cut.  Each stores
-the tile's fields as they stand after what it ran.  Times (a), (b) and the
-tree's own build (c), the whole step, at 256x256 for ``FastDynamics()``
-and ``tuned_dynamics(16)`` (CUDA events, 20 launches after 3, in the order
-a b c then c b a, so that drift shows), and prints one JSON line per config
-with the registers and spills ptxas reports for each build.
+(a) the region loads and the tile stores alone, every phase cut; (a1) (a)
+plus phase 1 (sense and turn); (b) (a) plus phases 1-3 (sense and turn,
+move, update), the rest cut.  Each stores the tile's fields as they stand
+after what it ran (in the fused form every inner pass writes its gain
+field, the last one the state).  Times (a), (a1), (b) and the tree's own
+build (c), the whole kernel, for each target (CUDA events, 20 launches
+after 3, in the order a a1 b c then c b a1 a, so that drift shows), and
+prints one JSON line per target with the registers and spills ptxas
+reports for the kernel the target runs in each build.  Targets: the Jones
+step (K1) at B x 256x256 for ``FastDynamics()`` and ``tuned_dynamics(16)``;
+the learned step (K3) at 1024 x 64x128 under ``eval_protocol_dynamics(16)``
+for each family (the committed 16-direction artifacts); the fused step (K4,
+Jones) at 32 x 512x512 for ``num_inner`` 1 and 2.  Where a target's call
+launches a turn pass and the step after it (K3 wide and ctx), both are cut
+alike and the parts are the two launches' sums.
 
-``--forms`` also times the whole step under other launch plans, each held
-bitwise to the tree's own: ``ROWSxCOLS`` puts that tile first in
+The cut points are phase headings of the source (keep them).  A tree's
+layout is found by its files (``LAYOUTS``): one persistent kernel of every
+step form in ``lattice_persistent.cuh``, or the earlier one, K1's kernel in
+``lattice_step.cu`` beside the one-block-a-tile template of K3 and K4 in
+``lattice_step.cuh``.
+
+``--forms`` also times K1 under other launch plans, each held bitwise to
+the tree's own: ``ROWSxCOLS`` puts that tile first in
 ``cuda_step.STEP_TILES``, ``:s1`` or ``:s2`` forces one or two input
 buffers (where they fit), ``:tN`` runs blocks of N threads (a copy built
 with ``kStepThreads`` = N, its launch bounds with it); e.g. ``32x32:s2``,
-``32x64:s1``, ``32x64:t1024``.
+``32x64:s1``, ``32x64:t1024``.  (Trees of the persistent layout only.)
 
 ``--tree`` takes the die_tpu_torch under another source tree (a parent
-commit unpacked beside this one) whose ``lattice_step.cu`` holds the same
-phase headings.
+commit unpacked beside this one).
 """
 from __future__ import annotations
 
@@ -34,11 +48,50 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# the tile's fields as they stand, in place of the phases cut
-STORE = """  int alive_count = 0;
+
+class Layout(NamedTuple):
+    """Where a tree's step kernel is cut: ``file`` (under ``csrc/``, holding
+    ``marker``), the heading each cut build starts its cut at, the heading
+    the cut ends at, the stores put in place of what is cut, the libraries
+    (``cuda_step.SOURCES`` keys) built from it, and the ptxas name of the
+    kernel a (lattice, family, fused) target runs (a call with a turn pass
+    runs that pass, ``k_step<n,fam,1>``, and the step after it,
+    ``k_step<n,0,2>``)."""
+    file: str
+    marker: str
+    cuts: dict
+    end: str
+    store: str
+    libs: tuple
+    kernel: str
+
+
+# The persistent kernel of every step form: inside a pass (step_pass), the
+# tile's fields as they stand (the state in the last pass), each pass's
+# gain field and count, and the one-buffer plan's load of the next item.
+PERSISTENT_STORE = """  int alive_count = 0;
+  for_rect(h, h + p.tr, h, h + p.tc, [&](int u, int v) {
+    const int e = E(u, v);
+    const long long cell = ((long long)grow(u) << p.lh) + gcol(v);
+    if (last) {
+      q.occ_o[base + cell] = R.occ[e];
+      q.dir_o[base + cell] = R.dir[e];
+      q.afood_o[base + cell] = R.af[e];
+      q.efood_o[base + cell] = R.ef[e];
+      q.chem_o[base + cell] = R.chem[e];
+    }
+    q.gained_o[gained_base + cell] = 0.0f;
+    alive_count += R.occ[e] > 0.0f ? 1 : 0;
+  });
+  __syncthreads();
+  if (prefetch >= 0) load_region(p, q, g, prefetch, in);
+"""
+# K1's own kernel in the earlier layout (one step an item)
+K1_STORE = """  int alive_count = 0;
   for_rect(h, h + p.tr, h, h + p.tc, [&](int u, int v) {
     const int e = E(u, v);
     const long long gl = base + ((long long)grow(u) << p.lh) + gcol(v);
@@ -51,19 +104,130 @@ STORE = """  int alive_count = 0;
     alive_count += R.occ[e] > 0.0f ? 1 : 0;
   });
 """
-END = "  // ---- count:"
-CUTS = {"a_loads_stores": "  // ---- 1. sense + turn",
-        "b_phases_1_3": "  // ---- 2b. reproduction"}
+# the one-block-a-tile template of the earlier layout (K3, K4)
+TEMPLATE_STORE = """    int alive_count = 0;
+    for_rect(p.halo, p.halo + p.tr, p.halo, p.halo + p.tc, [&](int u, int v) {
+      const int e = u * RH + v;
+      const long long cell =
+          ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
+      if (last) {
+        q.occ_o[base + cell] = R.occ[e];
+        q.dir_o[base + cell] = R.dir[e];
+        q.afood_o[base + cell] = R.af[e];
+        q.efood_o[base + cell] = R.ef[e];
+        q.chem_o[base + cell] = R.chem[e];
+      }
+      q.gained_o[(FUSED ? ((long long)k * p.B + t.b) << (p.lw + p.lh)
+                        : base) + cell] = 0.0f;
+      alive_count += R.occ[e] > 0.0f ? 1 : 0;
+    });
+"""
+ALL_STEP_LIBS = ("lattice_step", "lattice_step_learned", "lattice_step_fused",
+                 "lattice_step_fused_learned")
+LAYOUTS = (
+    Layout("lattice_persistent.cuh", "step_pass",
+           {"a_loads_stores": "  // ---- 1. sense + turn",
+            "a1_turn": "  // ---- 2. move",
+            "b_phases_1_3": "  // ---- 2b. reproduction"},
+           "  // ---- count:", PERSISTENT_STORE, ALL_STEP_LIBS,
+           "k_step<{n},{fam},0>"),
+    Layout("lattice_step.cu", "k_jones_step",
+           {"a_loads_stores": "  // ---- 1. sense + turn",
+            "a1_turn": "  // ---- 2. move",
+            "b_phases_1_3": "  // ---- 2b. reproduction"},
+           "  // ---- count:", K1_STORE, ("lattice_step",),
+           "k_jones_step<{n}>"),
+    Layout("lattice_step.cuh", "k_lattice_step",
+           {"a_loads_stores": "    // ---- 1. sense + turn",
+            "a1_turn": "    // ---- 2. move",
+            "b_phases_1_3": "    // the margin this step's results"},
+           "    // exact agent count of this step", TEMPLATE_STORE,
+           ("lattice_step_learned", "lattice_step_fused"),
+           "k_lattice_step<{n},{fam},{fused}>"),
+)
+CUT_NAMES = ("a_loads_stores", "a1_turn", "b_phases_1_3")
+FAMILY = {None: 0, "linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
+
+
+class Target(NamedTuple):
+    """A kernel run the split times: the library (``cuda_step.SOURCES``
+    key), the config's name, the shape ``[B, W, H]`` (B None: ``--envs``),
+    the rule's artifact (None: Jones) and the inner steps (None: one-step
+    wrapper)."""
+    lib: str
+    config: str
+    shape: tuple
+    artifact: str | None
+    num_inner: int | None
+
+
+TARGETS = {
+    "default": Target("lattice_step", "FastDynamics()", (None, 256, 256),
+                      None, None),
+    "tuned16": Target("lattice_step", "tuned_dynamics(16)", (None, 256, 256),
+                      None, None),
+    **{f"k3_{fam}16": Target("lattice_step_learned",
+                             "eval_protocol_dynamics(16)", (1024, 64, 128),
+                             art, None)
+       for fam, art in (("linear", "lattice16_linear"),
+                        ("mlp", "lattice16_mlp"),
+                        ("wide", "lattice16_mlp_wide"),
+                        ("ctx", "lattice16_mlp_ctx"))},
+    "k4_jones_k1": Target("lattice_step_fused", "FastDynamics()",
+                          (32, 512, 512), None, 1),
+    "k4_jones_k2": Target("lattice_step_fused", "FastDynamics()",
+                          (32, 512, 512), None, 2),
+}
+
+
+def tree_layouts(csrc: Path):
+    """The layouts whose file (holding its marker) the tree has, each lib
+    under the first that builds it."""
+    found, libs = [], set()
+    for lay in LAYOUTS:
+        path = csrc / lay.file
+        if path.exists() and lay.marker in path.read_text():
+            mine = tuple(x for x in lay.libs if x not in libs)
+            if mine:
+                found.append(lay._replace(libs=mine))
+                libs.update(mine)
+    if not found:
+        raise RuntimeError(f"no known step kernel layout under {csrc}")
+    return found
+
+
+def cut_source(src: str, lay: Layout, cut: str) -> str:
+    """``src`` with the phases from ``lay.cuts[cut]`` to ``lay.end`` replaced
+    by ``lay.store``, at every place the layout's kernel holds them."""
+    start = lay.cuts[cut]
+    if src.count(start) != 1 or src.count(lay.end) != 1:
+        raise RuntimeError(f"{lay.file}: the headings {start!r} and "
+                           f"{lay.end!r} must stand once each")
+    i, j = src.index(start), src.index(lay.end)
+    return src[:i] + lay.store + src[j:]
+
+
+def _demangle(mangled: str) -> str:
+    """``_ZN..k_stepILi8ELi3EEEv...`` -> ``k_step<8,3>`` (bools as 0/1)."""
+    m = re.search(r"\d+(k_\w+?)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def ptxas_usage(log: str) -> dict:
-    """Registers and spill bytes of the Jones step kernels in a build's
-    ptxas output, by lattice (k_jones_step<N>)."""
+    """Registers and spill bytes of each kernel in a build's ptxas output,
+    by its name with the template arguments (``k_step<8,0>``)."""
     out = {}
-    for n, body in re.findall(r"k_jones_stepILi(\d+)EEE.*?\n(.*?)(?=ptxas "
-                              r"info\s+: Compiling|\Z)", log, re.S):
+    for name, body in re.findall(r"Compiling entry function '(\w+)'.*?\n"
+                                 r"(.*?)(?=ptxas info\s+: Compiling|\Z)",
+                                 log, re.S):
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores", body)
-        out[int(n)] = {"registers": int(regs.group(1)) if regs else None,
-                       "spill_bytes": int(spill.group(1)) if spill else None}
+        out[_demangle(name)] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": int(spill.group(1)) if spill else None}
     return out
 
 
@@ -81,54 +245,55 @@ def parse_form(spec: str):
     return tile, opts.get("s"), opts.get("t")
 
 
-def build_cuts(threads=()):
-    """Builds the cut copies, and copies whose blocks run each of
-    ``threads`` threads, in parallel; returns ({name: entry}, {name: ptxas
-    usage}), the usage of the uncut kernel as ``c_whole``."""
+def build_cuts(libs, threads=()):
+    """Builds the cut copies of every library of ``libs``, an uncut copy
+    (for its ptxas usage: the package build may have been cached, without
+    its log), and copies whose blocks run each of ``threads`` threads, all
+    in parallel; returns ({(build, lib): entry}, {(build, lib): ptxas
+    usage})."""
     from die_tpu_torch.fast import cuda_step
 
-    procs = {}
-    for name, start in CUTS.items():
+    layouts = tree_layouts(cuda_step.CSRC)
+    builds = {}
+    for name in (*CUT_NAMES, "c_whole"):
         d = cuda_step.BUILD_DIR / "split" / name
-        if d.exists():
-            shutil.rmtree(d)
+        shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(cuda_step.CSRC, d)
-        src = (d / "lattice_step.cu").read_text()
-        i, j = src.index(start), src.index(END)
-        (d / "lattice_step.cu").write_text(src[:i] + STORE + src[j:])
-        procs[name] = d
-    # and an uncut copy, for its ptxas usage (the package build may have
-    # been cached, without its log)
-    whole = cuda_step.BUILD_DIR / "split" / "c_whole"
-    shutil.copytree(cuda_step.CSRC, whole)
-    procs["c_whole"] = whole
+        if name != "c_whole":
+            for lay in layouts:
+                f = d / lay.file
+                f.write_text(cut_source(f.read_text(), lay, name))
+        builds[name] = d
     for n in threads:
         d = cuda_step.BUILD_DIR / "split" / f"t{n}"
+        shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(cuda_step.CSRC, d)
-        src = (d / "lattice_step.cu").read_text()
+        f = d / "lattice_persistent.cuh"
+        src = f.read_text()
         i = src.index(THREADS_LINE) + len(THREADS_LINE)
-        (d / "lattice_step.cu").write_text(
-            src[:i] + f"{n};" + src[src.index("\n", i):])
-        procs[f"t{n}"] = d
-    for name, d in procs.items():
-        lib = d / "lattice_step.so"
-        procs[name] = (subprocess.Popen(
-            [cuda_step._nvcc(), *cuda_step.NVCC_FLAGS, "-o", str(lib),
-             str(d / "lattice_step.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
+        f.write_text(src[:i] + f"{n};" + src[src.index("\n", i):])
+        builds[f"t{n}"] = d
+    procs = {}
+    for name, d in builds.items():
+        for lib in (libs if not name.startswith("t") else ("lattice_step",)):
+            so = d / f"{lib}.so"
+            procs[(name, lib)] = (subprocess.Popen(
+                [cuda_step._nvcc(), *cuda_step.NVCC_FLAGS, "-o", str(so),
+                 str(d / cuda_step.SOURCES[lib])], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), so)
     fns, usage = {}, {}
-    for name, (proc, lib) in procs.items():
+    for key, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out}")
-        usage[name] = ptxas_usage(out)
-        if name == "c_whole":
+            raise RuntimeError(f"{key}: nvcc failed\n{out}")
+        usage[key] = ptxas_usage(out)
+        if key[0] == "c_whole":
             continue
-        fn = ctypes.CDLL(str(lib)).die_lattice_step
+        fn = getattr(ctypes.CDLL(str(so)), "die_" + key[1])
         fn.argtypes = [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns, usage
+        fns[key] = fn
+    return fns, usage, layouts
 
 
 def events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -149,7 +314,7 @@ def events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def time_form(cuda_step, lib, fn, dyn, state, k0, ref, tile, stages,
               threads):
-    """ms of the whole step under a forced plan (None where the forced
+    """ms of the whole Jones step under a forced plan (None where the forced
     buffers do not fit); raises if it differs from ``ref``."""
     plan_of = cuda_step.step_plan
 
@@ -161,9 +326,7 @@ def time_form(cuda_step, lib, fn, dyn, state, k0, ref, tile, stages,
         finally:
             cuda_step.STEP_TILES = saved
         if stages is not None:
-            fields = 5 * stages + 5 + int(dyn.agents_born)
-            plan = plan._replace(stages=stages, fields=fields,
-                                 smem=4 * fields * plan.rows * plan.cols)
+            plan = plan.with_stages(stages)
         return plan._replace(threads=threads or plan.threads)
 
     if forced(dyn, tuple(state.occ.shape), 1).smem > cuda_step.MAX_SMEM:
@@ -187,55 +350,126 @@ def torch_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def split_ms(B: int = 1024, forms=()):
-    """{config: {"a_loads_stores": [ms, ms], "b_phases_1_3": [...],
-    "c_whole": [...], "registers": {...}, "plan": {...}, "form ...":
-    ms}}: the split of the Jones step at ``B`` x 256x256, each build timed
-    twice, and the whole step under each of ``forms`` (``parse_form``)."""
+def _target_run(target: Target, B: int):
+    """(dyn, state, keys, params, fn, kernel name arguments): the wrapper
+    call of a target on fresh inputs made from seed 0."""
     import torch
 
     from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
     from die_tpu_torch.fast import cuda_step
-    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics,
+                                           tuned_dynamics)
+    from die_tpu_torch.fast.convert import load_turn_params
     from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import rule_family
     from die_tpu_torch.fast.rollout import step_keys
+
+    dyn = {"FastDynamics()": FastDynamics,
+           "tuned_dynamics(16)": lambda: tuned_dynamics(16),
+           "eval_protocol_dynamics(16)":
+               lambda: eval_protocol_dynamics(16)}[target.config]()
+    n = target.shape[0] or B
+    seeds = fold_in(as_key_tensor(np_key(0), "cpu"),
+                    torch.arange(n, dtype=torch.int64)).numpy()
+    state = fast_init(seeds, target.shape[1:], dyn, device="cuda")
+    rk = as_key_tensor(seeds, "cuda")
+    params, fam = None, None
+    if target.artifact:
+        params = load_turn_params(
+            Path(cuda_step.__file__).resolve().parents[2] / "docs"
+            / "artifacts" / f"{target.artifact}.npz", device="cuda")
+        fam = rule_family(tuple(params.shape)).name
+    if target.num_inner is None:
+        keys = step_keys(rk, 0, 1)[0]
+        fn = (lambda: cuda_step.lattice_step(dyn, state, keys)) \
+            if params is None else \
+            (lambda: cuda_step.learned_lattice_step(dyn, state, keys,
+                                                    params))
+    else:
+        keys = step_keys(rk, 0, target.num_inner).transpose(
+            0, 1).contiguous()
+        fn = (lambda: cuda_step.lattice_steps(dyn, state, keys)) \
+            if params is None else \
+            (lambda: cuda_step.learned_lattice_steps(dyn, state, keys,
+                                                     params))
+    kargs = {"n": dyn.num_dirs, "fam": FAMILY[fam],
+             "fused": int(target.num_inner is not None)}
+    return dyn, state, keys, params, fn, kargs
+
+
+def _plans(cuda_step, dyn, state, params, num_inner):
+    """(plan, turn plan or None) of a target in the tree (``launch_plans``),
+    or (None, None) where the tree plans only the Jones step and the target
+    is another."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = tuple(state.occ.shape)
+    pshape = None if params is None else tuple(params.shape)
+    if hasattr(cuda_step, "launch_plans"):
+        return cuda_step.launch_plans(dyn, shape, sms, pshape,
+                                      num_inner or 1,
+                                      fused=num_inner is not None)
+    if params is None and num_inner is None:
+        return cuda_step.step_plan(dyn, shape, sms), None
+    return None, None
+
+
+def split_ms(B: int = 1024, forms=(), targets=("default", "tuned16")):
+    """{target: {"a_loads_stores": [ms, ms], "a1_turn": [...],
+    "b_phases_1_3": [...], "c_whole": [...], "kernel": name, "registers":
+    {...}, "plan": {...}, "form ...": ms}}: the split of each of
+    ``targets`` (``TARGETS``; the Jones step at ``B`` x 256x256), each
+    build timed twice, and the Jones step under each of ``forms``
+    (``parse_form``)."""
+    import torch
+
+    from die_tpu_torch.fast import cuda_step
 
     shutil.rmtree(cuda_step.BUILD_DIR / "split", ignore_errors=True)
     cuda_step.build()
     forms = [(spec, *parse_form(spec)) for spec in forms]
-    fns, usage = build_cuts(sorted({t for *_, t in forms if t}))
-    lib = cuda_step._libs["lattice_step"]
-    own = lib.die_lattice_step
-    fns["c_whole"] = own
-    keys = fold_in(as_key_tensor(np_key(0), "cpu"),
-                   torch.arange(B, dtype=torch.int64)).numpy()
+    libs = tuple(dict.fromkeys(TARGETS[t].lib for t in targets))
+    fns, usage, layouts = build_cuts(
+        libs, sorted({t for *_, t in forms if t}))
+    owner = {lib: lay for lay in layouts for lib in lay.libs}
+    builds = (*CUT_NAMES, "c_whole")
     out = {}
-    try:
-        for cname, dyn in [("default", FastDynamics()),
-                           ("tuned16", tuned_dynamics(16))]:
-            state = fast_init(keys, (256, 256), dyn, device="cuda")
-            k0 = step_keys(as_key_tensor(keys, "cuda"), 0, 1)[0]
-            cuts = [k for k in fns if not k.startswith("t")]
-            rec = {name: [] for name in cuts}
-            for name in cuts + cuts[::-1]:
-                lib.die_lattice_step = fns[name]
-                rec[name].append(events_ms(
-                    lambda: cuda_step.lattice_step(dyn, state, k0)))
-            lib.die_lattice_step = own
-            n = dyn.num_dirs
-            rec["registers"] = {k: v.get(n) for k, v in usage.items()}
-            rec["plan"] = cuda_step.step_plan(
-                dyn, (B, 256, 256), torch.cuda.get_device_properties(
-                    0).multi_processor_count)._asdict()
-            ref = cuda_step.lattice_step(dyn, state, k0)
+    for tname in targets:
+        target = TARGETS[tname]
+        lib = cuda_step._libs[target.lib]
+        entry = "die_" + target.lib
+        own = getattr(lib, entry)
+        dyn, state, keys, params, fn, kargs = _target_run(target, B)
+        rec = {name: [] for name in builds}
+        try:
+            for name in builds + builds[::-1]:
+                setattr(lib, entry, fns.get((name, target.lib), own))
+                rec[name].append(events_ms(fn))
+        finally:
+            setattr(lib, entry, own)
+        plan, turn = _plans(cuda_step, dyn, state, params, target.num_inner)
+        knames = [owner[target.lib].kernel.format(**kargs)]
+        if turn is not None:
+            n = kargs["n"]
+            knames = [f"k_step<{n},{kargs['fam']},1>", f"k_step<{n},0,2>"]
+        rec["kernel"] = " + ".join(knames)
+        rec["registers"] = {name: {k: usage[(name, target.lib)].get(k)
+                                   for k in knames} for name in builds}
+        rec["shape"] = list(state.occ.shape)
+        rec["plan"] = None if plan is None else plan._asdict()
+        rec["turn_plan"] = None if turn is None else turn._asdict()
+        if target.lib == "lattice_step" and forms:
+            ref = fn()
             for spec, tile, stages, threads in forms:
                 rec[f"form {spec}"] = time_form(
-                    cuda_step, lib, fns.get(f"t{threads}", own), dyn, state,
-                    k0, ref, tile, stages, threads)
-            out[cname] = rec
-            del state
-    finally:
-        lib.die_lattice_step = own
+                    cuda_step, lib, fns.get((f"t{threads}", "lattice_step"),
+                                            own), dyn, state, keys, ref,
+                    tile, stages, threads)
+        out[tname] = rec
+        del state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -243,7 +477,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
     ap.add_argument("--forms", nargs="*", default=[],
-                    help="other launch plans to time: ROWSxCOLS[:sN][:tN]")
+                    help="other launch plans of K1 to time: "
+                         "ROWSxCOLS[:sN][:tN]")
+    ap.add_argument("--targets", nargs="*", default=list(TARGETS),
+                    choices=list(TARGETS), help="kernel runs to take apart")
     ap.add_argument("--tree", default=str(ROOT),
                     help="the source tree whose die_tpu_torch to split")
     args = ap.parse_args()
@@ -263,8 +500,9 @@ def main():
         raise RuntimeError(f"imported {cuda_step.__file__}, not from {tree}")
     for spec in args.forms:
         parse_form(spec)
-    for cname, rec in split_ms(args.envs, args.forms).items():
-        print(json.dumps({"config": cname, "tree": str(tree), **rec,
+    for tname, rec in split_ms(args.envs, args.forms,
+                               args.targets).items():
+        print(json.dumps({"target": tname, "tree": str(tree), **rec,
                           "nvidia_smi": smi}), flush=True)
     return 0
 

@@ -3,7 +3,7 @@ found under a given source tree, so that two trees (a parent commit
 unpacked beside the working tree) compare on one card in one call.
 
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH [--envs 1024]
-        [--fold-shapes] [--template]
+        [--fold-shapes] [--k3k4] [--large] [--train]
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -17,12 +17,11 @@ graph (most of these take less device time than the host takes to launch
 them), each call on the next of enough copies of the field that its input
 has left L2 (``fold_inputs``; a shape too small for that is marked
 ``l2_resident``).
-With ``--template``, also the kernels of the step template (K3 wide at
-1024 x 64x128, 16 directions; K4 at ``num_inner`` 1, Jones at 32 x 512^2
-and the learned wide rule at 8 x 512^2), device time from a CUDA graph.
-Uses only what every tree of the port has (``fast_init``,
-``fast_rollout_auto``, ``cuda_step.lattice_step``,
-``cuda_step.tree_sum_2d``).
+With ``--k3k4``, also K3 and K4 (``k3k4_ms``), device time from a
+CUDA graph; with ``--large``, the large-field env-steps/s
+(``large_rates``); with ``--train``, the train env-steps/s
+(``train_rate``).  Uses only what every tree of the port has (the entry
+points and wrappers, ``train_lattice``, the committed artifacts).
 """
 from __future__ import annotations
 
@@ -93,15 +92,22 @@ def graph_ms(fn, calls: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def template_ms(keys) -> dict:
-    """Device ms a launch of the template's kernels (K3 wide, K4 Jones and
-    K4 learned wide at ``num_inner`` 1), each from a CUDA graph."""
+def k3k4_ms(keys) -> dict:
+    """Device ms a launch of K3 (every family, and wide with a perlin field,
+    at 1024 x 64x128, 16 directions; the families of the tree's
+    ``TURN_PASS_FAMILIES`` also as one kernel, without their turn pass) and
+    of K4 (Jones at 32 x 512^2 for ``num_inner`` 1, 2, 3; the learned wide
+    rule at 8 x 512^2, ``num_inner`` 1), each from a CUDA graph."""
     import torch
 
+    from die_tpu_torch.core.config import FlowConfig
     from die_tpu_torch.core.rng import as_key_tensor
     from die_tpu_torch.fast import cuda_step
-    from die_tpu_torch.fast.config import FastDynamics, eval_protocol_dynamics
+    from die_tpu_torch.fast.config import (FastDynamics,
+                                           eval_protocol_dynamics,
+                                           tuned_dynamics)
     from die_tpu_torch.fast.convert import load_turn_params
+    from die_tpu_torch.fast.env import flow_field_for
     from die_tpu_torch.fast.init import fast_init
     from die_tpu_torch.fast.rollout import step_keys
 
@@ -113,21 +119,126 @@ def template_ms(keys) -> dict:
     dyn = eval_protocol_dynamics(16)
     st = fast_init(keys, (64, 128), dyn, device="cuda")
     k0 = step_keys(as_key_tensor(keys, "cuda"), 0, 1)[0]
-    wide16 = params("lattice16_mlp_wide")
-    out["k3_wide_ms"] = graph_ms(
-        lambda: cuda_step.learned_lattice_step(dyn, st, k0, wide16))
-    for key, dyn, pr, B in [("k4_jones_k1_ms", FastDynamics(), None, 32),
-                            ("k4_learned_wide8_k1_ms",
-                             eval_protocol_dynamics(8),
-                             params("lattice8_mlp_wide"), 8)]:
+    for fam, name in (("linear", "lattice16_linear"),
+                      ("mlp", "lattice16_mlp"),
+                      ("wide", "lattice16_mlp_wide"),
+                      ("ctx", "lattice16_mlp_ctx")):
+        pr = params(name).cuda()
+        out[f"k3_{fam}_ms"] = graph_ms(
+            lambda: cuda_step.learned_lattice_step(dyn, st, k0, pr))
+        turn_pass = getattr(cuda_step, "TURN_PASS_FAMILIES", ())
+        if fam in turn_pass:  # and as one kernel, without the turn pass
+            cuda_step.TURN_PASS_FAMILIES = ()
+            try:
+                out[f"k3_{fam}_one_kernel_ms"] = graph_ms(
+                    lambda: cuda_step.learned_lattice_step(dyn, st, k0, pr))
+            finally:
+                cuda_step.TURN_PASS_FAMILIES = turn_pass
+    pdyn = tuned_dynamics(16, flow=FlowConfig(kind="perlin"))
+    pst = fast_init(keys, (64, 128), pdyn, device="cuda")
+    field = flow_field_for(pdyn, (64, 128), pst.flow_step[0])
+    wide = params("lattice16_mlp_wide").cuda()
+    out["k3_wide_perlin_ms"] = graph_ms(
+        lambda: cuda_step.learned_lattice_step(pdyn, pst, k0, wide,
+                                               flow_field=field))
+    del st, pst
+    for key, dyn, pr, B, K in [
+            ("k4_jones_k1_ms", FastDynamics(), None, 32, 1),
+            ("k4_jones_k2_ms", FastDynamics(), None, 32, 2),
+            ("k4_jones_k3_ms", FastDynamics(), None, 32, 3),
+            ("k4_learned_wide8_k1_ms", eval_protocol_dynamics(8),
+             "lattice8_mlp_wide", 8, 1)]:
         st = fast_init(keys[:B], (512, 512), dyn, device="cuda")
         chunk = step_keys(as_key_tensor(keys[:B], "cuda"), 0,
-                          1).transpose(0, 1).contiguous()
-        out[key] = graph_ms(
-            (lambda: cuda_step.lattice_steps(dyn, st, chunk)) if pr is None
-            else (lambda: cuda_step.learned_lattice_steps(dyn, st, chunk,
-                                                          pr)))
+                          K).transpose(0, 1).contiguous()
+        if pr is None:
+            out[key] = graph_ms(
+                lambda: cuda_step.lattice_steps(dyn, st, chunk))
+        else:
+            prm = params(pr).cuda()
+            out[key] = graph_ms(
+                lambda: cuda_step.learned_lattice_steps(dyn, st, chunk, prm))
+        del st
     return out
+
+
+# the large-field cells: (W, H, envs, steps)
+LARGE = [(512, 512, 32, 64), (1024, 1024, 8, 64), (2048, 2048, 64, 16)]
+
+
+def large_rates() -> dict:
+    """Large-field env-steps/s of ``fast_rollout_auto`` (``FastDynamics()``)
+    at each of ``LARGE`` for ``num_inner`` 1 and 2, CUDA events around one
+    rollout after a warm one."""
+    import torch
+
+    from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
+    from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import fast_rollout_auto
+
+    dyn = FastDynamics()
+    out = {}
+    for W, H, B, T in LARGE:
+        seeds = fold_in(as_key_tensor(np_key(40), "cpu"),
+                        torch.arange(B, dtype=torch.int64)).numpy()
+        parts = [fast_init(seeds[i:i + 8], (W, H), dyn, device="cuda")
+                 for i in range(0, B, 8)]
+        state = type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+        del parts
+        for K in (1, 2):
+            fast_rollout_auto(dyn, state, seeds, 2 * K, device="cuda",
+                              num_inner=K)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fast_rollout_auto(dyn, state, seeds, T, device="cuda",
+                              num_inner=K)
+            end.record()
+            torch.cuda.synchronize()
+            out[f"{W}x{H}x{B} K={K}"] = B * T / start.elapsed_time(end) * 1e3
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_rate(gens: int = 4) -> dict:
+    """``train_lattice`` at the wide record's configuration (warm CMAES
+    s0.1, 64 x 16 envs, 64x128, 50 steps, seed 52): train env-steps/s over
+    the generations after the first, host clock after a synchronise."""
+    import time
+
+    import torch
+
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.fast.convert import load_turn_params
+    from die_tpu_torch.fast.learned import LatticeTrainConfig, train_lattice
+    from die_tpu_torch.learn.es import CMAES
+
+    dyn = eval_protocol_dynamics(16)
+    cfg = LatticeTrainConfig(field_size=(64, 128), epochs=gens,
+                             epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
+                             envs_per_eval=16, seed=52)
+    warm = load_turn_params(Path(__file__).resolve().parents[2] / "docs"
+                            / "artifacts" / "lattice16_mlp_wide.npz")
+    stamps = []
+
+    def log_fn(epoch, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    train_lattice(dyn, cfg, log_fn=log_fn, params_init=warm,
+                  common_random_envs=True,
+                  searcher_fn=lambda d: CMAES(d, popsize=64, stdev_init=0.1),
+                  device="cuda")
+    per_gen = [b - a for a, b in zip(stamps, stamps[1:])]
+    envs = cfg.popsize * cfg.envs_per_eval
+    return {"train_env_steps_per_s": envs * cfg.epoch_iters
+            * (gens - 1) / sum(per_gen[1:]),
+            "train_seconds_per_generation": per_gen}
 
 
 def main():
@@ -136,7 +247,9 @@ def main():
     ap.add_argument("--envs", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--fold-shapes", action="store_true")
-    ap.add_argument("--template", action="store_true")
+    ap.add_argument("--k3k4", action="store_true")
+    ap.add_argument("--large", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -207,8 +320,12 @@ def main():
             out["tree_sum_2d_graph_ms"]["x".join(map(str, shape))] = rec
             del xs
         torch.cuda.empty_cache()
-    if args.template:
-        out.update(template_ms(keys))
+    if args.k3k4:
+        out.update(k3k4_ms(keys))
+    if args.large:
+        out["large_env_steps_per_s"] = large_rates()
+    if args.train:
+        out.update(train_rate())
     out["nvidia_smi"] = smi
     print(json.dumps(out), flush=True)
     return 0

@@ -232,18 +232,26 @@ def test_margin_that_does_not_fit_shared_memory_raises(case):
 
 def test_fit_check_picks_the_largest_tile_that_fits():
     td = TD()
+
+    def tile(dyn, field, pshape, K, **kw):
+        return cuda_step.step_plan(dyn, (2, *field), 132, pshape, K,
+                                   **kw).tile
+
     assert cuda_step.fused_margin(td, None, 3) == 21
-    assert cuda_step.choose_tile(td, (512, 512), None, 3) == (32, 32)
-    assert cuda_step.choose_tile(td, (512, 512), None, 4) == (16, 16)
-    assert cuda_step.choose_tile(td, (16, 128), None, 1) == (16, 32)
+    assert tile(td, (512, 512), None, 3) == (32, 32)
+    assert tile(td, (512, 512), None, 4) == (16, 16)
+    # one inner step: the one-step plan's 32x64, cut to the field
+    assert tile(td, (16, 128), None, 1) == (16, 64)
     td16 = port(j_tuned(16))
-    assert cuda_step.choose_tile(td16, (256, 256), None, 2) == (16, 16)
+    # 4-byte copies at the exact margin fit 16x32 where 16-byte ones do not
+    assert tile(td16, (256, 256), None, 2) == (16, 32)
     wide = TL.mlp_wide_param_shape(8)
     assert cuda_step.fused_margin(td16, wide, 1) == 17
-    assert cuda_step.region_bytes((32, 32), 17, wide) == \
-        4 * (10 * 66 * 66 + 11 * 14)
+    plan = cuda_step.step_plan(td16, (2, 256, 256), 132, wide, 1)
+    assert (plan.tile, plan.cols, plan.stages) == ((32, 32), 72, 1)
+    assert plan.smem == 4 * (10 * 66 * 72 + 11 * 16)
     with pytest.raises(ValueError, match="does not divide"):
-        cuda_step.choose_tile(td, (512, 512), None, 1, tile=(24, 32))
+        tile(td, (512, 512), None, 1, tile=(24, 32))
 
 
 def test_cell_limit_is_refused():

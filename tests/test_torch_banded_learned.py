@@ -35,7 +35,8 @@ def test_banded_wide_and_ctx_two_inner_steps_match_xla(family, dirs):
     shape = TL.mlp_wide_param_shape(8) if family == "wide" \
         else TL.mlp_ctx_param_shape(8)
     size = (64, 128)
-    assert cuda_step.choose_tile(port(jd), size, shape, 2) == (32, 32)
+    assert cuda_step.check_kernel_supported(
+        port(jd), (4, *size), shape, num_inner=2).tile == (32, 32)
     assert cuda_step.fused_margin(port(jd), shape, 2) == 20
     check_banded(jd, size, 4, None, 2, seed=62,
                  params=random_live(shape, 5), banded=False)

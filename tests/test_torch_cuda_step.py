@@ -302,3 +302,99 @@ def test_fused_kernel_matches_plain_rollout_on_card(cuda_device, num_inner):
     ref = fast_rollout(dyn, st, _keys(8, 2), 6, device=cuda_device)
     assert all(torch.equal(a, b) for a, b in zip(out[0], ref[0]))
     assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+
+
+# ---- K3 and K4: blocks of the persistent grid that walk several items ------
+
+def _live_params(family, seed):
+    from die_tpu_torch.fast import learned as L
+    from test_torch_learned_rollout import random_live
+
+    shape = {"linear": (3, 7), "mlp": L.mlp_param_shape(8),
+             "wide": L.mlp_wide_param_shape(8),
+             "ctx": L.mlp_ctx_param_shape(8)}[family]
+    return torch.from_numpy(random_live(shape, seed))
+
+
+def _force_stages(monkeypatch, stages):
+    """Every plan made with ``stages`` input buffers (None: its own)."""
+    plan_of = cuda_step.step_plan
+
+    def forced(*a, **k):
+        plan = plan_of(*a, **k)
+        return plan if stages is None else plan.with_stages(stages)
+
+    monkeypatch.setattr(cuda_step, "step_plan", forced)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [None, 1, 2])
+@pytest.mark.parametrize("family", ["linear", "mlp", "wide", "ctx"])
+def test_learned_step_kernel_walks_several_items_on_card(cuda_device,
+                                                         monkeypatch, family,
+                                                         stages):
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.learned import make_turn_rule
+
+    dyn = eval_protocol_dynamics(8)
+    B, field = 16, (256, 256)
+    params = torch.stack([_live_params(family, 20 + b) for b in range(B)])
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = cuda_step.step_plan(dyn, (B, *field), sms, tuple(params.shape))
+    assert plan.items >= 3 * plan.grid and plan.grid <= sms
+    if stages is not None and \
+            plan.with_stages(stages).smem > cuda_step.MAX_SMEM:
+        return  # the family's region holds one buffer only
+    _force_stages(monkeypatch, stages)
+    st = fast_init(_keys(11, B), field, dyn, device=cuda_device)
+    keys = step_keys(as_key_tensor(_keys(12, B), "cuda"), 0, 2)
+    params = params.to(cuda_device)
+    rule = make_turn_rule(params, dyn)
+    ref = st
+    for t in range(2):
+        st, num, gained = cuda_step.learned_lattice_step(dyn, st, keys[t],
+                                                         params)
+        ref, _, rnum, rgained = tenv.fast_step_full(
+            dyn, ref, step_bits(dyn, keys[t], field), turn_rule=rule)
+        assert all(torch.equal(a, b) for a, b in zip(st, ref))
+        assert torch.equal(num, rnum) and torch.equal(gained, rgained)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_inner", [1, 2, 3])
+@pytest.mark.parametrize("family", ["jones", "linear", "wide", "ctx"])
+def test_fused_kernel_walks_several_items_on_card(cuda_device, family,
+                                                  num_inner):
+    from die_tpu_torch.fast.learned import make_turn_rule
+    from die_tpu_torch.fast.tiled import tiled_steps_plain
+
+    dyn = FastDynamics(agents_born=True, agents_die=True,
+                       birth_threshold=0.5)
+    B, field = 16, (256, 256)
+    params = None if family == "jones" else \
+        _live_params(family, 30).to(cuda_device)
+    pshape = None if params is None else tuple(params.shape)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    try:
+        plan = cuda_step.step_plan(dyn, (B, *field), sms, pshape, num_inner)
+    except ValueError:
+        assert family in ("wide", "ctx") and num_inner == 3
+        return
+    assert plan.items >= 3 * plan.grid and plan.grid <= sms
+    st = fast_init(_keys(13, B), field, dyn, device=cuda_device)
+    keys = step_keys(as_key_tensor(_keys(14, B), "cuda"), 0,
+                     num_inner).transpose(0, 1).contiguous()
+    out = cuda_step.learned_lattice_steps(dyn, st, keys, params) \
+        if params is not None else cuda_step.lattice_steps(dyn, st, keys)
+    tiled = tiled_steps_plain(dyn, st, keys, plan.tile, plan.h,
+                              params=params)
+    assert all(torch.equal(a, b) for a, b in zip(out[0], tiled[0]))
+    assert torch.equal(out[1], tiled[1]) and torch.equal(out[2], tiled[2])
+    rule = None if params is None else make_turn_rule(params, dyn)
+    ref = st
+    for k in range(num_inner):
+        ref, _, rnum, rgained = tenv.fast_step_full(
+            dyn, ref, step_bits(dyn, keys[:, k], field), turn_rule=rule)
+        assert torch.equal(out[1][:, k], rnum)
+        assert torch.equal(out[2][k], rgained)
+    assert all(torch.equal(a, b) for a, b in zip(out[0], ref))
