@@ -92,7 +92,10 @@ Phases (any failure exits non-zero):
      kind, dtype, axis, shift, placement, sigma, gather placement, one-hot
      leg and word shape; words of random bit patterns), bitwise (bf16 and
      the TF32 one-hot leg too) except the tensor-core diffusion legs (at
-     ``probes.TC_REL_TOL``, max ulp printed), and the one-application ulp
+     ``probes.TC_REL_TOL``, max ulp printed), the gather probes also at 1 to
+     64 fields and up to 65,536 cells, the one-hot probe on a wide-range
+     field too, its kernels' registers printed and their SASS held to
+     ``HGMMA`` without ``HMMA``, and the one-application ulp
      of each tensor-core leg against the stencil; then, counts read around
      it, every probe item at the TPU probe's full shape (64 fields of
      256x256; the gather and bit-plane items at B = 1 and B = 64) as
@@ -110,7 +113,9 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1837,34 +1842,47 @@ def phase_probe_parity():
 
 def probe2_parity(check):
     """The gather and bit-plane probes (``tools/probes2.py``) against their
-    plain versions on small cases, bitwise: 2 fields; cell counts that end
-    inside a block and cells of any int32 (read mod 65536); 0, 1 and odd and
-    even reps; words of random bit patterns (non-0/1 words for the pack).
-    The TF32 one-hot leg is bitwise against its twin (the field rounded to
-    TF32) and its ulp against the exact gather is printed."""
+    plain versions, bitwise: P6 at 1, 2, 3 and 64 fields (one field on 33
+    clusters; 3 filling the card unevenly) and 1 to 65,536 cells of any
+    int32 (read mod 65536), 0, 1, 3 and 16 reps; P7 at 1,024 to 65,536 cells
+    (the 1,024 tiles of the last wrap unevenly over the persistent grid), 0,
+    1 and 3 reps, on a uniform field and on a wide-range one (both signs, +0
+    and -0, magnitudes 2^-100 to 2^101: its bf16 parts are normal or zero;
+    subnormal parts are outside the probe, which the tensor cores may
+    flush); words of random bit patterns (non-0/1 words for the pack).  The
+    TF32 one-hot leg is bitwise against its twin (the field rounded to TF32)
+    and its ulp against the exact gather is printed.  Then the one-hot
+    kernels' SASS (``cuobjdump``): ``HGMMA``, no ``HMMA``."""
     from die_tpu_torch.tools import probes as P
     from die_tpu_torch.tools import probes2 as P2
 
-    field = P.seeded((2, P2.SIDE, P2.SIDE), torch.float32, 12)
-    for n in (1, 777, 8197):
-        cells = P2.seeded_cells((2, n), 13 + n)
-        if n == 777:  # every int32, read mod 65536
-            cells = P2.seeded_words((2, n), 14)
-        for placement in P2.GATHER_PLACEMENTS:
-            for reps in (0, 1, 3):
-                check(f"probe_gather_{placement}",
-                      P2.gather(field, cells, reps, placement),
-                      P2.gather_plain(field, cells, reps))
-    for n in (1024, 2048):
+    for B in (1, 2, 3, 64):
+        field = P.seeded((B, P2.SIDE, P2.SIDE), torch.float32, 12 + B)
+        for n in (1, 777, 8197, P2.N):
+            cells = P2.seeded_cells((B, n), 13 + n)
+            if n == 777:  # every int32, read mod 65536
+                cells = P2.seeded_words((B, n), 14)
+            for placement in P2.GATHER_PLACEMENTS:
+                for reps in (0, 1, 3, P2.GATHER_REPS):
+                    check(f"probe_gather_{placement}",
+                          P2.gather(field, cells, reps, placement),
+                          P2.gather_plain(field, cells, reps))
+    fields = {"uniform": P.seeded((P2.SIDE, P2.SIDE), torch.float32, 12),
+              "wide": P2.seeded_wide((P2.SIDE, P2.SIDE), 19)}
+    for n in (1024, 2048, P2.N):
         cells = P2.seeded_cells((n,), 15 + n)
         for leg in P2.ONEHOT_LEGS:
-            for reps in (1, 3):
-                got = P2.onehot(field[0], cells, leg, reps)
-                check(f"probe_onehot_{leg}", got,
-                      P2.onehot_plain(field[0], cells, leg, reps))
-            exact = P2.gather_plain(field[:1], cells[None], 3)[0]
-            log(f"probe onehot_{leg}, {n} cells, 3 reps: max ulp "
-                f"{P.max_ulp(got, exact)} against the exact gather")
+            for name, field in fields.items():
+                for reps in (0, 1, 3):
+                    got = P2.onehot(field, cells, leg, reps)
+                    check(f"probe_onehot_{leg}", got,
+                          P2.onehot_plain(field, cells, leg, reps))
+            exact = P2.gather_plain(field[None], cells[None], 3)[0]
+            log(f"probe onehot_{leg}, {n} cells, 3 reps, wide field: max "
+                f"ulp {P.max_ulp(got, exact)} against the exact gather")
+    log("probe_gather kernels (ptxas): " + kernel_registers("probe_gather"))
+    hgmma = onehot_sass()
+    log(f"probe_gather SASS, tensor-core instructions by kernel: {hgmma}")
     for tag, shape in P2.CHAIN_SHAPES.items():
         x = P2.seeded_words((2, *shape), 16)
         for rounds in (0, 3):
@@ -1880,6 +1898,53 @@ def probe2_parity(check):
         check("probe_unpack", P2.unpack(w, reps), P2.unpack_plain(w, reps))
     for steps in (0, 1, 33):
         check("probe_funnel", P2.funnel(w, steps), P2.funnel_plain(w, steps))
+
+
+def kernel_registers(lib: str) -> str:
+    """Registers and spills of each kernel of ``lib`` from this process's
+    build log (``-Xptxas=-v``), or why there is none."""
+    from die_tpu_torch.fast import cuda_step
+
+    out, name = [], None
+    for line in cuda_step.build_log.get(lib, "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return "; ".join(out) or "not built in this process (cached library)"
+
+
+def onehot_sass() -> dict:
+    """``HGMMA`` and ``HMMA`` counts of each one-hot kernel in the built
+    ``probe_gather`` library; raises unless each has ``HGMMA`` and no
+    ``HMMA``.  Empty where the toolkit has no ``cuobjdump``."""
+    from die_tpu_torch.fast import cuda_step
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("cuobjdump not found: the one-hot kernels' SASS is not checked")
+        return {}
+    lib = cuda_step.BUILD_DIR / f"probe_gather-{cuda_step._digest()}.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if "onehot_kernel" in name else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for key in counts[name]:
+                counts[name][key] += bool(re.search(rf"\b{key}\b", line))
+    if len(counts) != 2 or any(c["HGMMA"] < 1 or c["HMMA"] for c in
+                               counts.values()):
+        raise AssertionError(f"one-hot kernels not on wgmma alone: {counts}")
+    return counts
 
 
 def phase_probes(smi: str):

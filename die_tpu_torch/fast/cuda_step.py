@@ -217,8 +217,9 @@ def build() -> float:
                 ("probe_diffuse", "die_probe_tc",
                  [vp, vp, vp, ip, ip, ip, ip, fp, fp]),
                 ("probe_gather", "die_probe_gather",
-                 [vp, vp, vp, ip, ip, ip, ip]),
-                ("probe_gather", "die_probe_onehot", [vp, vp, vp, ip, ip, ip]),
+                 [vp, vp, vp, ip, ip, ip, ip, ip, ip]),
+                ("probe_gather", "die_probe_onehot",
+                 [vp, vp, vp, vp, ip, ip, ip, ip]),
                 ("probe_bits", "die_probe_chain", [vp, vp, lp, ip]),
                 ("probe_bits", "die_probe_pack", [vp, vp, ip, ip]),
                 ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip]),

@@ -9,9 +9,10 @@ against its plain version, see ``tools/probes2.py``):
 
 - ``gather``: ``g2_taa_{cluster,l2}_B{1,64}``, 65,536 uniform random cells
   of a 256² f32 field gathered 16 times in one kernel and summed, the field
-  in a cluster of 4 blocks' shared memory or read through L2 (``library_ms``:
-  16 x ``torch.gather``); ``g2_onehot_{bf16x3,tf32}``, the same gather as
-  one-hot products on the tensor cores (one field, as the TPU tool); and
+  in the shared memory of clusters of 4 blocks (a copy a cluster, every cell
+  read by the block that holds it) or read through L2 (``library_ms``: 16 x
+  ``torch.gather``); ``g2_onehot_{bf16x3,tf32}``, the same gather as
+  one-hot products on ``wgmma`` (one field, as the TPU tool); and
   ``gather_k5_B64`` / ``gather_torch_B64``, the exact engine's gather
   (``gather_fields``) and ``torch.gather`` at 64 fields, so that the three
   gathers stand in one table (``gather_table``, ns per gathered element);

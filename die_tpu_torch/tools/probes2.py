@@ -8,14 +8,20 @@ Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure2.py``
 - P6 ``gather_taa_fullshape`` -> :func:`gather` (``csrc/probe_gather.cu``):
   ``N`` cells of a whole 256x256 f32 field gathered ``GATHER_REPS`` times
   inside one kernel and summed, the field held in the shared memory of a
-  cluster of 4 blocks (``cluster``, reached through ``map_shared_rank``) or
-  read with ``__ldg`` through L2 (``l2``).  The TPU gathers all 65,536
+  cluster of 4 blocks, 64 KB each (``cluster``), or read with ``__ldg``
+  through L2 (``l2``).  :func:`gather_plan` gives a field one or more
+  clusters, each with its own copy and a share of the cells, so that every
+  SM works at any ``B``; each block keeps the cells of its own quarter and
+  reads them from its own shared memory.  The TPU gathers all 65,536
   lanes of each of its 8 rows (Mosaic wants ``idx.shape == a.shape``) and
   keeps the first 8,192; the kernel gathers only the ``N`` real cells, which
   is the same output.
 - P7 ``make_gather_onehot_kernel`` -> :func:`onehot`
   (``csrc/probe_gather.cu``): the same gather as a one-hot product on the
-  tensor cores (``mma.sync``), the field as ``[512, 128]``, then a one-hot
+  tensor cores (``wgmma``, the one-hot operand built in registers, the field
+  split once a call into a scratch in ``wgmma``'s swizzled layout and
+  staged in two bands of 64 columns; :func:`onehot_plan` is the persistent
+  grid), the field as ``[512, 128]``, then a one-hot
   column pick: ``bf16x3`` splits the field exactly into bf16 hi, mid and lo
   and takes three bf16 products (the twin of the TPU's ``"3x"``, exact);
   ``tf32`` takes one TF32 product (the card's one pass where the TPU has
@@ -44,10 +50,11 @@ xor-accumulated.
 
 Each wrapper given CPU tensors runs its plain version (``*_plain``); given
 CUDA tensors it launches its kernel or raises, and adds one to
-``cuda_step.launches[<its key>]``.  The ``measure_*`` functions run one item
-on the card: the kernel's output held against the plain version, CUDA-event
-times at the full and at one rep, the bound and, where one PyTorch call
-computes the same function, its time.
+``cuda_step.launches[<its key>]`` (for :func:`onehot`, one call of its C
+entry: the split and the products, two launches).  The ``measure_*``
+functions run one item on the card: the kernel's output held against the
+plain version, CUDA-event times at the full and at one rep, the bound and,
+where one PyTorch call computes the same function, its time.
 """
 from __future__ import annotations
 
@@ -70,7 +77,13 @@ PACKREPS = 65
 FREPS = 512
 BATCHES = (1, 64)  # the TPU's shape, and the batch of P1-P5 and K5
 
-GATHER_PLACEMENTS = {"cluster": "cluster4-dsmem", "l2": "l2 (__ldg)"}
+GATHER_PLACEMENTS = {"cluster": "cluster4-routed", "l2": "l2 (__ldg)"}
+GATHER_CTAS = 4  # blocks of a cluster: a field's 256 KB, 64 KB a block
+GATHER_MIN_CELLS = 512  # fewest cells a cluster copies the field for
+ONEHOT_TILE = 64  # cells of an m64 tile of the one-hot products
+ONEHOT_GROUPS = 2  # warpgroups a block, each walking its own tiles
+# bytes of the split field (hi, mid, lo bf16; or the TF32 bits), staged
+ONEHOT_SCRATCH_BYTES = {"bf16x3": 3 * ROWS * COLS * 2, "tf32": ROWS * COLS * 4}
 ONEHOT_LEGS = ("bf16x3", "tf32")
 CHAIN_SHAPES = {"packed": (8, 256), "full": (256, 256),
                 "packed_x8envs": (64, 256)}
@@ -201,6 +214,49 @@ def funnel_plain(x: torch.Tensor, steps: int = FREPS) -> torch.Tensor:
     return _i32(v)
 
 
+# ---- launch plans ---------------------------------------------------------------
+
+def gather_plan(B: int, n: int, sms: int):
+    """(clusters a field, cells a cluster) of P6's ``cluster`` placement on
+    a card of ``sms`` SMs: the ``sms // 4`` clusters that fit it shared out
+    over the ``B`` fields (at least one a field), each with a copy of its
+    field and a contiguous share of its cells, but not fewer than
+    ``GATHER_MIN_CELLS`` cells a cluster.  Cluster ``k`` of a field takes
+    cells ``[k * per_cluster, min(n, (k + 1) * per_cluster))``."""
+    per_field = max(1, min((sms // GATHER_CTAS) // B,
+                           -(-n // GATHER_MIN_CELLS)))
+    return per_field, -(-n // per_field)
+
+
+def gather_sms(B: int, n: int, sms: int, placement: str) -> int:
+    """SMs the placement's grid occupies: its blocks, at most ``sms``
+    (``cluster``: 4 a cluster; ``l2``: a block of 256 cells)."""
+    if placement == "cluster":
+        blocks = B * gather_plan(B, n, sms)[0] * GATHER_CTAS
+    else:
+        blocks = B * -(-n // 256)
+    return min(sms, blocks)
+
+
+def gather_phase_bound(B: int, n: int, reps: int, rates: dict,
+                       placement: str):
+    """(ms, by) of P6's phase: the ``B * n * reps`` random 4-byte reads at
+    32 a cycle an SM, over the SMs the placement's grid occupies
+    (:func:`gather_sms`)."""
+    sms = gather_sms(B, n, rates["sms"], placement)
+    reads = B * n * reps
+    return (reads / (32 * sms * rates["clock_mhz"] * 1e6) * 1e3,
+            f"random reads, 32 a cycle on {sms} SMs")
+
+
+def onehot_plan(n: int, sms: int) -> int:
+    """Blocks of P7's persistent grid: one an SM, no more than the
+    ``ONEHOT_GROUPS`` warpgroups of each have tiles to walk.  Block ``b``
+    walks the m64 tiles ``b``, ``b + grid``, ``b + 2 grid``, ..., its
+    warpgroups in turn."""
+    return max(1, min(sms, -(-(n // ONEHOT_TILE) // ONEHOT_GROUPS)))
+
+
 # ---- wrappers -------------------------------------------------------------------
 
 def _need(t: torch.Tensor, dtype, shape, what: str):
@@ -239,10 +295,13 @@ def gather(field: torch.Tensor, cells: torch.Tensor, reps: int = GATHER_REPS,
     P._rounds(reps, "gather")
     if field.device.type == "cpu":
         return gather_plain(field, cells, reps)
+    n = cells.shape[1]
+    per_field, per_cluster = gather_plan(B, n, cuda_step._num_sms(
+        field.device))
     out = torch.empty(cells.shape, dtype=torch.float32, device=field.device)
     P._launch("probe_gather", "die_probe_gather", f"probe_gather_{placement}",
-              field.data_ptr(), cells.data_ptr(), out.data_ptr(), B,
-              cells.shape[1], reps, _PLACEMENT[placement])
+              field.data_ptr(), cells.data_ptr(), out.data_ptr(), B, n, reps,
+              _PLACEMENT[placement], per_field, per_cluster)
     return out
 
 
@@ -261,10 +320,14 @@ def onehot(field: torch.Tensor, cells: torch.Tensor, leg: str,
     P._rounds(reps, "onehot")
     if field.device.type == "cpu":
         return onehot_plain(field, cells, leg, reps)
+    n = cells.shape[0]
+    scratch = torch.empty(ONEHOT_SCRATCH_BYTES[leg], dtype=torch.uint8,
+                          device=field.device)
     out = torch.empty(cells.shape, dtype=torch.float32, device=field.device)
     P._launch("probe_gather", "die_probe_onehot", f"probe_onehot_{leg}",
-              field.data_ptr(), cells.data_ptr(), out.data_ptr(),
-              cells.shape[0], reps, _LEG[leg])
+              field.data_ptr(), cells.data_ptr(), scratch.data_ptr(),
+              out.data_ptr(), n, reps, _LEG[leg],
+              onehot_plan(n, cuda_step._num_sms(field.device)))
     return out
 
 
@@ -332,6 +395,18 @@ def seeded_cells(shape, seed: int, device="cuda") -> torch.Tensor:
     rs = np.random.RandomState(seed)
     return torch.from_numpy(rs.randint(0, CELLS, shape).astype(np.int32)) \
         .to(device)
+
+
+def seeded_wide(shape, seed: int, device="cuda") -> torch.Tensor:
+    """f32 of both signs and magnitudes ``2**-100`` to ``2**101`` from a
+    numpy seed, every 16th value +0 or -0: a field whose bf16 parts (hi,
+    mid, lo) are normal numbers or zero."""
+    rs = np.random.RandomState(seed)
+    a = rs.uniform(1.0, 2.0, shape) * np.exp2(rs.randint(-100, 101, shape))
+    a = np.where(rs.randint(0, 2, shape) == 1, -a, a).astype(np.float32)
+    zero = rs.randint(0, 16, shape) == 0
+    a[zero] = np.where(rs.randint(0, 2, shape) == 1, -0.0, 0.0)[zero]
+    return torch.from_numpy(a).to(device)
 
 
 def seeded_words(shape, seed: int, bits: bool = False,
@@ -430,9 +505,9 @@ def _gather_bound_args(field, cells, reads, rates):
 def measure_gather(placement, rates, B=1, n=N, reps=GATHER_REPS):
     """P6 item ``g2_taa_{placement}_B{B}``.  Bound: the gather-sum's own
     (:func:`_gather_bound_args`).  Phase bound: the ``B * n * reps`` random
-    4-byte reads at 32 a cycle an SM, over the SMs the placement uses (4 a
-    field in a cluster; a block of 256 cells each through L2).  Library:
-    ``reps`` x ``torch.gather``."""
+    4-byte reads at 32 a cycle an SM, over the SMs the placement's grid
+    occupies (:func:`gather_phase_bound`).  Library: ``reps`` x
+    ``torch.gather``."""
     field = P.seeded((B, SIDE, SIDE), torch.float32, 30)
     cells = seeded_cells((B, n), 31)
     item = f"g2_taa_{placement}_B{B}"
@@ -444,15 +519,12 @@ def measure_gather(placement, rates, B=1, n=N, reps=GATHER_REPS):
     flat, wide = field.reshape(B, CELLS), cells.to(torch.int64)
     lib = reps * device_ms(lambda: torch.gather(flat, 1, wide))
     reads = B * n * reps
-    sms = min(rates["sms"], 4 * B if placement == "cluster"
-              else B * -(-n // 256))
+    phase, phase_by = gather_phase_bound(B, n, reps, rates, placement)
     return _row(item, f"probe_gather_{placement}", ms, plain_ms, out, ref,
                 *_gather_bound_args(field, cells, reads, rates),
                 library_ms=lib, placement=GATHER_PLACEMENTS[placement], B=B,
                 reps=reps, ms_1rep=ms1, ns_per_elem=ms * 1e6 / reads,
-                phase_bound_ms=reads / (32 * sms * rates["clock_mhz"] * 1e6)
-                * 1e3,
-                phase_bound_by=f"random reads, 32 a cycle on {sms} SMs")
+                phase_bound_ms=phase, phase_bound_by=phase_by)
 
 
 def onehot_flop(n=N, reps=GATHER_REPS) -> int:
@@ -483,9 +555,11 @@ def measure_onehot(leg, rates, n=N, reps=GATHER_REPS):
     return _row(item, f"probe_onehot_{leg}", ms, plain_ms, out, ref,
                 *_gather_bound_args(field, cells, n * reps, rates),
                 library_ms=lib,
-                placement="field bands in shared memory; mma.sync "
-                          + ("m16n8k16 bf16 x3" if passes == 3
-                             else "m16n8k8 tf32"),
+                placement="wgmma m64n64"
+                          + ("k16 bf16 x3" if passes == 3 else "k8 tf32")
+                          + ", A in registers; field split once a call, 2 "
+                            "bands of 64 columns by cp.async.bulk, "
+                            "128-byte swizzle; persistent grid",
                 reps=reps, ms_1rep=ms1, ns_per_elem=ms * 1e6 / (n * reps),
                 phase_bound_ms=passes * onehot_flop(n, reps) / rates[tc] * 1e3,
                 phase_bound_by=f"one-hot product FLOP, {passes} {tc} "

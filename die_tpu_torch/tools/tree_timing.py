@@ -4,6 +4,7 @@ unpacked beside the working tree) compare on one card in one call.
 
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH [--envs 1024]
         [--fold-shapes] [--k3k4] [--large] [--train]
+    python3 die_tpu_torch/tools/tree_timing.py --tree PATH --gather-probes
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -20,8 +21,11 @@ has left L2 (``fold_inputs``; a shape too small for that is marked
 With ``--k3k4``, also K3 and K4 (``k3k4_ms``), device time from a
 CUDA graph; with ``--large``, the large-field env-steps/s
 (``large_rates``); with ``--train``, the train env-steps/s
-(``train_rate``).  Uses only what every tree of the port has (the entry
-points and wrappers, ``train_lattice``, the committed artifacts).
+(``train_rate``).  With ``--gather-probes``, only the gather probes
+(``gather_probes_ms``): P7's two one-hot legs and P6's ``cluster`` and
+``l2`` placements at B = 1 and 64, device time from a CUDA graph.  Uses
+only what every tree of the port has (the entry points and wrappers,
+``train_lattice``, the committed artifacts, ``tools/probes2.py``).
 """
 from __future__ import annotations
 
@@ -166,6 +170,38 @@ def k3k4_ms(keys) -> dict:
 LARGE = [(512, 512, 32, 64), (1024, 1024, 8, 64), (2048, 2048, 64, 16)]
 
 
+def gather_probes_ms() -> dict:
+    """Device ms a call (``probes2.device_ms``) of P7 ``bf16x3`` and
+    ``tf32`` at the TPU tool's shape (one field, 65,536 cells, 16 reps) and
+    of P6 ``cluster`` and ``l2`` at B = 1 and 64, on the inputs of
+    ``probes2.measure_onehot`` and ``measure_gather``; each output first
+    held bitwise against its plain twin."""
+    import torch
+
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    def timed(name, run, plain):
+        if not P.same_bits(run(), plain()):
+            raise AssertionError(f"{name} differs from its plain twin")
+        out[name] = P2.device_ms(run)
+
+    out = {}
+    field = P.seeded((P2.SIDE, P2.SIDE), torch.float32, 32)
+    cells = P2.seeded_cells((P2.N,), 33)
+    for leg in P2.ONEHOT_LEGS:
+        timed(f"onehot_{leg}", lambda: P2.onehot(field, cells, leg),
+              lambda: P2.onehot_plain(field, cells, leg))
+    for B in P2.BATCHES:
+        field = P.seeded((B, P2.SIDE, P2.SIDE), torch.float32, 30)
+        cells = P2.seeded_cells((B, P2.N), 31)
+        for placement in ("cluster", "l2"):
+            timed(f"gather_{placement}_B{B}",
+                  lambda: P2.gather(field, cells, placement=placement),
+                  lambda: P2.gather_plain(field, cells))
+    return out
+
+
 def large_rates() -> dict:
     """Large-field env-steps/s of ``fast_rollout_auto`` (``FastDynamics()``)
     at each of ``LARGE`` for ``num_inner`` 1 and 2, CUDA events around one
@@ -250,6 +286,7 @@ def main():
     ap.add_argument("--k3k4", action="store_true")
     ap.add_argument("--large", action="store_true")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--gather-probes", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -271,6 +308,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     cuda_step.build()
+    if args.gather_probes:
+        print(json.dumps({"tree": str(tree),
+                          "gather_probes_ms": gather_probes_ms(),
+                          "nvidia_smi": smi}), flush=True)
+        return 0
     B, field = args.envs, (256, 256)
     keys = fold_in(as_key_tensor(np_key(0), "cpu"),
                    torch.arange(B, dtype=torch.int64)).numpy()

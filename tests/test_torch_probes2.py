@@ -17,6 +17,7 @@ TF32, within 2^-11 relative of ``HIGHEST``.
 """
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -375,6 +376,129 @@ def test_every_tpu_kernel_site_has_a_port():
         for i, line in enumerate(path.read_text().splitlines(), 1):
             if "pl.pallas_call(" in line:
                 assert f"{rel}:{i}" in named, f"{rel}:{i}"
+
+
+# ---- the launch plans of P6 and P7 ----------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n", [1, 777, 8197, 65536])
+@pytest.mark.parametrize("B", [1, 2, 3, 64])
+def test_gather_plan_covers_every_cell_once(B, n):
+    """Every cell of every field belongs to exactly one cluster's share;
+    every SM has a block where the fields allow it; the phase bound divides
+    by the SMs of that grid."""
+    per_field, per_cluster = P2.gather_plan(B, n, H100_SMS)
+    assert per_field >= 1 and per_cluster >= 1
+    covered = np.zeros(n, np.int64)
+    for k in range(per_field):
+        covered[k * per_cluster:min(n, (k + 1) * per_cluster)] += 1
+    assert (covered == 1).all()
+    assert (per_field - 1) * per_cluster < n  # no cluster without cells
+    blocks = B * per_field * P2.GATHER_CTAS
+    assert blocks <= 4 * H100_SMS or per_field == 1
+    sms = P2.gather_sms(B, n, H100_SMS, "cluster")
+    assert sms == min(H100_SMS, blocks)
+    if n >= (H100_SMS // 4) * P2.GATHER_MIN_CELLS:  # the card is filled
+        assert sms > H100_SMS - B * P2.GATHER_CTAS or sms == H100_SMS
+    rates = {"sms": H100_SMS, "clock_mhz": 1980.0}
+    ms, by = P2.gather_phase_bound(B, n, 16, rates, "cluster")
+    assert ms == pytest.approx(B * n * 16 / (32 * sms * 1980e6) * 1e3)
+    assert by == f"random reads, 32 a cycle on {sms} SMs"
+
+
+def test_gather_plan_at_the_probe_shapes():
+    """One field on 33 clusters of 4 (132 SMs), 64 fields a cluster each."""
+    assert P2.gather_plan(1, P2.N, H100_SMS) == (33, 1986)
+    assert P2.gather_plan(64, P2.N, H100_SMS) == (1, P2.N)
+    assert P2.gather_sms(1, P2.N, H100_SMS, "cluster") == 132
+    assert P2.gather_sms(64, P2.N, H100_SMS, "l2") == 132
+    assert P2.gather_sms(1, 777, H100_SMS, "l2") == 4
+
+
+def test_onehot_flop_is_pinned():
+    """The yardstick of P7's phase bound: 2 x 1024 x 512 x 128 FLOP a chunk
+    a rep, 64 chunks, 16 reps, whatever the kernel skips or not."""
+    assert P2.onehot_flop() == 137_438_953_472
+    assert P2.onehot_flop(2048, 1) == 2 * 2 * 1024 * 512 * 128
+
+
+def _onehot_tiles(n: int, grid: int, block: int) -> list:
+    """The m64 tiles block ``block`` of P7's ``grid``-block launch walks
+    (``onehot_kernel``): ``block + w grid`` for warpgroup ``w``, then every
+    ``ONEHOT_GROUPS * grid``-th."""
+    tiles, step = n // P2.ONEHOT_TILE, P2.ONEHOT_GROUPS * grid
+    return [t for w in range(P2.ONEHOT_GROUPS)
+            for t in range(block + w * grid, tiles, step)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+@pytest.mark.parametrize("n", [1024, 2048, 65536])
+def test_onehot_tiles_cover_every_tile_once(n, sms):
+    """The persistent grid walks every m64 tile once, blocks within one
+    tile of each other, every warpgroup with a tile."""
+    grid = P2.onehot_plan(n, sms)
+    assert 1 <= grid <= sms
+    walked = [_onehot_tiles(n, grid, b) for b in range(grid)]
+    flat = sorted(t for w in walked for t in w)
+    assert flat == list(range(n // P2.ONEHOT_TILE))
+    sizes = [len(w) for w in walked]
+    assert max(sizes) - min(sizes) <= 1
+    assert min(sizes) >= min(P2.ONEHOT_GROUPS, n // P2.ONEHOT_TILE // grid)
+
+
+def test_plans_match_the_kernel_source():
+    """The Python plans mirror the constants of ``csrc/probe_gather.cu``."""
+    text = (ROOT / "die_tpu_torch" / "csrc" / "probe_gather.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert const("kGCta") == P2.GATHER_CTAS
+    assert const("kOhTile") == P2.ONEHOT_TILE
+    assert const("kOhGroups") == P2.ONEHOT_GROUPS
+    assert const("kOhK") == P2.ROWS and const("kOhCols") == P2.COLS
+    assert P2.COLS // const("kOhBandCols") == 2  # two bands of columns
+    assert P2.ONEHOT_SCRATCH_BYTES == {"bf16x3": 3 * 512 * 128 * 2,
+                                       "tf32": 512 * 128 * 4}
+    assert "tile += kOhGroups * gridDim.x" in text  # _onehot_tiles' walk
+
+
+def test_wide_field_parts_are_normal_or_zero():
+    """The wide-range parity field: both signs, +0 and -0, magnitudes
+    2^-100 to 2^101; its hi, mid and lo are exact, normal or zero."""
+    f = P2.seeded_wide((256, 256), 19, device="cpu")
+    zeros = f == 0
+    assert zeros.any() and torch.signbit(f[zeros]).any() and \
+        not torch.signbit(f[zeros]).all()
+    assert (f < 0).any() and (f > 0).any()
+    mag = f[~zeros].abs()
+    assert float(mag.min()) >= 2.0 ** -100 and float(mag.max()) < 2.0 ** 102
+    tiny = torch.finfo(torch.float32).tiny
+    for part in P2.split3(f):
+        a = part.abs()
+        assert not ((a > 0) & (a < tiny)).any()
+    hi, mid, lo = P2.split3(f)
+    assert torch.equal((hi + mid) + lo, f)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_wrappers_on_cpu_keep_the_plain_twins_at_any_batch(B):
+    """On CPU tensors the redesigned wrappers still run the plain twins (at
+    any batch, on the wide-range field) and count no launch."""
+    cuda_step.reset_launches()
+    fields = torch.stack([P2.seeded_wide((256, 256), 50 + b, device="cpu")
+                          for b in range(B)])
+    cells = P2.seeded_words((B, 777), 51, device="cpu")
+    for placement in P2.GATHER_PLACEMENTS:
+        assert torch.equal(P2.gather(fields, cells, 3, placement),
+                           P2.gather_plain(fields, cells, 3))
+    one = P2.seeded_cells((1024 * B,), 52, device="cpu")
+    for leg in P2.ONEHOT_LEGS:
+        assert P2.onehot(fields[0], one, leg, 2).view(torch.int32).equal(
+            P2.onehot_plain(fields[0], one, leg, 2).view(torch.int32))
+    assert not any(cuda_step.launches[k] for k in cuda_step.PROBE2_KERNELS)
 
 
 class _FakeGraph:
