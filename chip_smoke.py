@@ -92,10 +92,12 @@ Phases (any failure exits non-zero):
      kind, dtype, axis, shift, placement, sigma, gather placement, one-hot
      leg and word shape; words of random bit patterns), bitwise (bf16 and
      the TF32 one-hot leg too) except the tensor-core diffusion legs (at
-     ``probes.TC_REL_TOL``, max ulp printed), the gather probes also at 1 to
-     64 fields and up to 65,536 cells, the one-hot probe on a wide-range
-     field too, its kernels' registers printed and their SASS held to
-     ``HGMMA`` without ``HMMA``, and the one-application ulp
+     ``probes.TC_REL_TOL``, max ulp printed), the tensor-core legs of P4
+     and P5 at 1, 2, 3 and 64 fields and 0 to 5 applications (P5 also on a
+     wide-range field), the gather probes also at 1 to 64 fields and up to
+     65,536 cells, the one-hot probe on a wide-range field too, the
+     tensor-core and one-hot kernels' registers printed and their SASS held
+     to ``HGMMA`` without ``HMMA``, and the one-application ulp
      of each tensor-core leg against the stencil; then, counts read around
      it, every probe item at the TPU probe's full shape (64 fields of
      256x256; the gather and bit-plane items at B = 1 and B = 64) as
@@ -1818,19 +1820,17 @@ def phase_probe_parity():
         check(f"probe_rollk_{kind}", P.neighbour(x, kind, 3),
               P.neighbour_plain(x, kind, 3))
     check("probe_roll_kernel_shift", P.shift(x, 5), P.shift_plain(x, 5))
-    check("probe_roll_kernel_tc", P.tc_roll(x, 5), P.tc_roll_plain(x, 5))
     for sigma in P.SIGMAS:
         check(f"probe_diffuse_stencil_s{sigma}", P.stencil(x, sigma, 3),
               P.diffuse_plain(x, sigma, "stencil", 3))
         for kind in P.TC_KINDS:
             got = P.tc_diffuse(x, sigma, kind, 3)
             want = P.diffuse_plain(x, sigma, kind, 3)
-            check(f"probe_diffuse_tc_{kind}_s{sigma}", got, want,
-                  P.TC_REL_TOL[kind])
             log(f"probe tc_{kind} s{sigma}, 3 applications: max ulp "
                 f"{P.max_ulp(got, want)} against its plain twin (max abs "
                 f"{max_err(got, want):.3e}; tolerance {P.TC_REL_TOL[kind]} "
                 f"x max |y|)")
+    tc_parity(check)
     probe2_parity(check)
     torch.cuda.synchronize()
     log(f"probe parity: {len(errs)} probe kernels equal their plain versions "
@@ -1838,6 +1838,42 @@ def phase_probe_parity():
     for sigma in P.SIGMAS:
         log(json.dumps(P.ulp_check(sigma)))
     return errs
+
+
+TC_BATCHES = (1, 2, 3, 64)
+TC_COUNTS = (0, 1, 2, 3, 5)
+
+
+def tc_parity(check):
+    """The tensor-core legs (``csrc/probe_diffuse.cu``, ``tc_kernel``)
+    against their plain twins at 1, 2, 3 and 64 fields (3 an uneven grid, 64
+    more clusters than fit at once) and 0, 1, 2, 3 and 5 applications or
+    rounds (odd and even counts end on either buffer): P4 at both sigmas and
+    both kinds to ``probes.TC_REL_TOL``, P5 bitwise, also on a wide-range
+    field (both signs, +0 and -0, magnitudes 2^-100 to 2^101; subnormals
+    stay outside the probe: the tensor cores may flush them).  Then the
+    kernels' registers and their SASS: ``HGMMA``, no ``HMMA``."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    for B in TC_BATCHES:
+        x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 20 + B)
+        wide = P2.seeded_wide((B, P.SIDE, P.SIDE), 30 + B)
+        for n in TC_COUNTS:
+            for field in (x, wide):
+                check("probe_roll_kernel_tc", P.tc_roll(field, n),
+                      P.tc_roll_plain(field, n))
+            for sigma in P.SIGMAS:
+                for kind in P.TC_KINDS:
+                    check(f"probe_diffuse_tc_{kind}_s{sigma}",
+                          P.tc_diffuse(x, sigma, kind, n),
+                          P.diffuse_plain(x, sigma, kind, n),
+                          P.TC_REL_TOL[kind])
+    log(f"probe tensor-core legs equal their twins at B {TC_BATCHES} x "
+        f"{TC_COUNTS} applications (P5 bitwise, also on a wide-range field)")
+    log("probe_diffuse kernels (ptxas): " + kernel_registers("probe_diffuse"))
+    log(f"probe_diffuse SASS, tensor-core instructions by kernel: "
+        f"{wgmma_sass('probe_diffuse', 'tc_kernel')}")
 
 
 def probe2_parity(check):
@@ -1881,7 +1917,7 @@ def probe2_parity(check):
             log(f"probe onehot_{leg}, {n} cells, 3 reps, wide field: max "
                 f"ulp {P.max_ulp(got, exact)} against the exact gather")
     log("probe_gather kernels (ptxas): " + kernel_registers("probe_gather"))
-    hgmma = onehot_sass()
+    hgmma = wgmma_sass("probe_gather", "onehot_kernel")
     log(f"probe_gather SASS, tensor-core instructions by kernel: {hgmma}")
     for tag, shape in P2.CHAIN_SHAPES.items():
         x = P2.seeded_words((2, *shape), 16)
@@ -1918,24 +1954,25 @@ def kernel_registers(lib: str) -> str:
     return "; ".join(out) or "not built in this process (cached library)"
 
 
-def onehot_sass() -> dict:
-    """``HGMMA`` and ``HMMA`` counts of each one-hot kernel in the built
-    ``probe_gather`` library; raises unless each has ``HGMMA`` and no
-    ``HMMA``.  Empty where the toolkit has no ``cuobjdump``."""
+def wgmma_sass(lib_name: str, marker: str) -> dict:
+    """``HGMMA`` and ``HMMA`` counts of each kernel whose name holds
+    ``marker`` (its two instantiations) in the built library ``lib_name``;
+    raises unless each has ``HGMMA`` and no ``HMMA``.  Empty where the
+    toolkit has no ``cuobjdump``."""
     from die_tpu_torch.fast import cuda_step
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("cuobjdump not found: the one-hot kernels' SASS is not checked")
+        log(f"cuobjdump not found: the SASS of {marker} is not checked")
         return {}
-    lib = cuda_step.BUILD_DIR / f"probe_gather-{cuda_step._digest()}.so"
+    lib = cuda_step.BUILD_DIR / f"{lib_name}-{cuda_step._digest()}.so"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            name = name if "onehot_kernel" in name else None
+            name = name if marker in name else None
             if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
@@ -1943,7 +1980,7 @@ def onehot_sass() -> dict:
                 counts[name][key] += bool(re.search(rf"\b{key}\b", line))
     if len(counts) != 2 or any(c["HGMMA"] < 1 or c["HMMA"] for c in
                                counts.values()):
-        raise AssertionError(f"one-hot kernels not on wgmma alone: {counts}")
+        raise AssertionError(f"{marker} not on wgmma alone: {counts}")
     return counts
 
 

@@ -215,7 +215,7 @@ def build() -> float:
                 ("probe_diffuse", "die_probe_stencil",
                  [vp, vp, ip, ip, vp, ip, fp]),
                 ("probe_diffuse", "die_probe_tc",
-                 [vp, vp, vp, ip, ip, ip, ip, fp, fp]),
+                 [vp, vp, vp, ip, ip, ip, ip, fp, fp, ip]),
                 ("probe_gather", "die_probe_gather",
                  [vp, vp, vp, ip, ip, ip, ip, ip, ip]),
                 ("probe_gather", "die_probe_onehot",

@@ -20,11 +20,16 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
   ``+o1`` reads ``x[i+o0, j-o1]``).
 - P4 ``make_diffuse_kernel`` -> :func:`stencil` (``csrc/probe_diffuse.cu``,
   the separable wrap Gaussian in K1's order) and :func:`tc_diffuse`
-  (``A x A^T`` on the tensor cores with ``mma.sync``, TF32 or BF16 inputs,
-  f32 accumulation).
+  (``A x A^T`` on the tensor cores with ``wgmma``, TF32 or BF16 inputs, f32
+  accumulation): a field's columns split over a cluster of blocks (TF32 4,
+  bf16 2), each product's output tiles moved by bulk copies to the block
+  that owns them next, the matrix held in registers (TF32: half of its k,
+  the rest in shared memory); :func:`tc_plan` states the layout and the
+  routing.
 - P5 ``make_roll_kernel`` -> :func:`shift` (``roll(x, 1, 0) + 1``, a cluster
   of 4) and :func:`tc_roll` (``P x + 1`` with the permutation ``P`` on the
-  tensor cores, TF32).
+  tensor cores, TF32, the same kernel one-sided: no cluster, each block's
+  output stored transposed into its own buffer).
 
 Each wrapper given CPU tensors runs its plain version (``*_plain``); given
 CUDA tensors it launches its kernel or raises, and adds one to
@@ -395,6 +400,105 @@ def _operand(what: str, sigma: float, kind: str, device: str):
     return t.to(torch.bfloat16) if kind == "bf16" else t
 
 
+# ---- the tensor-core kernel's plan ---------------------------------------------
+
+TC_TILE = 64  # rows and columns of a wgmma output tile
+TC_GROUPS = SIDE // TC_TILE  # warpgroups a block; also the m-tiles
+TC_CLUSTER = {"tf32": 4, "bf16": 2}  # blocks a field (csrc Tc::kCl)
+TC_REG_STEPS = 16  # k-steps of the matrix in registers (csrc kRegSteps)
+TC_SMEM_LIMIT = 232448  # bytes of shared memory a block may take
+
+
+def tc_plan(B: int, two_sided: bool, kind: str = "tf32") -> dict:
+    """What ``die_probe_tc`` (``csrc/probe_diffuse.cu``) launches for ``B``
+    fields: ``blocks`` (``fields`` of them a field, one an SM) of 4
+    warpgroups, warpgroup ``t`` computing the m64n64 tiles of m-tile ``t``
+    (the matrix's rows ``64 t`` .. ``64 t + 63``) of every product with
+    ``wgmma``; ``cluster``, the blocks of a field launched as one cluster
+    two-sided (their tiles cross it), 1 one-sided (TF32 only).  Block ``r``
+    owns the field's columns ``cols[r]``, K-major: ``buffers`` buffers, each
+    ``n_tiles`` sub-buffers of ``sub_bytes``, a sub-buffer's row ``n``
+    holding one column with its 256 k contiguous, in wgmma's 128-byte
+    swizzle.  ``route[(r, t, u)] = (block, sub, k0, transposed)``: where
+    output tile (m-tile ``t``, n-tile ``u``) of block ``r`` goes for the next
+    product, into rows 0..63 and k ``k0`` .. ``k0 + 63`` of that block's
+    sub-buffer ``sub``, transposed or not; two-sided it is staged, rounded,
+    in ``staging`` slots and moved by one bulk copy, unless it stays in its
+    block.  ``writeback[(r, t, u)] = (row0, col0, transposed)``: where the
+    last product puts it in ``out``.  The matrix, loaded once a block and
+    rounded: its first ``a_reg_k`` k of the warpgroup's rows in registers,
+    the rest of every row (``a_smem_bytes``) resident in shared memory.
+    ``cluster_barriers``: those of a two-sided product (bf16 ping-pongs and
+    waits on its mbarriers alone; TF32's one buffer waits until every block
+    has read its own, and stores its four 64-k regions rotated by the
+    block's rank, a storage order the routing here does not see).  bf16
+    takes clusters of 2 because 66 fit the card at once (B = 64 in one
+    wave); TF32's buffer and matrix need clusters of 4, of which 30 fit."""
+    if kind not in TC_KINDS:
+        raise ValueError(f"tc_plan: kind must be one of {TC_KINDS}")
+    if not two_sided and kind != "tf32":
+        raise ValueError("tc_plan: the one-sided product is TF32 only")
+    if B < 1 or B > 65535 // 8:
+        raise ValueError(f"tc_plan: 1 to {65535 // 8} fields, got {B}")
+    elem = 2 if kind == "bf16" else 4
+    fields = TC_CLUSTER[kind]
+    cols = SIDE // fields
+    nt = cols // TC_TILE
+    sub_bytes = TC_TILE * SIDE * elem
+    buffers = 2 if kind == "bf16" else 1
+    a_reg_k = TC_REG_STEPS * 32 // elem
+    a_smem_bytes = SIDE * (SIDE - a_reg_k) * 4
+    tile_bytes = TC_TILE * TC_TILE * elem
+    remote = nt * (TC_GROUPS - nt)  # tiles a product sends away
+    staging = 2 * remote if kind == "bf16" else 2
+    tiles = [(r, t, u) for r in range(fields) for t in range(TC_GROUPS)
+             for u in range(nt)]
+    if two_sided:  # Z^T = A Y^T: the same form, the same routing
+        route = {(r, t, u): (t // nt, t % nt, cols * r + TC_TILE * u, False)
+                 for r, t, u in tiles}
+        back = {(r, t, u): (cols * r + TC_TILE * u, TC_TILE * t, True)
+                for r, t, u in tiles}
+    else:
+        route = {(r, t, u): (r, u, TC_TILE * t, True) for r, t, u in tiles}
+        back = {(r, t, u): (TC_TILE * t, cols * r + TC_TILE * u, False)
+                for r, t, u in tiles}
+    return {"blocks": fields * B, "fields": fields,
+            "cluster": fields if two_sided else 1,
+            "warpgroups": TC_GROUPS, "n_tiles": nt,
+            "cols": [(cols * r, cols * (r + 1)) for r in range(fields)],
+            "buffers": buffers, "sub_bytes": sub_bytes,
+            "a_reg_k": a_reg_k, "a_smem_bytes": a_smem_bytes,
+            "staging": staging, "tile_bytes": tile_bytes,
+            "smem_bytes": buffers * nt * sub_bytes + a_smem_bytes
+            + staging * tile_bytes + 16 + 1024,
+            "route": route, "writeback": back,
+            "cluster_barriers": 0 if buffers == 2 else 1}
+
+
+def tc_placement(plan: dict) -> str:
+    """The plan in words, for the measurement rows."""
+    where = (f"{plan['a_reg_k']} k of A in registers, "
+             f"{plan['a_smem_bytes'] // 1024} KB in shared memory"
+             if plan["a_smem_bytes"] else "A in registers")
+    if plan["cluster"] > 1:
+        how = (f"cluster{plan['cluster']} column-split, {plan['buffers']} "
+               f"buffer(s), tiles staged and moved by cp.async.bulk on an "
+               f"mbarrier, {plan['cluster_barriers']} cluster barrier(s) a "
+               f"product" + ("; regions pipelined on the tiles' landing"
+                             if plan["buffers"] == 1 else ""))
+    else:
+        how = (f"{plan['fields']} blocks a field, no cluster, output stored "
+               f"transposed into the block's own buffer")
+    return f"wgmma m64n64, {where}; {how}"
+
+
+def tc_flop(two_sided: bool, B: int, n: int) -> int:
+    """FLOP of ``n`` applications (rounds) on ``B`` fields: two dense
+    256x256x256 products an application two-sided, one one-sided; no zero
+    block of the matrix is skipped, so this is the work the kernel does."""
+    return B * n * (4 if two_sided else 2) * SIDE ** 3
+
+
 def tc_diffuse(x: torch.Tensor, sigma: float, kind: str,
                apps: int = DIFFUSE_APPS, decay: float = DECAY):
     """P4's tensor-core legs on f32 ``[B, 256, 256]``: ``kind`` ``tf32`` or
@@ -406,11 +510,12 @@ def tc_diffuse(x: torch.Tensor, sigma: float, kind: str,
     if x.device.type == "cpu":
         return diffuse_plain(x, sigma, kind, apps, decay)
     _check(x, torch.float32, key)
+    plan = tc_plan(x.shape[0], True, kind)
     a = _operand("circulant", sigma, kind, str(x.device))
     out = torch.empty_like(x)
     _launch("probe_diffuse", "die_probe_tc", key, x.data_ptr(),
             out.data_ptr(), a.data_ptr(), x.shape[0], apps,
-            int(kind == "bf16"), 1, decay, 0.0)
+            int(kind == "bf16"), 1, decay, 0.0, plan["cluster"])
     return out
 
 
@@ -421,10 +526,12 @@ def tc_roll(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
     if x.device.type == "cpu":
         return tc_roll_plain(x, rounds)
     _check(x, torch.float32, key)
+    plan = tc_plan(x.shape[0], False)
     p = _operand("perm", 0.0, "tf32", str(x.device))
     out = torch.empty_like(x)
     _launch("probe_diffuse", "die_probe_tc", key, x.data_ptr(),
-            out.data_ptr(), p.data_ptr(), x.shape[0], rounds, 0, 0, 1.0, 1.0)
+            out.data_ptr(), p.data_ptr(), x.shape[0], rounds, 0, 0, 1.0, 1.0,
+            plan["cluster"])
     return out
 
 
@@ -657,8 +764,8 @@ def stencil_ops(sigma) -> int:
 def measure_diffuse(sigma, kind, rates, B=BLOCKS, apps=DIFFUSE_APPS, reps=3):
     """P4 item ``diffuse_kernel_{stencil,tc_tf32,tc_bf16}_s{sigma}``.  Bound:
     the stencil's operations over the fp32 lane rate; a product leg's
-    ``2 * 2 * 256^3`` FLOP an application over the tensor cores' rate.
-    Library: the ``torch.matmul`` chain of the same precision."""
+    :func:`tc_flop` over the tensor cores' rate.  Library: the
+    ``torch.matmul`` chain of the same precision."""
     x = seeded((B, SIDE, SIDE), torch.float32, 5)
     cells = B * SIDE * SIDE
     if kind == "stencil":
@@ -670,7 +777,7 @@ def measure_diffuse(sigma, kind, rates, B=BLOCKS, apps=DIFFUSE_APPS, reps=3):
     else:
         run = lambda: tc_diffuse(x, sigma, kind, apps)  # noqa: E731
         ref_fn = lambda: diffuse_plain(x, sigma, kind, apps)  # noqa: E731
-        ops, rate = B * apps * 4 * SIDE ** 3, rates[kind]
+        ops, rate = tc_flop(True, B, apps), rates[kind]
         lib_kind = kind
         key = f"probe_diffuse_tc_{kind}_s{sigma}"
     out = run()
@@ -690,9 +797,8 @@ def measure_diffuse(sigma, kind, rates, B=BLOCKS, apps=DIFFUSE_APPS, reps=3):
     nbytes = 2 * x.numel() * 4 + (0 if kind == "stencil" else SIDE * SIDE * 4)
     return _row(f"{item}_s{sigma}", key, ms, plain_ms, out, ref, nbytes, ops,
                 rate, rates, library_ms=lib,
-                placement="cluster4-dsmem" + (
-                    "" if kind == "stencil" else
-                    "; A streamed from L2 (__ldg), not in shared memory"),
+                placement="cluster4-dsmem" if kind == "stencil" else
+                tc_placement(tc_plan(B, True, kind)),
                 us_per_app=ms * 1e3 / (B * apps),
                 max_ulp=max_ulp(out, ref), rel_err=err / scale)
 
@@ -713,9 +819,8 @@ def measure_tc_roll(rates, B=BLOCKS, rounds=SHIFT_ROUNDS, reps=3):
         lib = rounds * time_ms(lambda: torch.matmul(p, x) + 1.0, 5)
     return _row("roll_kernel_tc", "probe_roll_kernel_tc", ms, plain_ms, out,
                 ref, 2 * x.numel() * 4 + SIDE * SIDE * 4,
-                B * rounds * 2 * SIDE ** 3, rates["tf32"], rates,
-                library_ms=lib,
-                placement="cluster4-dsmem; P streamed from L2 (__ldg)",
+                tc_flop(False, B, rounds), rates["tf32"], rates,
+                library_ms=lib, placement=tc_placement(tc_plan(B, False)),
                 ns_per_roll=ms * 1e6 / (B * rounds))
 
 

@@ -5,6 +5,7 @@ unpacked beside the working tree) compare on one card in one call.
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH [--envs 1024]
         [--fold-shapes] [--k3k4] [--large] [--train]
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --gather-probes
+    python3 die_tpu_torch/tools/tree_timing.py --tree PATH --diffuse-probes
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -23,9 +24,13 @@ CUDA graph; with ``--large``, the large-field env-steps/s
 (``large_rates``); with ``--train``, the train env-steps/s
 (``train_rate``).  With ``--gather-probes``, only the gather probes
 (``gather_probes_ms``): P7's two one-hot legs and P6's ``cluster`` and
-``l2`` placements at B = 1 and 64, device time from a CUDA graph.  Uses
-only what every tree of the port has (the entry points and wrappers,
-``train_lattice``, the committed artifacts, ``tools/probes2.py``).
+``l2`` placements at B = 1 and 64, device time from a CUDA graph.  With
+``--diffuse-probes``, only the diffusion and roll probes
+(``diffuse_probes_ms``): P4's four tensor-core legs and two stencil legs and
+P5's product leg at the TPU probes' shape, device time from a CUDA graph,
+beside the ``torch.matmul`` chains of the same precision under the same
+timing.  Uses only what every tree of the port has (the entry points and
+wrappers, ``train_lattice``, the committed artifacts, ``tools/probes2.py``).
 """
 from __future__ import annotations
 
@@ -202,6 +207,74 @@ def gather_probes_ms() -> dict:
     return out
 
 
+def diffuse_probes_ms(calls: int = 2) -> dict:
+    """Device ms a call (``probes2.device_ms``, ``calls`` calls a graph) of
+    P4's legs (stencil, tc_tf32 and tc_bf16 at both sigmas, 64 fields of
+    256x256, 64 applications) and P5's product leg (256 rounds) on the
+    inputs of ``probes.measure_diffuse`` and ``measure_tc_roll``, each
+    output first held against its plain twin (the stencil and P5 bitwise,
+    the products to ``TC_REL_TOL``); beside them (``library_*``) the
+    ``torch.matmul`` chains of the same precision, captured the same way:
+    ``A x A^T`` with TF32 on, in bf16, and 256 chained ``P x + 1`` with
+    TF32 on.  The chains are built here from the tree's ``circulant`` and
+    ``permutation``, so both trees time the same library work."""
+    import torch
+
+    from die_tpu_torch.ops.gaussian import gaussian_taps
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    def timed(name, run, plain, tol=None):
+        got, want = run(), plain()
+        if tol is None:
+            ok = P.same_bits(got, want)
+        else:
+            ok = float((got - want).abs().max()) <= tol * float(
+                want.abs().max())
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain twin")
+        out[name] = P2.device_ms(run, calls)
+
+    def chain(a, at, x, apps, dtype=None):
+        for _ in range(apps):
+            y = x if dtype is None else x.to(dtype)
+            x = torch.matmul(torch.matmul(a, y), at).float() * P.DECAY
+        return x
+
+    out = {}
+    B, apps, rounds = P.BLOCKS, P.DIFFUSE_APPS, P.SHIFT_ROUNDS
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 5)
+    for sigma in P.SIGMAS:
+        timed(f"stencil_s{sigma}", lambda: P.stencil(x, sigma, apps),
+              lambda: P.diffuse_plain(x, sigma, "stencil", apps))
+        for kind in P.TC_KINDS:
+            timed(f"tc_{kind}_s{sigma}",
+                  lambda: P.tc_diffuse(x, sigma, kind, apps),
+                  lambda: P.diffuse_plain(x, sigma, kind, apps),
+                  P.TC_REL_TOL[kind])
+        a = torch.from_numpy(P.circulant(P.SIDE, gaussian_taps(sigma))).cuda()
+        ab = a.to(torch.bfloat16)
+        with P.tf32_matmul(True):
+            out[f"library_tf32_s{sigma}"] = P2.device_ms(
+                lambda: chain(a, a.T, x, apps), calls)
+        out[f"library_bf16_s{sigma}"] = P2.device_ms(
+            lambda: chain(ab, ab.T, x, apps, torch.bfloat16), calls)
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 6)
+    timed("tc_roll", lambda: P.tc_roll(x, rounds),
+          lambda: P.tc_roll_plain(x, rounds))
+    p = torch.from_numpy(P.permutation(P.SIDE)).cuda()
+
+    def roll_chain():
+        y = x
+        for _ in range(rounds):
+            y = torch.matmul(p, y) + 1.0
+        return y
+
+    with P.tf32_matmul(True):
+        out["library_roll_tf32"] = P2.device_ms(roll_chain, calls)
+    return out
+
+
 def large_rates() -> dict:
     """Large-field env-steps/s of ``fast_rollout_auto`` (``FastDynamics()``)
     at each of ``LARGE`` for ``num_inner`` 1 and 2, CUDA events around one
@@ -287,6 +360,7 @@ def main():
     ap.add_argument("--large", action="store_true")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--gather-probes", action="store_true")
+    ap.add_argument("--diffuse-probes", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -311,6 +385,11 @@ def main():
     if args.gather_probes:
         print(json.dumps({"tree": str(tree),
                           "gather_probes_ms": gather_probes_ms(),
+                          "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.diffuse_probes:
+        print(json.dumps({"tree": str(tree),
+                          "diffuse_probes_ms": diffuse_probes_ms(),
                           "nvidia_smi": smi}), flush=True)
         return 0
     B, field = args.envs, (256, 256)

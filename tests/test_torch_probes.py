@@ -274,6 +274,115 @@ def test_tc_roll_plain_is_the_shift_on_tf32_inputs():
     assert torch.equal(P.tc_roll_plain(x32, 1), P.shift_plain(x32, 1))
 
 
+# ---- the tensor-core kernel's plan: routing composed on the CPU -----------------
+
+def _compose(plan, M, X, n, two_sided, decay=0.9, add=1.0):
+    """``n`` applications (rounds) of the products as the kernel runs them
+    under ``plan``, in float64: block ``r``'s tile (m-tile ``t``, n-tile
+    ``u``) is ``M[64 t:] @ F_u`` with ``F_u`` its K-major sub-buffer ``u``,
+    every tile routed (or, in the last product, written back) where the plan
+    says; every tile must land exactly once."""
+    w = P.TC_TILE
+    bufs = {r: X[:, c0:c1].T.reshape(-1, w, P.SIDE).copy()
+            for r, (c0, c1) in enumerate(plan["cols"])}
+    out = np.full(X.shape, np.nan)
+    cover = np.zeros(X.shape, np.int64)
+    sides = 2 if two_sided else 1
+    for app in range(n):
+        for side in range(sides):
+            last = app == n - 1 and side == sides - 1
+            new = {r: np.full(b.shape, np.nan) for r, b in bufs.items()}
+            hits = {r: np.zeros(b.shape, np.int64) for r, b in bufs.items()}
+            for (r, t, u), (dest, sub, k0, transposed) in plan["route"].items():
+                D = M[w * t:w * (t + 1)] @ bufs[r][u].T
+                D = D * decay if two_sided and side == 1 else D
+                D = D if two_sided else D + add
+                if last:
+                    r0, c0, tr = plan["writeback"][(r, t, u)]
+                    out[r0:r0 + w, c0:c0 + w] = D.T if tr else D
+                    cover[r0:r0 + w, c0:c0 + w] += 1
+                else:
+                    new[dest][sub, :, k0:k0 + w] = D.T if transposed else D
+                    hits[dest][sub, :, k0:k0 + w] += 1
+            if not last:
+                assert all((h == 1).all() for h in hits.values()), \
+                    "a tile delivered twice or never"
+                bufs = new
+    assert (cover == 1).all(), "the write-back covers a cell twice or never"
+    return out
+
+
+@pytest.mark.parametrize("kind", P.TC_KINDS)
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_tc_plan_routing_composes_a_x_at(kind, n):
+    rs = np.random.RandomState(40 + n)
+    M = P.circulant(P.SIDE, P.gaussian_taps(1.25)).astype(np.float64)
+    X = rs.uniform(-1.0, 1.0, (P.SIDE, P.SIDE))
+    want = X
+    for _ in range(n):
+        want = M @ want @ M.T * 0.9
+    got = _compose(P.tc_plan(3, True, kind), M, X, n, True)
+    np.testing.assert_allclose(got, want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_tc_plan_routing_composes_p_x_plus_1_bitwise(n):
+    rs = np.random.RandomState(50 + n)
+    X = rs.uniform(-1.0, 1.0, (P.SIDE, P.SIDE))
+    want = X
+    for _ in range(n):
+        want = np.roll(want, 1, 0) + 1.0
+    got = _compose(P.tc_plan(2, False), P.permutation(P.SIDE).astype(
+        np.float64), X, n, False)
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def test_tc_plan_composition_catches_a_wrong_route():
+    """Negative control: the one-sided routing used for the two-sided
+    products delivers every tile once but composes another function."""
+    rs = np.random.RandomState(60)
+    M = P.circulant(P.SIDE, P.gaussian_taps(0.5)).astype(np.float64)
+    X = rs.uniform(-1.0, 1.0, (P.SIDE, P.SIDE))
+    plan = {**P.tc_plan(1, True), "route": P.tc_plan(1, False)["route"]}
+    got = _compose(plan, M, X, 2, True)
+    assert not np.allclose(got, M @ (M @ X @ M.T * 0.9) @ M.T * 0.9)
+
+
+@pytest.mark.parametrize("two_sided,kind", [(True, "tf32"), (True, "bf16"),
+                                            (False, "tf32")])
+def test_tc_plan_fits_a_block_and_covers_the_field(two_sided, kind):
+    for B in (1, 2, 3, 64):
+        plan = P.tc_plan(B, two_sided, kind)
+        assert plan["blocks"] == plan["fields"] * B
+        assert plan["cluster"] == (plan["fields"] if two_sided else 1)
+        assert plan["smem_bytes"] <= P.TC_SMEM_LIMIT
+        cols = [c for c0, c1 in plan["cols"] for c in range(c0, c1)]
+        assert cols == list(range(P.SIDE))
+        assert len(plan["route"]) == len(plan["writeback"]) == \
+            P.TC_GROUPS * P.SIDE // P.TC_TILE
+    # the matrix: all of K in registers (bf16), or half beside 128 KB
+    assert P.tc_plan(1, True, "bf16")["a_reg_k"] == P.SIDE
+    assert P.tc_plan(1, True, "tf32")["a_smem_bytes"] == 128 * 1024
+    with pytest.raises(ValueError):
+        P.tc_plan(0, True)
+    with pytest.raises(ValueError):
+        P.tc_plan(1, True, "f32")
+    with pytest.raises(ValueError):
+        P.tc_plan(1, False, "bf16")
+
+
+def test_tc_flop_pins_the_dense_work():
+    """The yardstick of the tensor-core legs: every product a full
+    256x256x256 one, at the TPU probes' shape; the measurements use it."""
+    assert P.tc_flop(True, P.BLOCKS, P.DIFFUSE_APPS) == 274_877_906_944
+    assert P.tc_flop(False, P.BLOCKS, P.SHIFT_ROUNDS) == 549_755_813_888
+    import inspect
+    assert "tc_flop(True, B, apps)" in inspect.getsource(P.measure_diffuse)
+    assert "tc_flop(False, B, rounds)" in inspect.getsource(
+        P.measure_tc_roll)
+
+
 # ---- the wrappers on the CPU, the counters, the tools ---------------------------
 
 def test_wrappers_on_cpu_tensors_run_the_plain_versions():
@@ -319,6 +428,33 @@ def test_probe_counters_are_registered():
         assert "pl.pallas_call(" in text, (key, rep, text)
 
 
+def test_library_chain_on_cpu_computes_the_function():
+    """The stencil's yardstick computes what the legs compute: the f32
+    ``A x A^T`` chain is the plain f32 leg."""
+    x = torch.from_numpy(_seeded((2, 256, 256), "float32", 23))
+    torch.testing.assert_close(P.library_diffuse(x, 0.5, "f32", 2),
+                               P.diffuse_plain(x, 0.5, "f32", 2),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("cut", ["products", "no_copies"])
+def test_tc_split_cut_points_are_in_the_source(cut):
+    """``tools/tc_split.py`` cuts ``probe_diffuse.cu`` at lines of its own:
+    each is there, the cut drops every bulk copy (and, for ``products``,
+    puts the epilogues under a condition no leg meets), and the braces still
+    pair."""
+    from die_tpu_torch.tools import tc_split
+
+    src = tc_split.SOURCE.read_text()
+    got = tc_split.cut_source(src, cut)
+    assert got.count("bulk_to(") == 1  # the definition alone
+    assert got.count("if (p.decay == -1.0f) {") == (3 if cut == "products"
+                                                    else 0)
+    assert got.count("{") - got.count("}") == src.count("{") - src.count("}")
+    with pytest.raises(ValueError):
+        tc_split.cut_source(src.replace("bars + 8 * at);", "bars);"), cut)
+
+
 def _no_cuda_env():
     return {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
 
@@ -332,6 +468,19 @@ def test_tools_help_runs_without_cuda(tool):
         env=_no_cuda_env())
     assert out.returncode == 0, out.stderr
     assert "all" in out.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["tree_timing.py", "--tree", str(ROOT), "--diffuse-probes"],
+    ["tc_split.py"]])
+def test_diffuse_probe_timing_tools_refuse_without_cuda(args):
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "die_tpu_torch" / "tools" / args[0]),
+         *args[1:]], capture_output=True, text=True, timeout=120,
+        env=_no_cuda_env())
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not out.stdout.strip()
 
 
 @pytest.mark.parametrize("tool", ["gpu_measure.py", "gpu_tc_offload.py",
