@@ -89,8 +89,12 @@ Phases (any failure exits non-zero):
      TPU probes of ``tools/tpu_measure.py`` and ``tools/tpu_mxu_offload.py``;
      ``tools/probes2.py``, of ``tools/tpu_measure2.py``): every probe kernel
      against its plain version on small cases (2 fields, a few rounds; every
-     kind, dtype, axis, shift, placement, sigma, gather placement, one-hot
-     leg and word shape; words of random bit patterns), bitwise (bf16 and
+     kind, dtype, axis, shift, sigma, gather placement, one-hot leg and word
+     shape; words of random bit patterns; the ALU probe's int8, int16 and
+     bf16 legs also on fields holding every int8 and int16 value and every
+     finite bf16 pattern and +-inf, at 1 and 3 rounds; the roll probe at 2
+     and 3 fields and 0, 1, 4, 15, 16, 17 rounds around its unrolled group
+     of 16), bitwise (bf16 and
      the TF32 one-hot leg too) except the tensor-core diffusion legs (at
      ``probes.TC_REL_TOL``, max ulp printed), the tensor-core legs of P4
      and P5 at 1, 2, 3 and 64 fields and 0 to 5 applications (P5 also on a
@@ -115,9 +119,7 @@ import argparse
 import contextlib
 import json
 import math
-import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -1809,13 +1811,20 @@ def phase_probe_parity():
         x = P.seeded(shape, P.DTYPES[dtype], 10)
         check(f"probe_alu_{kind}_{dtype}", P.alu(x, kind, 3),
               P.alu_plain(x, kind, 3))
-    x = P.seeded(shape, torch.float32, 11)
+        if dtype in P.EVERY_VALUE_DTYPES:  # every lane value, lanes differ
+            x = P.every_value(shape, dtype, 10)
+            for rounds in (1, 3):
+                check(f"probe_alu_{kind}_{dtype}", P.alu(x, kind, rounds),
+                      P.alu_plain(x, kind, rounds))
     for axis, shift in P.ROLL_CASES:
-        for placement in P.PLACEMENTS:
-            for rounds in (1, 4):
-                check(f"probe_roll_ax{axis}_s{shift}_{placement}",
-                      P.roll(x, axis, shift, rounds, placement),
+        u = P.roll_unroll(shift)
+        for B in (2, 3):
+            x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 11 + B)
+            for rounds in sorted({0, 1, 4, u - 1, u, u + 1, 17}):
+                check(f"probe_roll_ax{axis}_s{shift}",
+                      P.roll(x, axis, shift, rounds),
                       P.roll_plain(x, axis, shift, rounds))
+    x = P.seeded(shape, torch.float32, 11)
     for kind in P.NEIGHBOUR_KINDS:
         check(f"probe_rollk_{kind}", P.neighbour(x, kind, 3),
               P.neighbour_plain(x, kind, 3))
@@ -1959,15 +1968,12 @@ def wgmma_sass(lib_name: str, marker: str) -> dict:
     ``marker`` (its two instantiations) in the built library ``lib_name``;
     raises unless each has ``HGMMA`` and no ``HMMA``.  Empty where the
     toolkit has no ``cuobjdump``."""
-    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.tools import probes as P
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    sass = P.sass_text(lib_name)
+    if not sass:
         log(f"cuobjdump not found: the SASS of {marker} is not checked")
         return {}
-    lib = cuda_step.BUILD_DIR / f"{lib_name}-{cuda_step._digest()}.so"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1997,10 +2003,19 @@ def phase_probes(smi: str):
     rates = P.card_rates()
     log(f"probe rates (card 0, max SM clock {rates['clock_mhz']} MHz, "
         f"{rates['sms']} SMs): {json.dumps(rates)}")
+    shift_regs = kernel_registers("probe_shift")
+    log("probe_shift kernels (ptxas): " + shift_regs)
+    log("probe_alu kernels (ptxas): " + kernel_registers("probe_alu"))
+    if re.search(r"roll_kernel[^;]*[1-9]\d* bytes spill", shift_regs):
+        raise AssertionError(f"roll_kernel spills: {shift_regs}")
+    sass = P.alu_sass()
+    for (kind, dtype), counts in sass.items():
+        cycles, by = P.alu_cycles(counts)
+        log(f"probe_alu SASS a pair a word, {kind} {dtype}: {counts}; "
+            f"{cycles:g} clocks a warp ({by})")
     cuda_step.reset_launches()
-    rows = [P.measure_alu(k, d, rates) for k, d in P.ALU_CASES]
-    rows += [P.measure_roll(a, s, p, rates) for a, s in P.ROLL_CASES
-             for p in P.PLACEMENTS]
+    rows = [P.measure_alu(k, d, rates, sass=sass) for k, d in P.ALU_CASES]
+    rows += [P.measure_roll(a, s, rates) for a, s in P.ROLL_CASES]
     rollk = {k: P.measure_neighbour(k, rates) for k in P.NEIGHBOUR_KINDS}
     rows += list(rollk.values())
     rows += [P.measure_shift(rates), P.measure_tc_roll(rates)]

@@ -11,20 +11,52 @@
 // dtype on a VMEM-resident 256x256 block.  What it computes is elementwise,
 // so there is nothing to keep on chip but registers: each thread holds one
 // 32-bit word of the field (one f32 or int32, a bf16 or int16 pair, four
-// int8) and its four chains in registers, and the arithmetic is packed the
-// way the TPU's is: bf16 as __nv_bfloat162 pairs (mul.rn.bf16x2,
-// add.rn.bf16x2: one rounding each, no contraction), int16 and int8 as the
-// SIMD intrinsics (__vadd2 / __vadd4 and their compare, subtract and max).
-// Every select computes both sides and picks by a mask, so no lane of a warp
-// branches away from the others.  Under --fmad=false the f32 fma is a
-// multiply and then an add, two roundings, as the lattice step's contract
-// pays them.
+// int8) and its four chains in registers.  Every select picks by a mask, so
+// no lane of a warp branches away from the others.  Under --fmad=false the
+// f32 fma is a multiply and then an add, two roundings, as the lattice
+// step's contract pays them.
+//
+// What bounds each leg is the issue slot (one warp instruction a clock a
+// scheduler) or, where its instructions crowd one pipe, that pipe: the ALU
+// pipe (compares, selects, LOP3, PRMT, packed min/max) and the half-
+// precision FMA pipe take a warp instruction every 2 clocks (read from the
+// timings of candidate sequences: no profiler counts pipes here).  The SASS
+// a pair and a word (cuobjdump, sm_90a), and how each sequence keeps off a
+// crowded pipe:
+//   - f32 fma: FMUL, FADD (2, issue).  bf16 fma: 2 (HMUL2 or HADD2 on the
+//     FMA pipe, HFMA2.MMA on the MMA pipe, as ptxas splits them).
+//   - f32 cmpsel: FSETP and a predicated FMUL, FADD (3, issue).
+//   - bf16 cmpsel: HSET2 (a mask), the product, the sum and a LOP3 select
+//     (4).  The compare can only go to the FMA pipe, so the sum is written
+//     as fma.rn(x, 1, k2) with the 1 from the wrapper and the product as
+//     fma.rn(x, k1, -0) (each one rounding of an exact product or sum: the
+//     add.rn and mul.rn results), which ptxas may put on the MMA pipe: about
+//     half of them go there, where add.rn and mul.rn kept two thirds on the
+//     FMA pipe.
+//   - int32 intops: ISETP, SEL, and an IMAD.IADD (3; the ALU pipe's 2).
+//   - int16 intops, on the packed halves with sm_90's 16x2 instructions
+//     (5: 2 VIADD.16x2, VIMNMX.S16x2, PRMT, LOP3; 3 on the ALU pipe): the
+//     compare is the sign of max(x, low) - (k0 + 1), where the clamp `low`
+//     = k0 + 1 - 32768 keeps the difference from wrapping (so 0 <= k0 + 1 <=
+//     32767), its sign bit spread over the half by PRMT (0xBB99); the add is
+//     one VIADD.16x2 of the half's own constant, m ? k2 : -k1, picked by one
+//     LOP3.
+//   - int8 intops: the same sequence on two registers a word, lanes 0, 2
+//     and 1, 3 at the top byte of each 16-bit half (low bytes 0, the
+//     constants scaled by 256), where a 16-bit add wraps the lane as an
+//     8-bit one does (10; 6 on the ALU pipe).
+//   The __vcmpgts2 / __vsub2 / __vadd2 and __vcmpgts4 / __vsub4 / __vadd4
+//   intrinsics took 7 and 12 instructions, 4 and 9 on the ALU pipe; a SWAR
+//   form with the carries held off the lane boundaries (LOP3, IADD, PRMT)
+//   took 10, 8 on the ALU pipe, for either; each lane in an int32 of its own
+//   took 3 a lane.
 //
 // Bound: operations.  B * 4 * 16 * rounds * 256^2 operations (the TPU
 // tool's count: a pair is two) over the lane rate of the dtype; the field is
-// read and written once.  The constants (chain offsets, and the kind's three
-// constants) come from the wrapper as 32-bit words in the dtype, repeated
-// across the word's lanes, so the kernel uses the plain version's values.
+// read and written once.  The constants (chain offsets, the kind's three
+// constants and the sequences' derived words) come from the wrapper as
+// 32-bit words, repeated across the word's lanes (probes.alu_consts), so the
+// kernel uses the plain version's values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,7 +74,11 @@ struct Consts {
   uint32_t ofs[4];  // chain offsets 0, 1, 2, 3 in the dtype
   uint32_t k[3];    // fma: mul, add; cmpsel: threshold, mul, add;
                     // intops: threshold, sub, add
+  uint32_t d[4];    // bf16 cmpsel: 1; int16 / int8 intops: low,
+                    // -(k0 + 1), -k1, -k1 ^ k2 (each 16-bit half)
 };
+
+constexpr uint32_t kNegZero2 = 0x80008000u;  // bf16x2 -0, -0
 
 __device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
   uint32_t d;
@@ -53,6 +89,13 @@ __device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
   uint32_t d;
   asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
 
@@ -69,9 +112,52 @@ __device__ __forceinline__ uint32_t bf2_max(uint32_t a, uint32_t b) {
   return *reinterpret_cast<uint32_t*>(&m);
 }
 
+__device__ __forceinline__ uint32_t add_16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_s16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// each byte of the result is the sign of byte 1 (low half) or byte 3
+__device__ __forceinline__ uint32_t half_signs(uint32_t a) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(0u), "r"(0xBB99u));
+  return d;
+}
+
 __device__ __forceinline__ uint32_t select(uint32_t m, uint32_t a,
                                            uint32_t b) {
   return (m & a) | (~m & b);
+}
+
+// a word of the dtype as the registers a chain keeps: int8 as two, its
+// lanes 0, 2 and 1, 3 at the top of 16-bit halves
+template <int DT>
+constexpr int kRegs = DT == kI8 ? 2 : 1;
+
+template <int DT>
+__device__ __forceinline__ void unpack(uint32_t w, uint32_t (&u)[kRegs<DT>]) {
+  if constexpr (DT == kI8) {
+    u[0] = (w << 8) & 0xFF00FF00u;
+    u[1] = w & 0xFF00FF00u;
+  } else {
+    u[0] = w;
+  }
+}
+
+template <int DT>
+__device__ __forceinline__ uint32_t pack(const uint32_t (&u)[kRegs<DT>]) {
+  if constexpr (DT == kI8) {
+    return ((u[0] >> 8) & 0x00FF00FFu) | (u[1] & 0xFF00FF00u);
+  } else {
+    return u[0];
+  }
 }
 
 template <int DT>
@@ -82,10 +168,8 @@ __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
     return bf2_add(a, b);
   } else if constexpr (DT == kI32) {
     return a + b;
-  } else if constexpr (DT == kI16) {
-    return __vadd2(a, b);
   } else {
-    return __vadd4(a, b);
+    return add_16x2(a, b);
   }
 }
 
@@ -97,10 +181,8 @@ __device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
     return bf2_max(a, b);
   } else if constexpr (DT == kI32) {
     return (uint32_t)max((int)a, (int)b);
-  } else if constexpr (DT == kI16) {
-    return __vmaxs2(a, b);
   } else {
-    return __vmaxs4(a, b);
+    return max_s16x2(a, b);
   }
 }
 
@@ -122,20 +204,15 @@ __device__ __forceinline__ uint32_t op_pair(uint32_t x, const Consts& c) {
       return select(m, __float_as_uint(__fmul_rn(v, __uint_as_float(c.k[1]))),
                     __float_as_uint(__fadd_rn(v, __uint_as_float(c.k[2]))));
     } else {
-      return select(bf2_gt_mask(x, c.k[0]), bf2_mul(x, c.k[1]),
-                    bf2_add(x, c.k[2]));
+      return select(bf2_gt_mask(x, c.k[0]), bf2_fma(x, c.k[1], kNegZero2),
+                    bf2_fma(x, c.d[0], c.k[2]));
     }
-  } else {
-    if constexpr (DT == kI32) {
-      const uint32_t m = (int)x > (int)c.k[0] ? 0xffffffffu : 0u;
-      return select(m, x - c.k[1], x + c.k[2]);
-    } else if constexpr (DT == kI16) {
-      return select(__vcmpgts2(x, c.k[0]), __vsub2(x, c.k[1]),
-                    __vadd2(x, c.k[2]));
-    } else {
-      return select(__vcmpgts4(x, c.k[0]), __vsub4(x, c.k[1]),
-                    __vadd4(x, c.k[2]));
-    }
+  } else if constexpr (DT == kI32) {
+    const uint32_t m = (int)x > (int)c.k[0] ? 0xffffffffu : 0u;
+    return select(m, x - c.k[1], x + c.k[2]);
+  } else {  // int16 halves, or int8 lanes at the top of them
+    const uint32_t le = half_signs(add_16x2(max_s16x2(x, c.d[0]), c.d[1]));
+    return add_16x2(x, c.d[2] ^ (le & c.d[3]));  // le ? k2 : -k1
   }
 }
 
@@ -143,22 +220,28 @@ template <int KIND, int DT>
 __global__ void __launch_bounds__(kThreads)
 alu_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
            long long words, int rounds, const Consts c) {
+  constexpr int R = kRegs<DT>;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= words) return;
-  const uint32_t w = x[i];
-  uint32_t c0 = add<DT>(w, c.ofs[0]), c1 = add<DT>(w, c.ofs[1]);
-  uint32_t c2 = add<DT>(w, c.ofs[2]), c3 = add<DT>(w, c.ofs[3]);
+  uint32_t u[R], v[4][R];
+  unpack<DT>(x[i], u);
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+    for (int l = 0; l < R; ++l) v[ch][l] = add<DT>(u[l], c.ofs[ch]);
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      c0 = op_pair<KIND, DT>(c0, c);
-      c1 = op_pair<KIND, DT>(c1, c);
-      c2 = op_pair<KIND, DT>(c2, c);
-      c3 = op_pair<KIND, DT>(c3, c);
-    }
+    for (int p = 0; p < kPairs; ++p)
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+        for (int l = 0; l < R; ++l) v[ch][l] = op_pair<KIND, DT>(v[ch][l], c);
   }
-  out[i] = vmax<DT>(vmax<DT>(vmax<DT>(c0, c1), c2), c3);
+#pragma unroll
+  for (int l = 0; l < R; ++l)
+    u[l] = vmax<DT>(vmax<DT>(vmax<DT>(v[0][l], v[1][l]), v[2][l]), v[3][l]);
+  out[i] = pack<DT>(u);
 }
 
 template <int KIND, int DT>
@@ -172,9 +255,10 @@ void launch(const void* x, void* out, long long words, int rounds,
 
 }  // namespace
 
-// x, out: device arrays of `words` 32-bit words; consts: host array of 7
-// words (4 chain offsets, 3 constants).  Returns the CUDA error of the
-// launch (0 = ok, -1 = arguments out of range or no such case).
+// x, out: device arrays of `words` 32-bit words; consts: host array of 11
+// words (4 chain offsets, 3 constants, 4 derived: probes.alu_consts).
+// Returns the CUDA error of the launch (0 = ok, -1 = arguments out of range
+// or no such case).
 extern "C" int die_probe_alu(const void* x, void* out, long long words,
                              int kind, int dtype, int rounds,
                              const uint32_t* consts, void* stream) {
@@ -184,6 +268,7 @@ extern "C" int die_probe_alu(const void* x, void* out, long long words,
   Consts c;
   for (int i = 0; i < 4; ++i) c.ofs[i] = consts[i];
   for (int i = 0; i < 3; ++i) c.k[i] = consts[4 + i];
+  for (int i = 0; i < 4; ++i) c.d[i] = consts[7 + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int code = kind * 8 + dtype;
   switch (code) {

@@ -1,5 +1,4 @@
-// Torus shifts of whole 256x256 f32 fields, chained over rounds, with the
-// fields kept on chip in a thread-block cluster's distributed shared memory.
+// Torus shifts of whole 256x256 f32 fields, chained over rounds.
 //
 // die_probe_roll (P2): four chains x + i per field, each `rounds` times
 //   roll(c, shift, axis) + 1, then their maximum.  Replaces the TPU probe
@@ -11,30 +10,42 @@
 //   tools/tpu_measure.py (:283) and the `vpu` leg of `make_roll_kernel` of
 //   tools/tpu_mxu_offload.py (:180).
 //
-// Where the field lives is the design.  On the TPU the field sits in VMEM
-// for all rounds.  A 256x256 f32 field is 256 KB and a block has 227 KB, so
-// here a cluster of blocks holds it in their shared memory and reads across
-// block edges through distributed shared memory (cluster.map_shared_rank):
-//   - P2: a cluster of 8 blocks holds the env's four chains (1 MB), 32 rows
-//     of each on every block (128 KB).  Double-buffering 1 MB does not fit 8
-//     blocks, so a round reads every new value into registers, waits at a
-//     barrier, writes, and waits again: two barriers a round, cluster-wide
-//     for axis 0 (rows cross block edges) and block-wide for axis 1 (a row
-//     stays on its block).  With a scratch pointer the same kernel keeps the
-//     chains in device memory instead, ping-ponged through L2 (ld.global.cg,
-//     one barrier a round): the "l2" placement.
-//   - P3 and P5: a cluster of 4 blocks holds one field, 64 rows each, double
-//     buffered (128 KB a block): one cluster barrier a round.  Each warp owns
-//     whole rows; a lane holds columns lane + 32k (k < 8).  The neighbours
-//     are reached in one of the card's two ways, the counterparts of the TPU
-//     probe's two lowerings: kind 1 (`smem`, twin of jnp.roll) reads
-//     x[i+o0, j+o1] at its offset in shared memory; kind 2 (`shfl`, twin of
-//     pltpu.roll, which rolls by +o1 and so reads x[i+o0, j-o1]) loads the
-//     three rows once and takes the axis-1 neighbours from the next lane by
-//     __shfl_sync, the row's wrap from the next register.
+// P2: a line in registers.  roll(c, s, axis) moves values only along
+// `axis`, so each line of it (a row for axis 1, a column for axis 0) of
+// each chain is an independent 256-vector for all rounds, and the chains
+// meet only in the final max.  A lane holds kSeg = 16 contiguous cells of a
+// line of all four chains (64 registers), and the 16 lanes of a half-warp
+// hold the line.  A round shuffles the last s cells of each segment to the
+// next lane (__shfl_sync of width 16: the line's last lane wraps to its
+// first), renames the segment's registers by s (a compile-time base: the
+// round loop is unrolled by kSeg / gcd(kSeg, s) = 16 rounds, after which the
+// base is back at 0; the tail's rounds move the registers instead), and
+// adds 1 to every cell.  No cluster and no barrier inside the round loop.
+// A block of 128 threads holds kRollLines = 8 lines, staged once through
+// shared memory at the start and once at the end (axis 0: the float4s of
+// 8 columns of every row, each spread over 4 lines of the panel; a line's
+// pitch of 260 floats keeps those stores off each other's banks).  kSeg
+// is probes.ROLL_SEG (tests/test_torch_probes3.py holds them equal, and
+// models the layout in numpy).
 //
-// Bound: each round reads and writes the field once; the least time is
-// that traffic over the shared-memory bandwidth (128 bytes a cycle per SM).
+// Bound: one add a cell a round, 4 chains, over the fp32 lane rate (128 a
+// clock an SM); the field read and written once.  What bounds the design:
+// the issue slots, kSeg adds and s shuffles for kSeg cells a round (the
+// shuffles alone, s of every kSeg cells at 32 lane-results a clock an SM,
+// are its phase bound).
+
+// P3 and P5: a cluster of 4 blocks holds one field, 64 rows each, double
+// buffered (128 KB a block): one cluster barrier a round.  Each warp owns
+// whole rows; a lane holds columns lane + 32k (k < 8).  The neighbours are
+// reached in one of the card's two ways, the counterparts of the TPU probe's
+// two lowerings: kind 1 (`smem`, twin of jnp.roll) reads x[i+o0, j+o1] at
+// its offset in shared memory; kind 2 (`shfl`, twin of pltpu.roll, which
+// rolls by +o1 and so reads x[i+o0, j-o1]) loads the three rows once and
+// takes the axis-1 neighbours from the next lane by __shfl_sync, the row's
+// wrap from the next register.  Bound: each round reads and writes the
+// field once; the least time is that traffic over the shared-memory
+// bandwidth (128 bytes a cycle per SM).
+//
 // The arithmetic is f32 with explicit roundings (--fmad=false besides), in
 // the plain version's order, so results are bitwise equal to it.
 
@@ -50,111 +61,156 @@ constexpr int kN = 256;
 constexpr int kChains = 4;
 constexpr long long kField = (long long)kN * kN;
 
-// ---- P2: four chains of a field on a cluster of 8 -----------------------------
-constexpr int kRollCta = 8;
-constexpr int kRollRows = kN / kRollCta;              // 32
-constexpr int kRollThreads = 1024;
-constexpr int kRollRowStep = kRollThreads / kN;       // 4
-constexpr int kRollPer = kRollRows / kRollRowStep;    // 8 rows a thread
-constexpr int kRollSmem = kChains * kRollRows * kN * 4;  // 131072 bytes
+// ---- P2: a line of four chains in the registers of 16 lanes -----------------
+constexpr int kSeg = 16;                          // cells of a line a lane holds
+constexpr int kLanes = kN / kSeg;                 // 16 lanes a line
+constexpr int kRollLines = 8;                     // lines a block
+constexpr int kRollThreads = kRollLines * kLanes;
+constexpr int kPanels = kN / kRollLines;          // blocks a field
+constexpr int kPitch = kN + 4;  // floats a line in shared memory
+constexpr int kQuads = kRollLines * kN / 4 / kRollThreads;  // float4 a thread
 
-template <int AXIS>
-__device__ __forceinline__ void roll_sync(cg::cluster_group& cl) {
-  if constexpr (AXIS == 0) {
-    cl.sync();
-  } else {
-    __syncthreads();
+constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+// rounds after which the register base is back at 0
+template <int S>
+constexpr int kUnroll = kSeg / gcd(kSeg, S);
+
+// One round with the segment's logical cell k in register (k + B) % kSeg:
+// the last S cells go to the next lane (the registers they leave take the
+// previous lane's), then every cell adds 1.  Afterwards logical k is in
+// register (k + B - S) % kSeg.
+template <int S, int B>
+__device__ __forceinline__ void roll_round(float (&v)[kChains][kSeg],
+                                           int from) {
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      float& r = v[c][(kSeg - S + j + B) % kSeg];
+      r = __shfl_sync(0xffffffffu, r, from, kLanes);
+    }
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) v[c][k] = __fadd_rn(v[c][k], 1.0f);
   }
 }
 
-template <int AXIS, bool L2>
-__global__ void __cluster_dims__(kRollCta, 1, 1)
-__launch_bounds__(kRollThreads, 1)
+// rounds U .. kUnroll - 1 of an unrolled group, base (-S * U) % kSeg
+template <int S, int U>
+__device__ __forceinline__ void roll_group(float (&v)[kChains][kSeg],
+                                           int from) {
+  if constexpr (U < kUnroll<S>) {
+    roll_round<S, (kSeg - (S * U) % kSeg) % kSeg>(v, from);
+    roll_group<S, U + 1>(v, from);
+  }
+}
+
+// Where float4 number i of the block's lines sits in global memory (relative
+// to the field) and in the panel: axis 1 reads its rows p0 .. in one run;
+// axis 0 reads kRollLines columns of every row, and a float4 of a row holds
+// 4 lines' cells, placed in 4 lines of the panel.
+template <int AXIS>
+__device__ __forceinline__ int global_quad(int i, int p0) {
+  constexpr int per_row = kRollLines / 4;
+  return AXIS == 1 ? p0 * kN + 4 * i
+                   : (i / per_row) * kN + p0 + 4 * (i % per_row);
+}
+
+// ptxas holds roll_kernel<1, 1> to 128 registers (4 blocks an SM) by
+// spilling 16 bytes; asked for 3 blocks an SM it spills nothing (and runs 3%
+// slower, where the others would lose up to 8%)
+template <int AXIS, int S>
+constexpr int kRollMinBlocks = AXIS == 1 && S == 1 ? 3 : 1;
+
+template <int AXIS, int S>
+__global__ void __launch_bounds__(kRollThreads, (kRollMinBlocks<AXIS, S>))
 roll_kernel(const float* __restrict__ x, float* __restrict__ out,
-            float* __restrict__ scratch, int shift, int rounds) {
-  extern __shared__ float s_chain[];  // [kChains][kRollRows][kN]
-  cg::cluster_group cl = cg::this_cluster();
-  const int rank = (int)cl.block_rank();
-  const long long env = blockIdx.x / kRollCta;
-  const int col = threadIdx.x & (kN - 1);
-  const int r0 = threadIdx.x / kN;
+            int rounds) {
+  __shared__ __align__(16) float panel[kRollLines * kPitch];  // [line][cell]
+  const long long env = blockIdx.x / kPanels;
+  const int p0 = (blockIdx.x % kPanels) * kRollLines;  // first line
   const float* xe = x + env * kField;
-  // L2: [2][kChains][kN][kN] of this env
-  float* se = L2 ? scratch + env * 2 * kChains * kField : nullptr;
-  int cur = 0;
-
+  float* oe = out + env * kField;
+  constexpr int per_row = kRollLines / 4;
+  float4 q[kQuads];
 #pragma unroll
-  for (int j = 0; j < kRollPer; ++j) {
-    const int lr = r0 + kRollRowStep * j, g = rank * kRollRows + lr;
-    const float v = xe[g * kN + col];
+  for (int j = 0; j < kQuads; ++j)  // all loads in flight, then the stores
+    q[j] = *reinterpret_cast<const float4*>(
+        xe + global_quad<AXIS>(threadIdx.x + j * kRollThreads, p0));
 #pragma unroll
-    for (int c = 0; c < kChains; ++c) {
-      const float w = __fadd_rn(v, (float)c);
-      if (L2) {
-        __stcg(se + (c * kN + g) * kN + col, w);
-      } else {
-        s_chain[(c * kRollRows + lr) * kN + col] = w;
-      }
+  for (int j = 0; j < kQuads; ++j) {
+    const int i = threadIdx.x + j * kRollThreads;
+    if constexpr (AXIS == 1) {
+      const int line = i / (kN / 4), c = 4 * (i % (kN / 4));
+      *reinterpret_cast<float4*>(panel + line * kPitch + c) = q[j];
+    } else {
+      const int row = i / per_row, h = 4 * (i % per_row);
+      panel[(h + 0) * kPitch + row] = q[j].x;
+      panel[(h + 1) * kPitch + row] = q[j].y;
+      panel[(h + 2) * kPitch + row] = q[j].z;
+      panel[(h + 3) * kPitch + row] = q[j].w;
     }
   }
-  roll_sync<AXIS>(cl);
+  __syncthreads();
 
+  const int line = threadIdx.x / kLanes, seg = threadIdx.x % kLanes;
+  const int from = (seg + kLanes - 1) % kLanes;  // the previous lane of the line
+  float* mine = panel + line * kPitch + seg * kSeg;
+  float v[kChains][kSeg];
+#pragma unroll
+  for (int j = 0; j < kSeg / 4; ++j) {
+    const float4 a = reinterpret_cast<const float4*>(mine)[j];
+    const float e[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int c = 0; c < kChains; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[c][4 * j + k] = __fadd_rn(e[k], (float)c);
+  }
+
+  int r = 0;
 #pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    float v[kChains][kRollPer];
-    const float* src = L2 ? se + cur * kChains * kField : nullptr;
-#pragma unroll
-    for (int j = 0; j < kRollPer; ++j) {
-      const int lr = r0 + kRollRowStep * j, g = rank * kRollRows + lr;
-      const int sg = AXIS == 0 ? ((g - shift) & (kN - 1)) : g;
-      const int sc = AXIS == 0 ? col : ((col - shift) & (kN - 1));
-      if (L2) {
-#pragma unroll
-        for (int c = 0; c < kChains; ++c)
-          v[c][j] = __ldcg(src + (c * kN + sg) * kN + sc);
-      } else if (AXIS == 0) {
-        const float* base = cl.map_shared_rank(s_chain, sg / kRollRows);
-        const int sl = sg % kRollRows;
-#pragma unroll
-        for (int c = 0; c < kChains; ++c)
-          v[c][j] = base[(c * kRollRows + sl) * kN + sc];
-      } else {
-#pragma unroll
-        for (int c = 0; c < kChains; ++c)
-          v[c][j] = s_chain[(c * kRollRows + lr) * kN + sc];
-      }
-    }
-    if (!L2) roll_sync<AXIS>(cl);  // every old value read before any write
-    float* dst = L2 ? se + (cur ^ 1) * kChains * kField : nullptr;
-#pragma unroll
-    for (int j = 0; j < kRollPer; ++j) {
-      const int lr = r0 + kRollRowStep * j, g = rank * kRollRows + lr;
-#pragma unroll
-      for (int c = 0; c < kChains; ++c) {
-        const float w = __fadd_rn(v[c][j], 1.0f);
-        if (L2) {
-          __stcg(dst + (c * kN + g) * kN + col, w);
-        } else {
-          s_chain[(c * kRollRows + lr) * kN + col] = w;
-        }
-      }
-    }
-    roll_sync<AXIS>(cl);
-    if (L2) cur ^= 1;
-  }
-
-  const float* fin = L2 ? se + cur * kChains * kField : nullptr;
-#pragma unroll
-  for (int j = 0; j < kRollPer; ++j) {
-    const int lr = r0 + kRollRowStep * j, g = rank * kRollRows + lr;
-    float m = 0.0f;
+  for (; r + kUnroll<S> <= rounds; r += kUnroll<S>) roll_group<S, 0>(v, from);
+#pragma unroll 1
+  for (; r < rounds; ++r) {  // the tail: base 0, then the registers move back
+    roll_round<S, 0>(v, from);
 #pragma unroll
     for (int c = 0; c < kChains; ++c) {
-      const float w = L2 ? __ldcg(fin + (c * kN + g) * kN + col)
-                         : s_chain[(c * kRollRows + lr) * kN + col];
-      m = c == 0 ? w : fmaxf(m, w);
+      float t[kSeg];
+#pragma unroll
+      for (int k = 0; k < kSeg; ++k) t[k] = v[c][(k + kSeg - S) % kSeg];
+#pragma unroll
+      for (int k = 0; k < kSeg; ++k) v[c][k] = t[k];
     }
-    out[env * kField + g * kN + col] = m;
+  }
+
+  // the chains' max into this lane's own cells of the panel (no lane reads
+  // another's), then out through the panel
+#pragma unroll
+  for (int j = 0; j < kSeg / 4; ++j) {
+    float m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      m[k] = v[0][4 * j + k];
+#pragma unroll
+      for (int c = 1; c < kChains; ++c) m[k] = fmaxf(m[k], v[c][4 * j + k]);
+    }
+    reinterpret_cast<float4*>(mine)[j] = make_float4(m[0], m[1], m[2], m[3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kQuads; ++j) {
+    const int i = threadIdx.x + j * kRollThreads;
+    float4 o;
+    if constexpr (AXIS == 1) {
+      o = *reinterpret_cast<const float4*>(panel + (i / (kN / 4)) * kPitch +
+                                           4 * (i % (kN / 4)));
+    } else {
+      const int row = i / per_row, h = 4 * (i % per_row);
+      o = make_float4(panel[(h + 0) * kPitch + row],
+                      panel[(h + 1) * kPitch + row],
+                      panel[(h + 2) * kPitch + row],
+                      panel[(h + 3) * kPitch + row]);
+    }
+    *reinterpret_cast<float4*>(oe + global_quad<AXIS>(i, p0)) = o;
   }
 }
 
@@ -296,34 +352,26 @@ int prepare(K kernel, int smem) {
 
 }  // namespace
 
-// x, out: [B, 256, 256] f32 on the device; scratch: null (the chains in a
-// cluster's shared memory) or [B, 2, 4, 256, 256] f32 (through L2).
-// Returns the CUDA error of the launch (0 = ok, -1 = arguments out of range).
-extern "C" int die_probe_roll(const void* x, void* out, void* scratch, int B,
-                              int axis, int shift, int rounds, void* stream) {
+// x, out: [B, 256, 256] f32 on the device; shift 1 or 3.  Returns the CUDA
+// error of the launch (0 = ok, -1 = arguments out of range).
+extern "C" int die_probe_roll(const void* x, void* out, int B, int axis,
+                              int shift, int rounds, void* stream) {
   if (B < 1 || B > 65535 || rounds < 0 || (axis != 0 && axis != 1) ||
-      shift < 0 || shift >= kN)
+      (shift != 1 && shift != 3))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xi = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-  float* sc = static_cast<float*>(scratch);
-  const dim3 grid(B * kRollCta), block(kRollThreads);
-  const bool l2 = scratch != nullptr;
-  const int smem = l2 ? 0 : kRollSmem;
-  int rc = 0;
-  if (axis == 0 && !l2) {
-    rc = prepare(roll_kernel<0, false>, smem);
-    if (!rc) roll_kernel<0, false><<<grid, block, smem, s>>>(xi, o, sc, shift, rounds);
+  const dim3 grid(B * kPanels), block(kRollThreads);
+  if (axis == 0 && shift == 1) {
+    roll_kernel<0, 1><<<grid, block, 0, s>>>(xi, o, rounds);
   } else if (axis == 0) {
-    roll_kernel<0, true><<<grid, block, 0, s>>>(xi, o, sc, shift, rounds);
-  } else if (!l2) {
-    rc = prepare(roll_kernel<1, false>, smem);
-    if (!rc) roll_kernel<1, false><<<grid, block, smem, s>>>(xi, o, sc, shift, rounds);
+    roll_kernel<0, 3><<<grid, block, 0, s>>>(xi, o, rounds);
+  } else if (shift == 1) {
+    roll_kernel<1, 1><<<grid, block, 0, s>>>(xi, o, rounds);
   } else {
-    roll_kernel<1, true><<<grid, block, 0, s>>>(xi, o, sc, shift, rounds);
+    roll_kernel<1, 3><<<grid, block, 0, s>>>(xi, o, rounds);
   }
-  if (rc) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

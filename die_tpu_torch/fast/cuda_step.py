@@ -96,8 +96,7 @@ PROBE_KERNELS = (
                                  "cmpsel_float32", "cmpsel_bfloat16",
                                  "intops_int32", "intops_int16",
                                  "intops_int8")),
-    *(f"probe_roll_ax{a}_s{s}_{p}" for a in (0, 1) for s in (1, 3)
-      for p in ("cluster", "l2")),
+    *(f"probe_roll_ax{a}_s{s}" for a in (0, 1) for s in (1, 3)),
     "probe_rollk_alu", "probe_rollk_smem", "probe_rollk_shfl",
     "probe_roll_kernel_shift",
     *(f"probe_diffuse_{leg}_s{s}" for s in (0.5, 1.25)
@@ -209,7 +208,7 @@ def build() -> float:
                 ("probe_alu", "die_probe_alu",
                  [vp, vp, lp, ip, ip, ip, vp]),
                 ("probe_shift", "die_probe_roll",
-                 [vp, vp, vp, ip, ip, ip, ip]),
+                 [vp, vp, ip, ip, ip, ip]),
                 ("probe_shift", "die_probe_neighbour",
                  [vp, vp, ip, ip, ip, vp]),
                 ("probe_diffuse", "die_probe_stencil",

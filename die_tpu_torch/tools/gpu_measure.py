@@ -11,9 +11,8 @@ against its plain version, see ``tools/probes.py``):
 - ``micro``: ``alu_{fma,cmpsel}_{float32,bfloat16}`` and
   ``alu_intops_{int32,int16,int8}`` (64 fields of 256², 4 chains x 256
   rounds x 16 operations, tera-operations/s beside the lane-rate bound), and
-  ``roll_float32_ax{0,1}_s{1,3}`` (4 chains x 64 rounds of ``roll + 1``),
-  the chains in a cluster of 8 blocks' shared memory and, as ``..._l2``,
-  through L2 (``placement`` says which);
+  ``roll_float32_ax{0,1}_s{1,3}`` (4 chains x 64 rounds of ``roll + 1``,
+  each line of each chain in the registers of 16 lanes);
 - ``rollk``: ``rollk_{alu,smem,shfl}``, 64 rounds of 8-neighbour sums (a
   read at an offset in shared memory; warp shuffles along axis 1) or of the
   8-multiply stand-in, and ``rollk_delta_*``, ``(t - t_alu) / (B K 8)`` ns
@@ -92,8 +91,7 @@ def main():
         for kind, dtype in P.ALU_CASES:
             log(**P.measure_alu(kind, dtype, rates))
         for axis, shift in P.ROLL_CASES:
-            for placement in P.PLACEMENTS:
-                log(**P.measure_roll(axis, shift, placement, rates))
+            log(**P.measure_roll(axis, shift, rates))
     if args.which in ("all", "rollk"):
         rows = {k: P.measure_neighbour(k, rates) for k in P.NEIGHBOUR_KINDS}
         for row in rows.values():

@@ -6,11 +6,17 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
 
 - P1 ``make_micro`` -> :func:`alu` (``csrc/probe_alu.cu``): ALU throughput
   by kind (``fma``, ``cmpsel``, ``intops``) and dtype, 4 independent chains
-  of ``ALU_ROUNDS`` x 16 operations per element.
+  of ``ALU_ROUNDS`` x 16 operations per element, a word in registers; int16
+  and int8 on packed 16-bit halves (sm_90's ``max.s16x2``, ``add.u16x2``),
+  the constants and the sequences' derived words from :func:`alu_consts`;
+  :func:`alu_sass` reads the kernels' instructions a pair, and
+  :func:`alu_cycles` prices them by pipe.
 - P2 ``make_roll`` -> :func:`roll` (``csrc/probe_shift.cu``): 4 chains of
-  ``roll(x, s, axis) + 1``, the four fields of an env held in the shared
-  memory of a cluster of 8 blocks (placement ``cluster8-dsmem``) or
-  ping-ponged through L2 (``l2``).
+  ``roll(x, s, axis) + 1``, each line of each chain held in the registers
+  of 16 lanes of a warp for all rounds (``ROLL_SEG`` cells a lane, the
+  cells that cross a lane moved by warp shuffles, the rest renamed): no
+  cluster, no shared memory and no barrier a round (placement
+  ``registers``).
 - P3 ``make_rollk`` -> :func:`neighbour` (``csrc/probe_shift.cu``): rounds
   of 8-neighbour sums against an 8-multiply stand-in, the field held in a
   cluster of 4 blocks.  The TPU's two lowerings become the card's two ways
@@ -43,6 +49,11 @@ values, and a comparison on distinct values shows more.
 """
 from __future__ import annotations
 
+import collections
+import math
+import os
+import re
+import shutil
 import subprocess
 from contextlib import contextmanager
 from functools import lru_cache
@@ -70,7 +81,7 @@ ALU_CASES = (("fma", "float32"), ("fma", "bfloat16"), ("cmpsel", "float32"),
 ALU_CONSTS = {"fma": (0.999, 1e-3), "cmpsel": (0.5, 0.25, 0.5),
               "intops": (3, 7, 5)}
 ROLL_CASES = ((0, 1), (0, 3), (1, 1), (1, 3))
-PLACEMENTS = {"cluster": "cluster8-dsmem", "l2": "l2"}
+ROLL_SEG = 16  # cells of a line a lane holds (csrc/probe_shift.cu kSeg)
 NEIGHBOUR_KINDS = ("alu", "smem", "shfl")  # twins of alu, rolls, ptpu_rolls
 NEIGHBOUR_ALU = tuple(float(np.float32(0.1 + 0.01 * i)) for i in range(8))
 SIGMAS = (0.5, 1.25)
@@ -90,9 +101,8 @@ KERNEL_INFO = {}
 for _k, _d in ALU_CASES:
     KERNEL_INFO[f"probe_alu_{_k}_{_d}"] = ("probe_alu.cu", _MEASURE + "107")
 for _a, _s in ROLL_CASES:
-    for _p in PLACEMENTS:
-        KERNEL_INFO[f"probe_roll_ax{_a}_s{_s}_{_p}"] = ("probe_shift.cu",
-                                                         _MEASURE + "157")
+    KERNEL_INFO[f"probe_roll_ax{_a}_s{_s}"] = ("probe_shift.cu",
+                                               _MEASURE + "157")
 for _k in NEIGHBOUR_KINDS:
     KERNEL_INFO[f"probe_rollk_{_k}"] = ("probe_shift.cu", _MEASURE + "283")
 KERNEL_INFO["probe_roll_kernel_shift"] = ("probe_shift.cu", _MXU + "180")
@@ -298,6 +308,44 @@ def _word(v, dtype) -> int:
     return word
 
 
+def _half(v: int) -> int:
+    """``v`` as a 16-bit two's-complement half, repeated in both halves."""
+    return (int(v) & 0xFFFF) * 0x10001
+
+
+PACKED_INTS = {"int16": 1, "int8": 256}  # intops on 16-bit halves: scale
+
+
+def alu_consts(kind: str, dtype_name: str, k=None) -> np.ndarray:
+    """The 11 words ``die_probe_alu`` takes: 4 chain offsets, the kind's 3
+    constants ``k`` (default ``ALU_CONSTS[kind]``), each repeated across a
+    word's lanes, and 4 derived words.  bf16 cmpsel: 1 (the add runs as
+    ``fma.rn(x, 1, k2)``, the multiply as ``fma.rn(x, k1, -0)`` with the
+    kernel's own -0).  int16 and int8 intops run on
+    16-bit halves, int8 lanes at their top byte (scale 256): chain offsets
+    and the derived ``low = (k0 + 1) * scale - 32768``, ``-(k0 + 1) *
+    scale``, ``-k1 * scale`` and ``-k1 * scale ^ k2 * scale``, each in both
+    halves; the clamp ``low`` keeps ``max(x, low) - (k0 + 1)`` from
+    wrapping, which needs ``-1 <= k0 < 127`` (int8) or ``32767`` (int16)."""
+    dt = DTYPES[dtype_name]
+    k = tuple(ALU_CONSTS[kind] if k is None else k)
+    ofs = [_word(i, dt) for i in range(CHAINS)]
+    d = [0, 0, 0, 0]
+    if kind == "intops" and dtype_name in PACKED_INTS:
+        sc = PACKED_INTS[dtype_name]
+        k0, k1, k2 = (int(v) for v in k)
+        if not -1 <= k0 < 32767 // sc:
+            raise ValueError(f"alu probe: threshold {k0} out of the packed "
+                             f"{dtype_name} sequence's range")
+        ofs = [_half(i * sc) for i in range(CHAINS)]
+        d = [_half((k0 + 1) * sc - 32768), _half(-(k0 + 1) * sc),
+             _half(-k1 * sc), _half(-k1 * sc) ^ _half(k2 * sc)]
+    elif kind == "cmpsel" and dtype_name == "bfloat16":
+        d = [_word(1.0, dt), 0, 0, 0]
+    words = ofs + [_word(v, dt) for v in k] + [0] * (3 - len(k)) + d
+    return np.array(words, dtype=np.uint32)
+
+
 def alu(x: torch.Tensor, kind: str, rounds: int = ALU_ROUNDS):
     """P1 on ``[B, 256, 256]`` of the kind's dtypes (see ``ALU_CASES``)."""
     name = {v: k for k, v in DTYPES.items()}.get(x.dtype)
@@ -308,35 +356,123 @@ def alu(x: torch.Tensor, kind: str, rounds: int = ALU_ROUNDS):
         return alu_plain(x, kind, rounds)
     _check(x, x.dtype, "alu")
     out = torch.empty_like(x)
-    consts = [_word(i, x.dtype) for i in range(CHAINS)] + \
-        [_word(v, x.dtype) for v in ALU_CONSTS[kind]]
-    consts = np.array(consts + [0] * (7 - len(consts)), dtype=np.uint32)
+    consts = alu_consts(kind, name)
     _launch("probe_alu", "die_probe_alu", f"probe_alu_{kind}_{name}",
             x.data_ptr(), out.data_ptr(), x.numel() * x.element_size() // 4,
             _ALU_KIND[kind], _ALU_DT[name], rounds, consts.ctypes.data)
     return out
 
 
-def roll(x: torch.Tensor, axis: int, shift: int, rounds: int = ROLL_ROUNDS,
-         placement: str = "cluster"):
-    """P2 on f32 ``[B, 256, 256]``: ``axis`` 0 or 1, ``shift`` 1 or 3; the
-    chains held in a cluster's shared memory (``cluster``) or in an L2
-    scratch (``l2``)."""
-    if (axis, shift) not in ROLL_CASES or placement not in PLACEMENTS:
-        raise ValueError(f"roll probe: no case axis={axis} shift={shift} "
-                         f"placement={placement!r}")
+# ---- the ALU probe's instructions, by pipe -------------------------------------
+
+# SASS opcodes of the pipes that take a warp instruction every 2 clocks (16
+# lanes a scheduler); every instruction also takes one issue slot of its
+# scheduler's one a clock.  "mma": HFMA2.MMA, the half-precision fma that
+# ptxas places on the tensor-core datapath.  The assignment is read from the
+# timings of the candidate sequences (H100, no ncu there): FMUL/FADD run at
+# one a clock, ISETP + SEL at two, bf16 HSET2 beside HFMA2 as on one pipe.
+ALU_PIPES = {"alu": ("LOP3", "ISETP", "SEL", "PRMT", "VIMNMX", "FSETP",
+                     "FSEL", "IMNMX", "SHF"),
+             "half": ("HSET2", "HFMA2", "HMUL2", "HADD2", "HMNMX2"),
+             "imad": ("IMAD", "VIADD")}
+
+
+def alu_cycles(counts: dict) -> tuple:
+    """(clocks a scheduler takes for one warp's pair on a word, what bounds
+    it) from ``counts`` = {SASS opcode: instructions a pair a word}: the
+    issue slots, or twice the instructions of a 2-clock pipe."""
+    per = collections.Counter()
+    for op, n in counts.items():
+        base = op.split(".")[0]
+        per["issue"] += n
+        if ".MMA" in op:
+            per["mma"] += 2 * n
+            continue
+        for pipe, ops in ALU_PIPES.items():
+            if base in ops:
+                per[pipe] += 2 * n
+    by = max(per, key=lambda k: (per[k], k != "issue"))  # a pipe on a tie
+    return per[by], by
+
+
+def sass_loops(sass: str) -> dict:
+    """{function: Counter of the SASS opcodes of its largest loop (the span
+    a backward branch closes)} of ``cuobjdump -sass`` output."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name:
+            toks = m.group(2).split()
+            if toks and toks[0].startswith("@"):
+                toks = toks[1:]
+            if toks:
+                funcs[name].append((int(m.group(1), 16), toks[0], m.group(2)))
+    out = {}
+    for fn, ins in funcs.items():
+        spans = [(int(t.group(1), 16), a) for a, op, body in ins
+                 if op.startswith("BRA")
+                 for t in [re.search(r"0x([0-9a-f]+)", body)]
+                 if t and int(t.group(1), 16) < a]
+        if spans:
+            lo, hi = max(spans, key=lambda s: s[1] - s[0])
+            out[fn] = collections.Counter(op for a, op, _ in ins
+                                          if lo <= a <= hi)
+    return out
+
+
+def alu_pair_counts(loop: collections.Counter) -> dict:
+    """{opcode: instructions a pair a word} of ``alu_kernel``'s round loop,
+    which holds 8 pairs of 4 chains; opcodes seen fewer than 8 times are the
+    loop's own count and branch."""
+    n = CHAINS * ALU_OPS // 2
+    return {op: c / n for op, c in loop.items() if c >= 8}
+
+
+def sass_text(lib: str) -> str:
+    """``cuobjdump -sass`` of the built library ``lib`` of ``cuda_step``
+    (after :func:`cuda_step.build`); empty where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return ""
+    path = cuda_step.BUILD_DIR / f"{lib}-{cuda_step._digest()}.so"
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def alu_sass() -> dict:
+    """{(kind, dtype): {opcode: instructions a pair a word}} of the built
+    ``probe_alu``'s seven kernels; empty without ``cuobjdump``."""
+    kinds = {v: k for k, v in _ALU_KIND.items()}
+    dts = {v: k for k, v in _ALU_DT.items()}
+    out = {}
+    for fn, loop in sass_loops(sass_text("probe_alu")).items():
+        m = re.search(r"alu_kernelILi(\d+)ELi(\d+)E", fn)
+        if m:
+            out[(kinds[int(m[1])], dts[int(m[2])])] = alu_pair_counts(loop)
+    return out
+
+
+def roll_unroll(shift: int) -> int:
+    """Rounds of ``roll_kernel``'s unrolled group: after ``ROLL_SEG /
+    gcd(ROLL_SEG, shift)`` rounds a lane's register base is back at 0."""
+    return ROLL_SEG // math.gcd(ROLL_SEG, shift)
+
+
+def roll(x: torch.Tensor, axis: int, shift: int, rounds: int = ROLL_ROUNDS):
+    """P2 on f32 ``[B, 256, 256]``: ``axis`` 0 or 1, ``shift`` 1 or 3."""
+    if (axis, shift) not in ROLL_CASES:
+        raise ValueError(f"roll probe: no case axis={axis} shift={shift}")
     _rounds(rounds, "roll")
     if x.device.type == "cpu":
         return roll_plain(x, axis, shift, rounds)
     _check(x, torch.float32, "roll")
     out = torch.empty_like(x)
-    scratch = None if placement == "cluster" else torch.empty(
-        (x.shape[0], 2, CHAINS, SIDE, SIDE), dtype=torch.float32,
-        device=x.device)
-    _launch("probe_shift", "die_probe_roll",
-            f"probe_roll_ax{axis}_s{shift}_{placement}", x.data_ptr(),
-            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            x.shape[0], axis, shift, rounds)
+    _launch("probe_shift", "die_probe_roll", f"probe_roll_ax{axis}_s{shift}",
+            x.data_ptr(), out.data_ptr(), x.shape[0], axis, shift, rounds)
     return out
 
 
@@ -546,7 +682,8 @@ def card_rates() -> dict:
     ``nvidia-smi`` reports.  fp32: 128 lanes (a mul or an add each cycle;
     twice that counts the 67 TFLOP/s of an FMA); bf16: 128 lanes of bf16x2;
     int32: 64 lanes, int16 and int8 counted as packed 2 and 4 to a lane;
-    shared memory: 128 bytes a cycle per SM.  Device memory and the tensor
+    shared memory: 128 bytes a cycle per SM; warp shuffles: 32 lane-results
+    a cycle per SM.  Device memory and the tensor
     cores from the published table (H100 SXM, dense)."""
     name = torch.cuda.get_device_name(0)
     mhz = float(subprocess.run(
@@ -558,7 +695,8 @@ def card_rates() -> dict:
     hbm = next((r for k, r in MEM_RATE.items() if k in name), MEM_RATE["SXM"])
     return {"sms": sms, "clock_mhz": mhz, "float32": 128 * lane,
             "bfloat16": 256 * lane, "int32": 64 * lane, "int16": 128 * lane,
-            "int8": 256 * lane, "smem": 128 * lane, "hbm": hbm,
+            "int8": 256 * lane, "smem": 128 * lane, "shfl": 32 * lane,
+            "hbm": hbm,
             "tf32": TF32_RATE, "bf16": BF16_TC_RATE}
 
 
@@ -600,6 +738,38 @@ def seeded(shape, dtype=torch.float32, seed: int = 0, device="cuda"):
     return a.to(device=device, dtype=dtype)
 
 
+EVERY_VALUE_DTYPES = ("bfloat16", "int16", "int8")
+
+
+def every_value(shape, dtype_name: str, seed: int = 0, device="cuda"):
+    """Probe input holding every value of ``dtype_name`` (int8, int16), or
+    every bf16 bit pattern but NaN (finite values, subnormals, +-0, +-inf),
+    each at least once, at places drawn from a numpy seed, so that the lanes
+    of a 32-bit word differ: the inputs where a packed carry, a sign bit or
+    a subnormal shows."""
+    n = int(np.prod(shape))
+    if dtype_name == "int8":
+        vals = np.arange(-128, 128, dtype=np.int64)
+    elif dtype_name == "int16":
+        vals = np.arange(-32768, 32768, dtype=np.int64)
+    elif dtype_name == "bfloat16":
+        bits = np.arange(65536, dtype=np.uint32)
+        nan = ((bits >> 7) & 0xFF) == 0xFF
+        vals = bits[~(nan & ((bits & 0x7F) != 0))]
+    else:
+        raise ValueError(f"every_value: no dtype {dtype_name!r}")
+    if n < len(vals):
+        raise ValueError(f"every_value: {n} cells hold fewer than the "
+                         f"{len(vals)} values of {dtype_name}")
+    arr = np.random.RandomState(seed).permutation(np.resize(vals, n))
+    if dtype_name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.uint16).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr).to(DTYPES[dtype_name])
+    return t.reshape(shape).to(device)
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype.is_floating_point:
         isz = {4: torch.int32, 2: torch.int16}[a.element_size()]
@@ -623,9 +793,22 @@ def _row(item, key, ms, plain_ms, out, ref, nbytes, ops, op_rate, rates,
             **extra}
 
 
-def measure_alu(kind, dtype, rates, B=BLOCKS, rounds=ALU_ROUNDS, reps=3):
+ALU_FORMS = {("cmpsel", "bfloat16"): "HSET2 mask, mul and add as fma.rn, "
+                                      "LOP3 select",
+             ("intops", "int32"): "scalar int32",
+             ("intops", "int16"): "16x2: max.s16x2, add.u16x2, prmt sign, "
+                                  "lop3, add.u16x2",
+             ("intops", "int8"): "16x2 as int16, lanes at the top byte of "
+                                 "16-bit halves, two registers a word"}
+
+
+def measure_alu(kind, dtype, rates, B=BLOCKS, rounds=ALU_ROUNDS, reps=3,
+                sass=None):
     """P1 item ``alu_{kind}_{dtype}``.  Bound: ``B * 4 * 16 * rounds * 256^2``
-    operations (the TPU tool's count) over the dtype's lane rate."""
+    operations (the TPU tool's count) over the dtype's lane rate.  Phase
+    bound, where ``sass`` (:func:`alu_sass`) has the leg: its instructions a
+    pair a word priced by :func:`alu_cycles`, every scheduler of the card
+    busy at the maximum clock."""
     dt = DTYPES[dtype]
     x = seeded((B, SIDE, SIDE), dt, 1)
     out = alu(x, kind, rounds)
@@ -635,43 +818,59 @@ def measure_alu(kind, dtype, rates, B=BLOCKS, rounds=ALU_ROUNDS, reps=3):
                              f"version at the full shape")
     ms = time_ms(lambda: alu(x, kind, rounds), reps)
     ops = B * CHAINS * ALU_OPS * rounds * SIDE * SIDE
+    extra = {}
+    counts = (sass or {}).get((kind, dtype))
+    if counts:
+        cycles, by = alu_cycles(counts)
+        warp_pairs = x.numel() * x.element_size() // 4 * CHAINS * \
+            (ALU_OPS // 2) * rounds / 32
+        extra = {"phase_bound_ms": cycles * warp_pairs
+                 / (4 * rates["sms"] * rates["clock_mhz"] * 1e6) * 1e3,
+                 "phase_bound_by": f"instructions (SASS), {by}",
+                 "sass_per_pair": counts}
     return _row(f"alu_{kind}_{dtype}", f"probe_alu_{kind}_{dtype}", ms,
                 plain_ms, out.float(), ref.float(),
                 2 * x.numel() * x.element_size(), ops, rates[dtype], rates,
                 placement="registers", teraops=ops / ms / 1e9,
-                int_form={"int16": "simd __vadd2/__vsub2/__vcmpgts2/__vmaxs2",
-                          "int8": "simd __vadd4/__vsub4/__vcmpgts4/__vmaxs4",
-                          "int32": "scalar int32"}.get(dtype))
+                form=ALU_FORMS.get((kind, dtype)), **extra)
 
 
 def _smem_bound(nbytes, rates):
     return nbytes / rates["smem"] * 1e3
 
 
-def measure_roll(axis, shift_, placement, rates, B=BLOCKS,
-                 rounds=ROLL_ROUNDS, reps=3):
-    """P2 item ``roll_float32_ax{axis}_s{shift}`` (``_l2`` through L2).
-    Bound (contract): the field read and written once, and one add a cell
-    a round.  Phase bound: every round reads and writes the 4 chains once in
-    shared memory.  Library: ``rounds`` x one ``torch.roll`` of the chains."""
+def roll_shuffles(cells: int, shift_: int, rounds: int) -> int:
+    """Lane-results of ``roll_kernel``'s warp shuffles: each round, ``shift``
+    of every ``ROLL_SEG`` cells cross a lane."""
+    return cells * rounds * shift_ // ROLL_SEG
+
+
+def measure_roll(axis, shift_, rates, B=BLOCKS, rounds=ROLL_ROUNDS, reps=3):
+    """P2 item ``roll_float32_ax{axis}_s{shift}``, device time from a CUDA
+    graph of 20 calls (``probes2.device_ms``: a call takes less time on the
+    card than the host takes to launch it).  Bound (contract): the field
+    read and written once, and one add a cell a round.  Phase bound: the
+    design's shuffles (:func:`roll_shuffles`) at 32 lane-results a clock an
+    SM.  Library: ``rounds`` x one ``torch.roll`` of the chains."""
+    from die_tpu_torch.tools.probes2 import device_ms
+
     x = seeded((B, SIDE, SIDE), torch.float32, 2)
-    out = roll(x, axis, shift_, rounds, placement)
+    out = roll(x, axis, shift_, rounds)
     plain_ms, ref = timed_once(lambda: roll_plain(x, axis, shift_, rounds))
     if not same_bits(out, ref):
-        raise AssertionError(f"roll ax{axis} s{shift_} {placement} differs "
-                             f"from its plain version at the full shape")
-    ms = time_ms(lambda: roll(x, axis, shift_, rounds, placement), reps)
+        raise AssertionError(f"roll ax{axis} s{shift_} differs from its "
+                             f"plain version at the full shape")
+    ms = device_ms(lambda: roll(x, axis, shift_, rounds), 20, reps)
     chains = torch.stack([x + float(i) for i in range(CHAINS)])
     lib = rounds * time_ms(lambda: torch.roll(chains, shift_, 2 + axis), 5)
     cells = B * CHAINS * SIDE * SIDE
-    item = f"roll_float32_ax{axis}_s{shift_}" + (
-        "" if placement == "cluster" else "_l2")
-    return _row(item, f"probe_roll_ax{axis}_s{shift_}_{placement}", ms,
-                plain_ms, out, ref, 2 * x.numel() * 4, cells * rounds,
-                rates["float32"], rates, library_ms=lib,
-                placement=PLACEMENTS[placement],
-                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
-                phase_bound_by="shared-memory bytes",
+    return _row(f"roll_float32_ax{axis}_s{shift_}",
+                f"probe_roll_ax{axis}_s{shift_}", ms, plain_ms, out, ref,
+                2 * x.numel() * 4, cells * rounds, rates["float32"], rates,
+                library_ms=lib, placement="registers",
+                phase_bound_ms=roll_shuffles(cells, shift_, rounds)
+                / rates["shfl"] * 1e3,
+                phase_bound_by="warp shuffles (32 lane-results a clock an SM)",
                 gelems=cells * rounds / ms / 1e6,
                 ns_per_roll=ms * 1e6 / (B * CHAINS * rounds))
 

@@ -6,6 +6,7 @@ unpacked beside the working tree) compare on one card in one call.
         [--fold-shapes] [--k3k4] [--large] [--train]
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --gather-probes
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --diffuse-probes
+    python3 die_tpu_torch/tools/tree_timing.py --tree PATH --shift-alu-probes
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -29,7 +30,11 @@ CUDA graph; with ``--large``, the large-field env-steps/s
 (``diffuse_probes_ms``): P4's four tensor-core legs and two stencil legs and
 P5's product leg at the TPU probes' shape, device time from a CUDA graph,
 beside the ``torch.matmul`` chains of the same precision under the same
-timing.  Uses only what every tree of the port has (the entry points and
+timing.  With ``--shift-alu-probes``, only the ALU and roll probes
+(``shift_alu_probes_ms``): P1's seven legs and P2's four at the TPU
+probes' shape, beside 64 chained ``torch.roll(chains, s, dim) + 1``, and
+the controls P3 (three kinds), P5's shift leg and P4's stencil legs,
+device time from a CUDA graph.  Uses only what every tree of the port has (the entry points and
 wrappers, ``train_lattice``, the committed artifacts, ``tools/probes2.py``).
 """
 from __future__ import annotations
@@ -275,6 +280,60 @@ def diffuse_probes_ms(calls: int = 2) -> dict:
     return out
 
 
+def shift_alu_probes_ms(calls: int = 2) -> dict:
+    """Device ms a call (``probes2.device_ms``, ``calls`` calls a graph, 20
+    for P2) of P1's legs (``alu_{kind}_{dtype}``, 64 fields, 256 rounds) and
+    P2's (``roll_ax{a}_s{s}``, 64 fields, 64 rounds; ``roll`` called with its
+    arguments by position, which every tree's signature takes) on the inputs
+    of ``probes.measure_alu`` and ``measure_roll``, each output first held
+    bitwise against its plain twin; beside P2 (``library_roll_ax{a}_s{s}``)
+    the chain of 64 ``torch.roll(chains, s, dim) + 1`` on the four chains,
+    captured the same way; and the controls, whose source no tree of this
+    comparison changes: P3 (``rollk_{kind}``), P5's shift
+    (``roll_kernel_shift``) and P4's stencil (``stencil_s{sigma}``)."""
+    import torch
+
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    def timed(name, run, plain, n=calls):
+        if not P.same_bits(run(), plain()):
+            raise AssertionError(f"{name} differs from its plain twin")
+        out[name] = P2.device_ms(run, n)
+
+    out = {}
+    B = P.BLOCKS
+    for kind, dtype in P.ALU_CASES:
+        x = P.seeded((B, P.SIDE, P.SIDE), P.DTYPES[dtype], 1)
+        timed(f"alu_{kind}_{dtype}", lambda: P.alu(x, kind),
+              lambda: P.alu_plain(x, kind))
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 2)
+    chains = torch.stack([x + float(i) for i in range(P.CHAINS)])
+    for axis, shift in P.ROLL_CASES:
+        timed(f"roll_ax{axis}_s{shift}",
+              lambda: P.roll(x, axis, shift, P.ROLL_ROUNDS),
+              lambda: P.roll_plain(x, axis, shift, P.ROLL_ROUNDS), 20)
+
+        def chain():
+            y = chains
+            for _ in range(P.ROLL_ROUNDS):
+                y = torch.roll(y, shift, 2 + axis) + 1.0
+            return y
+
+        out[f"library_roll_ax{axis}_s{shift}"] = P2.device_ms(chain, calls)
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 3)
+    for kind in P.NEIGHBOUR_KINDS:
+        timed(f"rollk_{kind}", lambda: P.neighbour(x, kind),
+              lambda: P.neighbour_plain(x, kind))
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 4)
+    timed("roll_kernel_shift", lambda: P.shift(x), lambda: P.shift_plain(x))
+    x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 5)
+    for sigma in P.SIGMAS:
+        timed(f"stencil_s{sigma}", lambda: P.stencil(x, sigma),
+              lambda: P.diffuse_plain(x, sigma, "stencil"))
+    return out
+
+
 def large_rates() -> dict:
     """Large-field env-steps/s of ``fast_rollout_auto`` (``FastDynamics()``)
     at each of ``LARGE`` for ``num_inner`` 1 and 2, CUDA events around one
@@ -361,6 +420,7 @@ def main():
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--gather-probes", action="store_true")
     ap.add_argument("--diffuse-probes", action="store_true")
+    ap.add_argument("--shift-alu-probes", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -390,6 +450,11 @@ def main():
     if args.diffuse_probes:
         print(json.dumps({"tree": str(tree),
                           "diffuse_probes_ms": diffuse_probes_ms(),
+                          "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.shift_alu_probes:
+        print(json.dumps({"tree": str(tree),
+                          "shift_alu_probes_ms": shift_alu_probes_ms(),
                           "nvidia_smi": smi}), flush=True)
         return 0
     B, field = args.envs, (256, 256)

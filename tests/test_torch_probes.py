@@ -392,7 +392,7 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     pairs = [
         (P.alu(x, "cmpsel", 2), P.alu_plain(x, "cmpsel", 2)),
         (P.alu(xi, "intops", 2), P.alu_plain(xi, "intops", 2)),
-        (P.roll(x, 1, 3, 2, "l2"), P.roll_plain(x, 1, 3, 2)),
+        (P.roll(x, 1, 3, 2), P.roll_plain(x, 1, 3, 2)),
         (P.neighbour(x, "shfl", 2), P.neighbour_plain(x, "shfl", 2)),
         (P.shift(x, 3), P.shift_plain(x, 3)),
         (P.stencil(x, 1.25, 2), P.diffuse_plain(x, 1.25, "stencil", 2)),
