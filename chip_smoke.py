@@ -94,7 +94,12 @@ Phases (any failure exits non-zero):
      bf16 legs also on fields holding every int8 and int16 value and every
      finite bf16 pattern and +-inf, at 1 and 3 rounds; the roll probe at 2
      and 3 fields and 0, 1, 4, 15, 16, 17 rounds around its unrolled group
-     of 16), bitwise (bf16 and
+     of 16; the stencil at 1, 2, 3 and 65 fields and 0, 1, 2, 3 and 64
+     applications on a uniform and a wide-range field, its clusters that
+     fit the card printed and its instances held to no stack frame and no
+     spill; the unpack probe at 1 to 64 boards, every cells-a-thread
+     instance, 0 to 65 reps, its SASS held to a shift and a LOP3 a cell a
+     rep), bitwise (bf16 and
      the TF32 one-hot leg too) except the tensor-core diffusion legs (at
      ``probes.TC_REL_TOL``, max ulp printed), the tensor-core legs of P4
      and P5 at 1, 2, 3 and 64 fields and 0 to 5 applications (P5 also on a
@@ -1829,9 +1834,9 @@ def phase_probe_parity():
         check(f"probe_rollk_{kind}", P.neighbour(x, kind, 3),
               P.neighbour_plain(x, kind, 3))
     check("probe_roll_kernel_shift", P.shift(x, 5), P.shift_plain(x, 5))
+    stencil_parity(check)
+    probe_resources()
     for sigma in P.SIGMAS:
-        check(f"probe_diffuse_stencil_s{sigma}", P.stencil(x, sigma, 3),
-              P.diffuse_plain(x, sigma, "stencil", 3))
         for kind in P.TC_KINDS:
             got = P.tc_diffuse(x, sigma, kind, 3)
             want = P.diffuse_plain(x, sigma, kind, 3)
@@ -1847,6 +1852,73 @@ def phase_probe_parity():
     for sigma in P.SIGMAS:
         log(json.dumps(P.ulp_check(sigma)))
     return errs
+
+
+STENCIL_BATCHES = (1, 2, 3, 65)
+STENCIL_COUNTS = (0, 1, 2, 3, 64)
+
+
+def stencil_parity(check):
+    """P4's stencil (``csrc/probe_diffuse.cu``, ``stencil_kernel``) against
+    its plain twin, bitwise, at 1, 2, 3 and 65 fields (65: one more cluster
+    than a wave) and 0, 1, 2, 3 and 64 applications (odd and even counts end
+    on either halo parity), at both sigmas (5 and 11 taps: every count the
+    entry takes), on a uniform field and on a wide-range one (both signs, +0
+    and -0, magnitudes 2^-100 to 2^101, products reaching subnormals).  Then
+    how many clusters of each launch fit the card at once (B = 64 fields
+    run in one wave where that is 64 or more)."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    for B in STENCIL_BATCHES:
+        fields = (P.seeded((B, P.SIDE, P.SIDE), torch.float32, 40 + B),
+                  P2.seeded_wide((B, P.SIDE, P.SIDE), 50 + B))
+        for x in fields:
+            for sigma in P.SIGMAS:
+                for n in STENCIL_COUNTS:
+                    check(f"probe_diffuse_stencil_s{sigma}",
+                          P.stencil(x, sigma, n),
+                          P.diffuse_plain(x, sigma, "stencil", n))
+    log(f"probe stencil equals its twin bitwise at B {STENCIL_BATCHES} x "
+        f"{STENCIL_COUNTS} applications, sigmas {P.SIGMAS}, uniform and "
+        f"wide-range fields")
+    for sigma in P.SIGMAS:
+        fit = P.stencil_clusters(sigma)
+        plan = P.stencil_plan(P.BLOCKS, sigma)
+        log(f"probe stencil s{sigma}: {fit} clusters of {plan['cluster']} "
+            f"fit the card at once (cudaOccupancyMaxActiveClusters), so "
+            f"B = {P.BLOCKS} runs in {-(-P.BLOCKS // fit)} wave(s); plan "
+            f"{plan['smem_bytes']} bytes of shared memory a block, "
+            f"{plan['blocks_per_sm']} block(s) an SM")
+
+
+def probe_resources():
+    """The stencil's and P10's registers, stack frame and local memory a
+    thread (``cuobjdump -res-usage``): the stencil's instances with no stack
+    frame and no spill, P10's with no spill."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    usage = {**P.res_usage(P.cuobjdump("probe_diffuse", "-res-usage")),
+             **P.res_usage(P.cuobjdump("probe_bits", "-res-usage"))}
+    if not usage:
+        log("cuobjdump not found: stack frames and spills not checked")
+        return
+    mine = {k: v for k, v in usage.items()
+            if "stencil_kernel" in k or "unpack_kernel" in k}
+    regs = {k: (v.get("REG"), v.get("STACK"), v.get("LOCAL"))
+            for k, v in mine.items()}
+    log(f"probe stencil and unpack kernels (cuobjdump -res-usage: "
+        f"registers, stack frame, local memory): {regs}")
+    if sum("stencil_kernel" in k for k in mine) != 2 or \
+            sum("unpack_kernel" in k for k in mine) != len(P2.UNPACK_PARTS):
+        raise AssertionError(f"stencil or unpack kernels missing from the "
+                             f"resource usage: {sorted(mine)}")
+    for name, u in mine.items():
+        if u.get("LOCAL", 1) or ("stencil_kernel" in name and
+                                 u.get("STACK", 1)):
+            raise AssertionError(f"{name} spills or keeps a stack frame: "
+                                 f"{u}")
 
 
 TC_BATCHES = (1, 2, 3, 64)
@@ -1938,11 +2010,31 @@ def probe2_parity(check):
     for reps in (1, 2, 3):
         check("probe_pack", P2.pack(x, reps), P2.pack_plain(x, reps))
     check("probe_pack", P2.pack(bits, 1), P2.pack_plain(bits, 1))
+    for B in UNPACK_BATCHES:  # every cells-a-thread instance of the plan
+        words = P2.seeded_words((B, P2.WORD_ROWS, P2.SIDE), 19 + B)
+        for reps in (0, 1, 2, 3, P2.PACKREPS):
+            check("probe_unpack", P2.unpack(words, reps),
+                  P2.unpack_plain(words, reps))
+    parts = {P2.unpack_plan(B, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)["parts"]
+             for B in UNPACK_BATCHES}
+    if parts != set(P2.UNPACK_PARTS):
+        raise AssertionError(f"P10's parity ran parts {parts}, not every "
+                             f"one of {P2.UNPACK_PARTS}")
+    log("probe_bits kernels (ptxas): " + kernel_registers("probe_bits"))
+    sass = P2.unpack_sass(P.sass_text("probe_bits"))
+    log(f"probe unpack SASS, shifts (SHF, IMAD by 2^k) and LOP3 a cell a rep "
+        f"by cells a thread: {sass or 'cuobjdump not found: not checked'}")
+    if sass and (len(sass) != len(P2.UNPACK_PARTS) or any(
+            c["shift"] < 1 or c["LOP3"] < 1 for c in sass.values())):
+        raise AssertionError(f"unpack_kernel does fewer than a shift and a "
+                             f"LOP3 a cell a rep: {sass}")
     w = P2.seeded_words((2, P2.WORD_ROWS, P2.SIDE), 19)
-    for reps in (1, 2, 3):
-        check("probe_unpack", P2.unpack(w, reps), P2.unpack_plain(w, reps))
     for steps in (0, 1, 33):
         check("probe_funnel", P2.funnel(w, steps), P2.funnel_plain(w, steps))
+
+
+UNPACK_BATCHES = (1, 2, 3, 16, 32, 64)
 
 
 def kernel_registers(lib: str) -> str:
@@ -2044,7 +2136,8 @@ def phase_probes(smi: str):
             "library_ms": row["library_ms"], "item": row["item"],
             **{k: row[k] for k in ("placement", "phase_bound_ms",
                                    "phase_bound_by", "max_ulp", "ms_1rep",
-                                   "max_ulp_vs_exact")
+                                   "max_ulp_vs_exact", "clusters_that_fit",
+                                   "waves")
                if k in row}}
         if key in at64:
             entry["at_B64"] = {k: at64[key][k] for k in (

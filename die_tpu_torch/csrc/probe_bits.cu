@@ -17,7 +17,14 @@
 //   (w[r % 8, c] >> (r & 31)) & 1, `reps` times xor-accumulated.  Replaces
 //   `unpack_kernel` (:289).  pltpu.repeat tiles the 8 word rows (row r reads
 //   word row r % 8, not r // 32), so this is what the TPU kernel computes,
-//   not the inverse of the pack.  A thread a cell.
+//   not the inverse of the pack.  A thread a word, as the TPU kernel reads a
+//   word once a rep: word (q, c) feeds the 32 cells r = q + 8 i of column c,
+//   which the thread holds in registers (or 16, 8 or 4 of them, the word's
+//   cells split over 2, 4 or 8 threads where few fields leave the card
+//   idle: tools/probes2.py unpack_plan), so a load serves 32 cell-reps (or
+//   16, 8, 4) and the shifts and LOP3s set the pace: each cell's shift a
+//   multiply on the FMA pipe beside its LOP3 on the ALU pipe.  The stores go
+//   once at the end, a warp's lanes on neighbouring columns.
 // die_probe_funnel (P11): `steps` times x = (x << 1) | (roll(x, 1, 0) >> 31)
 //   on [B, 8, 256], the roll along the 8 word rows of a column.  Replaces
 //   `funnel_kernel` (:317).  A thread holds a column's 8 words; a step is 8
@@ -36,9 +43,11 @@
 // limit (128 lanes a cycle an SM: the compiler spreads them over the INT32
 // pipe and IMAD on the FMA pipe): 6 a word a round (P8: two shifts, an xor,
 // an or, an add and one LOP3 for x & (x ^ c)), 47 a word a rep (P9: 31
-// shifts and 16 three-input LOP3), 2 a cell a rep (P10: a shift and one
-// LOP3), 1 a word a step (P11: one SHF), against the words in and out once
-// over the memory rate.
+// shifts and 16 three-input LOP3), 2 a cell a rep (P10: a shift, here an
+// IMAD, and one LOP3, each cell its own; chip_smoke.py counts them in the
+// SASS), 1 a word
+// a step (P11: one SHF), against the words in and out once over the memory
+// rate.
 // Outputs are bitwise equal to the plain versions (tools/probes2.py).
 
 #include <cuda_runtime.h>
@@ -87,18 +96,59 @@ pack_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   out[env * kBoard + j * kN + c] = acc;
 }
 
-// block: one cell row r of one env; thread: column c
+// block: 256 columns of word row q of one env, part `part` of its cells;
+// thread: column c, the word (q, c) and its T cells r = q + 8 i, i = T part ..
+// T part + T - 1 (tools/probes2.py unpack_plan).  Each rep reads the word
+// once (the next rep's word loads during this one) and gives each cell its
+// own shift and LOP3.  The shift moves the cell's bit (q + 8 i) & 31 to bit
+// 31 as a multiply by 2^(31 - (q + 8 i) & 31) (IMAD, on the FMA pipe; SHF and
+// LOP3 share the ALU pipe, 64 lanes a clock an SM, half the issue rate), and
+// the cell's xor is kept at bit 31 of its accumulator:
+// - the thread's first 4 cells (4 different shifts, as T part % 4 = 0):
+//   t = w * m, acc ^= t & 2^31 (one LOP3);
+// - its later cells, whose shifts repeat every 4: t = w * m + acc (the add
+//   at bit 31 is the xor), acc = t & 2^31.  The cell's accumulator is an
+//   operand of its multiply, so the compiler cannot fold one cell's work
+//   into another's; the accumulators start from the runtime `zero` times
+//   the cell for the same reason.
+// The output is bit 31 of each accumulator.
+template <int T>
 __global__ void __launch_bounds__(kThreads)
 unpack_kernel(const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
               int reps, int zero) {
-  const long long env = blockIdx.x / kN;
-  const int r = blockIdx.x % kN, c = threadIdx.x;
-  const uint32_t* word = w + env * kBoard + (r % kWordRows) * kN + c;
-  const int s = r & 31;
-  uint32_t acc = 0;
+  constexpr int kParts = 32 / T;
+  const long long env = blockIdx.x / (kWordRows * kParts);
+  const int q = blockIdx.x / kParts % kWordRows, part = blockIdx.x % kParts;
+  const int c = threadIdx.x;
+  const uint32_t* word = w + env * kBoard + q * kN + c;
+  uint32_t m[4];  // cells i with i % 4 = j: bit q + 8 j to bit 31
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = 1u << (31 - q - 8 * j);
+  uint32_t acc[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) acc[i] = (uint32_t)(zero * i);
+  uint32_t v = word[0];
 #pragma unroll 4
-  for (int k = 0; k < reps; ++k) acc ^= (word[k * zero] >> s) & 1u;
-  out[env * kCells + r * kN + c] = acc;
+  for (int k = 0; k < reps; ++k) {
+    const uint32_t next = word[(k + 1) * zero];
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      uint32_t t;
+      if (i < 4) {
+        asm("mul.lo.u32 %0, %1, %2;" : "=r"(t) : "r"(v), "r"(m[i]));
+        acc[i] ^= t & 0x80000000u;
+      } else {
+        asm("mad.lo.u32 %0, %1, %2, %3;"
+            : "=r"(t)
+            : "r"(v), "r"(m[i & 3]), "r"(acc[i]));
+        acc[i] = t & 0x80000000u;
+      }
+    }
+    v = next;
+  }
+  uint32_t* o = out + env * kCells + (long long)(q + 8 * T * part) * kN + c;
+#pragma unroll
+  for (int i = 0; i < T; ++i) o[8 * i * kN] = acc[i] >> 31;
 }
 
 // block: one env; thread: column c with its 8 words
@@ -146,12 +196,25 @@ extern "C" int die_probe_pack(const void* x, void* out, int B, int reps,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w: [B, 8, 256] u32; out: [B, 256, 256].
+// w: [B, 8, 256] u32; out: [B, 256, 256]; parts: threads a word, 1, 2, 4 or
+// 8 (tools/probes2.py unpack_plan; any other count is refused).
 extern "C" int die_probe_unpack(const void* w, void* out, int B, int reps,
-                                void* stream) {
-  if (B < 1 || B > 65535 || reps < 0) return -1;
-  unpack_kernel<<<B * kN, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(w), static_cast<uint32_t*>(out), reps, 0);
+                                int parts, void* stream) {
+  if (B < 1 || B > 65535 || reps < 0 ||
+      (parts != 1 && parts != 2 && parts != 4 && parts != 8))
+    return -1;
+  const dim3 grid(B * kWordRows * parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* wi = static_cast<const uint32_t*>(w);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (parts == 1)
+    unpack_kernel<32><<<grid, kThreads, 0, s>>>(wi, o, reps, 0);
+  else if (parts == 2)
+    unpack_kernel<16><<<grid, kThreads, 0, s>>>(wi, o, reps, 0);
+  else if (parts == 4)
+    unpack_kernel<8><<<grid, kThreads, 0, s>>>(wi, o, reps, 0);
+  else
+    unpack_kernel<4><<<grid, kThreads, 0, s>>>(wi, o, reps, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

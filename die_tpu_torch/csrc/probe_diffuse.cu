@@ -3,7 +3,9 @@
 //
 // die_probe_stencil (P4, stencil leg): y = G(x) * decay with G the separable
 //   wrap Gaussian, taps folded from -r to +r, axis 0 and then axis 1: the
-//   order of ops/gaussian.py and of K1's phase 7 (lattice_step.cuh).
+//   order of ops/gaussian.py and of K1's phase 7 (lattice_step.cuh); every
+//   application performed, each product and sum rounded on its own.  5 or
+//   11 taps (sigma 0.5, 1.25), one template instance each.
 // die_probe_tc (P4's product legs, P5's product leg): y = (A x A^T) * decay
 //   (two-sided) or y = A x + add (one-sided; A the permutation P gives
 //   roll(x, 1, 0) + 1), with wgmma on the tensor cores: TF32 inputs
@@ -17,10 +19,11 @@
 // `make_roll_kernel` (:180).
 //
 // The stencil keeps the field on chip for all applications, as it stays in
-// VMEM on the TPU: a cluster of 4 blocks holds it, 64 rows on each; the
-// axis-0 pass reads the other blocks' rows through distributed shared
-// memory, the axis-1 pass only the block's own rows.  Two field buffers
-// ping-pong, so one cluster barrier closes an application.
+// VMEM on the TPU: a cluster of 2 blocks holds it, 128 rows (128 KB) on each
+// beside two sets of halo rows, one block an SM, so 64 fields run at once on
+// 128 SMs.  A warp computes a strip of 8 rows in registers, both passes,
+// and writes it back in place; the peer's boundary rows arrive by pushes to
+// the halo rows and an mbarrier (the note at the stencil section).
 //
 // The products keep it on chip too, split by columns (the note at the
 // tensor-core section): a field's blocks hold 64 or 128 of its columns each,
@@ -39,7 +42,10 @@
 // the probe.
 //
 // Bounds: the stencil is 2 (2 ntaps - 1) + 1 fp32 operations a cell an
-// application over the CUDA cores' rate; a two-sided product is 4 * 256^3
+// application over the CUDA cores' rate (as separate FMUL and FADD under
+// --fmad=false: the fp32 lane rate), beside its shared-memory traffic (a
+// strip's rows and its halo rows read and the strip written once an
+// application) at 128 bytes a clock an SM; a two-sided product is 4 * 256^3
 // FLOP an application, a one-sided 2 * 256^3, over the tensor cores' rate
 // (495 TFLOP/s TF32, 989 bf16), about 50 times the stencil's arithmetic at
 // ntaps = 5.  The stencil is bitwise equal to its plain version; the tensor
@@ -47,84 +53,14 @@
 // to a tolerance, and the one-sided (one exact product and zeros a sum)
 // bitwise.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kN = 256;
 constexpr long long kField = (long long)kN * kN;
-constexpr int kCta = 4;
-constexpr int kRows = kN / kCta;  // 64 rows a block
-constexpr int kMaxTaps = 16;
-
-// ---- stencil ------------------------------------------------------------------
-constexpr int kStThreads = 512;
-constexpr int kStBuf = kRows * kN;
-constexpr int kStSmem = 3 * kStBuf * 4 + 2 * kN * (int)sizeof(float*);
-
-struct StencilParams {
-  float taps[kMaxTaps];
-  int ntaps;
-  int apps;
-  float decay;
-};
-
-__global__ void __cluster_dims__(kCta, 1, 1) __launch_bounds__(kStThreads, 1)
-stencil_kernel(const float* __restrict__ x, float* __restrict__ out,
-               const StencilParams p) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  float* buf = reinterpret_cast<float*>(raw);  // [2][kRows][kN]
-  float* tmp = buf + 2 * kStBuf;               // [kRows][kN]
-  const float** tab = reinterpret_cast<const float**>(tmp + kStBuf);
-  cg::cluster_group cl = cg::this_cluster();
-  const int rank = (int)cl.block_rank();
-  const long long env = blockIdx.x / kCta;
-  for (int i = threadIdx.x; i < 2 * kN; i += kStThreads) {
-    const int b = i / kN, g = i % kN;
-    tab[i] = cl.map_shared_rank(buf + b * kStBuf, g / kRows) +
-             (g % kRows) * kN;
-  }
-  const float* xe = x + env * kField + (long long)rank * kStBuf;
-  for (int e = threadIdx.x; e < kStBuf; e += kStThreads) buf[e] = xe[e];
-  cl.sync();
-
-  const int r = (p.ntaps - 1) / 2;
-  int cur = 0;
-#pragma unroll 1
-  for (int a = 0; a < p.apps; ++a) {
-    const float* const* rows = tab + cur * kN;
-    // axis 0: rows g - r .. g + r, from whichever block holds them
-    for (int e = threadIdx.x; e < kStBuf; e += kStThreads) {
-      const int lr = e / kN, c = e % kN, g = rank * kRows + lr;
-      float acc = p.taps[0] * rows[(g - r) & (kN - 1)][c];
-      for (int k = 1; k < p.ntaps; ++k)
-        acc = acc + p.taps[k] * rows[(g + k - r) & (kN - 1)][c];
-      tmp[e] = acc;
-    }
-    __syncthreads();
-    // axis 1: the block's own rows
-    float* dst = buf + (cur ^ 1) * kStBuf;
-    for (int e = threadIdx.x; e < kStBuf; e += kStThreads) {
-      const int lr = e / kN, c = e % kN;
-      const float* t = tmp + lr * kN;
-      float acc = p.taps[0] * t[(c - r) & (kN - 1)];
-      for (int k = 1; k < p.ntaps; ++k)
-        acc = acc + p.taps[k] * t[(c + k - r) & (kN - 1)];
-      dst[e] = acc * p.decay;
-    }
-    cl.sync();
-    cur ^= 1;
-  }
-  float* oe = out + env * kField + (long long)rank * kStBuf;
-  for (int e = threadIdx.x; e < kStBuf; e += kStThreads)
-    oe[e] = buf[cur * kStBuf + e];
-}
-
 // ---- tensor cores: wgmma, a field's columns split over its blocks ----------
 // Block r of a field's kCl owns kCols of its columns from c0 = kCols r,
 // K-major: for each 64 of them a [64][256] sub-buffer whose row n holds a
@@ -731,6 +667,292 @@ int prepare(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// ---- stencil: a field on a cluster of 2 blocks, 128 rows each ----------------
+// tools/probes.py stencil_plan states this geometry (its CPU test walks it).
+// Warp w of a block owns the strip of kStStrip rows v0 = kStStrip w ..
+// v0 + kStStrip - 1 in both passes, lane l the columns kStCols l .. kStCols l
+// + kStCols - 1 of each of them.  An application:
+// - axis 0: the lane streams rows v0 - R .. v0 + kStStrip - 1 + R of its
+//   columns from shared memory, two 16-byte loads a row, and adds each row to
+//   the outputs whose taps reach it, in tap order (an output's k-th term is
+//   its k-th row); rows outside the block come from the block's halo rows
+//   (warp 0 above, the last warp below);
+// - axis 1: in registers.  A row's R left and R right neighbours come from
+//   lanes l - 1 and l + 1 by __shfl_sync, which wraps the torus row at lane
+//   31;
+// - the outputs times decay stay in registers across a block barrier (every
+//   strip has read the field), are written back in place, and a second
+//   barrier closes the application.  The last application writes `out`.
+// The halo: block b's R rows above (global rows g0 - R .. g0 - 1, on the
+// torus) and below (g0 + 128 .. g0 + 127 + R) are its peer's last and first
+// R rows.  The peer's last warp and warp 0 push them, as soon as they hold
+// them, into this block's halo buffer of the next application's parity (two
+// ping-pong) by st.async, whose bytes complete on this block's mbarrier of
+// that buffer (a release at cluster scope, with no fence: an arrive.release
+// at cluster scope is a MEMBAR.GPU); warps 0 and the last wait on it
+// (acquire) before they read the halo, and then expect the buffer's bytes
+// of its next use.  A warp pushes into a buffer only after it has waited for
+// the push its partner made after reading that buffer, so no cluster
+// barrier runs between applications.
+// A row's 16-byte chunks q are stored at q ^ ((q >> 3) & 1), so that a warp's
+// 16-byte loads and stores at 32-byte lane strides meet every bank once in
+// each quarter-warp.
+// The radius R is a template parameter: the tap loops unroll, each tap is a
+// constant-bank operand of its FMUL, and nothing lives in local memory.
+constexpr int kStCl = 2;                      // blocks a field (a cluster)
+constexpr int kStRows = kN / kStCl;           // 128 rows a block
+constexpr int kStStrip = 8;                   // rows a warp
+constexpr int kStCols = 8;                    // columns a lane
+constexpr int kStWarps = kStRows / kStStrip;  // 16
+constexpr int kStThreads = 32 * kStWarps;     // 512
+constexpr int kStMaxTaps = 15;
+
+template <int R>
+struct St {
+  static constexpr int kTaps = 2 * R + 1;
+  static constexpr int kHalo = R * kN;                          // one side
+  static constexpr int kBars = (kStRows * kN + 4 * kHalo) * 4;  // bytes
+  static constexpr int kSmem = kBars + 4 * 8;  // 4 mbarriers
+};
+
+struct StencilParams {
+  float taps[kStMaxTaps];
+  int apps;
+  float decay;
+};
+
+__device__ __forceinline__ int st_chunk(int q) { return q ^ ((q >> 3) & 1); }
+
+__device__ __forceinline__ float4 st_scale(float t, float4 v) {
+  return make_float4(t * v.x, t * v.y, t * v.z, t * v.w);
+}
+
+__device__ __forceinline__ float4 st_add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// a 16-byte store into block-of-the-cluster shared memory at `addr` that
+// completes its bytes on that block's mbarrier at `bar` (both shared::cluster
+// addresses); the complete-tx is a release at cluster scope, so no fence
+__device__ __forceinline__ void st_async4(uint32_t addr, uint32_t bar, float a,
+                                          float b, float c, float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// waits for the phase of `parity` to complete and acquires, at cluster scope,
+// the writes released by its arrivals; traps rather than hang
+__device__ __forceinline__ void bar_wait_cluster(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1u << 26)) __trap();
+  }
+}
+
+// rows I0 .. I0 + R - 1 of the strip's outputs into the peer's halo rows at
+// `dst`, counted on the peer's mbarrier `bar` (shared::cluster addresses),
+// the lane's two chunks of each
+template <int R, int I0>
+__device__ __forceinline__ void st_push(const float (&z)[kStStrip][kStCols],
+                                        uint32_t dst, uint32_t bar, int c0,
+                                        int c1) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const float* v = z[I0 + k];
+    st_async4(dst + (k * kN + c0) * 4, bar, v[0], v[1], v[2], v[3]);
+    st_async4(dst + (k * kN + c1) * 4, bar, v[4], v[5], v[6], v[7]);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kStThreads, 1)
+stencil_kernel(const float* __restrict__ x, float* __restrict__ out,
+               const StencilParams p) {
+  using S = St<R>;
+  extern __shared__ __align__(16) float sm[];
+  // [kStRows][kN] own rows at 0; halo [parity][above, below][R][kN] after
+  constexpr int kHaloAt = kStRows * kN;
+  const uint32_t bars = smem_addr(sm) + S::kBars;  // [parity][above, below]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint32_t rank;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int peer = (int)rank ^ 1, g0 = (int)rank * kStRows;
+  const long long env = blockIdx.x / kStCl;
+  const float* xe = x + env * kField;
+  if (p.apps == 0) {  // y = x
+    for (int e = tid; e < kStRows * kN / 4; e += kStThreads)
+      reinterpret_cast<float4*>(out + env * kField + (long long)g0 * kN)[e] =
+          __ldg(reinterpret_cast<const float4*>(xe + (long long)g0 * kN) + e);
+    return;
+  }
+  // the block's rows and the first application's halo rows, from x
+  for (int e = tid; e < (kStRows + 2 * R) * (kN / 4); e += kStThreads) {
+    const int r = e / (kN / 4), q = e % (kN / 4), h = r - kStRows;
+    const int g = r < kStRows ? g0 + r
+                  : h < R     ? g0 - R + h
+                              : g0 + kStRows + h - R;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(
+                               xe + (long long)(g & (kN - 1)) * kN) + q);
+    *reinterpret_cast<float4*>(sm + r * kN + 4 * st_chunk(q)) = v;
+  }
+  if (tid < 4) {  // a halo slot's phase: one local arrival and its bytes
+    bar_init(bars + 8 * tid);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_expect(bars + 8 * tid, S::kHalo * 4);  // the slot's first use
+  }
+  cluster_sync();  // both blocks' mbarriers exist before the first push
+
+  const int v0 = warp * kStStrip;
+  const int c0 = 4 * st_chunk(2 * lane), c1 = 4 * st_chunk(2 * lane + 1);
+  const bool top = warp == 0, bottom = warp == kStWarps - 1;
+  float* own = sm + v0 * kN;
+  float z[kStStrip][kStCols];
+#pragma unroll 1
+  for (int a = 0; a < p.apps; ++a) {
+    const int par = a & 1;
+    const float* above =
+        sm + (top ? kHaloAt + 2 * par * S::kHalo : (v0 - R) * kN);
+    const float* below = sm + (bottom ? kHaloAt + (2 * par + 1) * S::kHalo
+                                      : (v0 + kStStrip) * kN);
+    if (a > 0 && (top || bottom)) {  // the peer's push for this application
+      const uint32_t bar = bars + 8 * (2 * par + (top ? 0 : 1));
+      bar_wait_cluster(bar, ((a - 1) >> 1) & 1);
+      __syncwarp();
+      if (lane == 0) bar_expect(bar, S::kHalo * 4);  // its next use, a + 2
+    }
+    // axis 0: output row v0 + i takes row v0 - R + m as its tap m - i
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h ? c1 : c0;
+      float4 acc[kStStrip];
+#pragma unroll
+      for (int m = 0; m < kStStrip + 2 * R; ++m) {
+        const float* row = m < R              ? above + m * kN
+                           : m < R + kStStrip ? own + (m - R) * kN
+                                              : below + (m - R - kStStrip) * kN;
+        const float4 v = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+        for (int i = 0; i < kStStrip; ++i) {
+          const int k = m - i;
+          if (k < 0 || k >= S::kTaps) continue;
+          acc[i] = k == 0 ? st_scale(p.taps[0], v)
+                          : st_add(acc[i], st_scale(p.taps[k], v));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStStrip; ++i) {
+        z[i][4 * h] = acc[i].x;
+        z[i][4 * h + 1] = acc[i].y;
+        z[i][4 * h + 2] = acc[i].z;
+        z[i][4 * h + 3] = acc[i].w;
+      }
+    }
+    // axis 1: column kStCols l + j takes w[j + k] as its tap k
+#pragma unroll
+    for (int i = 0; i < kStStrip; ++i) {
+      float w[kStCols + 2 * R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        w[j] = __shfl_sync(~0u, z[i][kStCols - R + j], (lane + 31) & 31);
+        w[R + kStCols + j] = __shfl_sync(~0u, z[i][j], (lane + 1) & 31);
+      }
+#pragma unroll
+      for (int j = 0; j < kStCols; ++j) w[R + j] = z[i][j];
+#pragma unroll
+      for (int j = 0; j < kStCols; ++j) {
+        float acc = p.taps[0] * w[j];
+#pragma unroll
+        for (int k = 1; k < S::kTaps; ++k) acc = acc + p.taps[k] * w[j + k];
+        z[i][j] = acc * p.decay;
+      }
+    }
+    if (a + 1 == p.apps) {
+      float* oe = out + env * kField + (long long)(g0 + v0) * kN;
+#pragma unroll
+      for (int i = 0; i < kStStrip; ++i) {
+        float* o = oe + i * kN + kStCols * lane;
+        *reinterpret_cast<float4*>(o) =
+            make_float4(z[i][0], z[i][1], z[i][2], z[i][3]);
+        *reinterpret_cast<float4*>(o + 4) =
+            make_float4(z[i][4], z[i][5], z[i][6], z[i][7]);
+      }
+      break;
+    }
+    // the next application's halo rows to the peer: warp 0 its first R rows
+    // (the peer's rows below), the last warp its last R (the peer's above)
+    if (top || bottom) {
+      const int side = top ? 1 : 0, slot = 2 * (par ^ 1) + side;
+      const uint32_t dst =
+          map_rank(smem_addr(sm + kHaloAt + slot * S::kHalo), peer);
+      const uint32_t bar = map_rank(bars + 8 * slot, peer);
+      if (top)
+        st_push<R, 0>(z, dst, bar, c0, c1);
+      else
+        st_push<R, kStStrip - R>(z, dst, bar, c0, c1);
+    }
+    __syncthreads();  // every strip has read the field
+#pragma unroll
+    for (int i = 0; i < kStStrip; ++i) {
+      *reinterpret_cast<float4*>(own + i * kN + c0) =
+          make_float4(z[i][0], z[i][1], z[i][2], z[i][3]);
+      *reinterpret_cast<float4*>(own + i * kN + c1) =
+          make_float4(z[i][4], z[i][5], z[i][6], z[i][7]);
+    }
+    __syncthreads();  // the field is written before the next application
+  }
+}
+
+template <int R>
+cudaLaunchConfig_t stencil_config(int B, cudaLaunchAttribute* attr,
+                                  cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * kStCl);
+  cfg.blockDim = dim3(kStThreads);
+  cfg.dynamicSmemBytes = St<R>::kSmem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kStCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int R>
+int launch_stencil(const float* x, float* o, int B, const StencilParams& p,
+                   cudaStream_t s) {
+  const int rc = prepare(stencil_kernel<R>, St<R>::kSmem);
+  if (rc) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = stencil_config<R>(B, attr, s);
+  const int lrc = (int)cudaLaunchKernelEx(&cfg, stencil_kernel<R>, x, o, p);
+  if (lrc) return lrc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int stencil_clusters() {
+  int n = 0, rc = prepare(stencil_kernel<R>, St<R>::kSmem);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = stencil_config<R>(64, attr, nullptr);
+  if (!rc) rc = (int)cudaOccupancyMaxActiveClusters(&n, stencil_kernel<R>, &cfg);
+  return rc ? -rc : n;
+}
+
 template <bool BF16>
 int launch_tc(const float* x, float* o, const void* A, int B, int cluster,
               const TcParams& p, cudaStream_t s) {
@@ -756,25 +978,31 @@ int launch_tc(const float* x, float* o, const void* A, int B, int cluster,
 
 }  // namespace
 
-// x, out: [B, 256, 256] f32 on the device; taps: host array of ntaps f32.
+// x, out: [B, 256, 256] f32 on the device; taps: host array of ntaps f32,
+// ntaps 5 or 11 (the probe's two sigmas; any other count is refused).
 // Returns the CUDA error of the launch (0 = ok, -1 = arguments out of range).
 extern "C" int die_probe_stencil(const void* x, void* out, int B, int apps,
                                  const float* taps, int ntaps, float decay,
                                  void* stream) {
-  if (B < 1 || B > 65535 || apps < 0 || ntaps < 1 || ntaps > kMaxTaps ||
-      ntaps % 2 == 0)
+  if (B < 1 || B > 65535 || apps < 0 || (ntaps != 5 && ntaps != 11))
     return -1;
   StencilParams p;
-  for (int k = 0; k < kMaxTaps; ++k) p.taps[k] = k < ntaps ? taps[k] : 0.0f;
-  p.ntaps = ntaps;
+  for (int k = 0; k < kStMaxTaps; ++k) p.taps[k] = k < ntaps ? taps[k] : 0.0f;
   p.apps = apps;
   p.decay = decay;
-  const int rc = prepare(stencil_kernel, kStSmem);
-  if (rc) return rc;
-  stencil_kernel<<<B * kCta, kStThreads, kStSmem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), p);
-  return static_cast<int>(cudaGetLastError());
+  const float* xi = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ntaps == 5 ? launch_stencil<2>(xi, o, B, p, s)
+                    : launch_stencil<5>(xi, o, B, p, s);
+}
+
+// How many clusters of die_probe_stencil's launch for ntaps fit the card at
+// once (cudaOccupancyMaxActiveClusters), which sets the waves of B fields;
+// -(CUDA error) on a failure, -1 for a count it refuses.
+extern "C" int die_probe_stencil_clusters(int ntaps) {
+  if (ntaps != 5 && ntaps != 11) return -1;
+  return ntaps == 5 ? stencil_clusters<2>() : stencil_clusters<5>();
 }
 
 // A: [256, 256] on the device, f32 (tf32 leg) or bf16 (bf16 != 0); cluster:

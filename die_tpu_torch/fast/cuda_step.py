@@ -221,11 +221,13 @@ def build() -> float:
                  [vp, vp, vp, vp, ip, ip, ip, ip]),
                 ("probe_bits", "die_probe_chain", [vp, vp, lp, ip]),
                 ("probe_bits", "die_probe_pack", [vp, vp, ip, ip]),
-                ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip]),
+                ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip, ip]),
                 ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip])):
             entry_fn = getattr(_libs[lib], fn)
             entry_fn.argtypes = args + [vp]  # the stream last
             entry_fn.restype = ip
+        fit = _libs["probe_diffuse"].die_probe_stencil_clusters
+        fit.argtypes, fit.restype = [ip], ip
         return time.perf_counter() - t0
 
 

@@ -25,7 +25,10 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
   shuffles along axis 1, twin of ``ptpu_rolls``, whose ``pltpu.roll`` by
   ``+o1`` reads ``x[i+o0, j-o1]``).
 - P4 ``make_diffuse_kernel`` -> :func:`stencil` (``csrc/probe_diffuse.cu``,
-  the separable wrap Gaussian in K1's order) and :func:`tc_diffuse`
+  the separable wrap Gaussian in K1's order, a field on a cluster of 2
+  blocks, a warp's strip of rows in registers through both passes, the
+  peer's boundary rows pushed into halo rows: :func:`stencil_plan`) and
+  :func:`tc_diffuse`
   (``A x A^T`` on the tensor cores with ``wgmma``, TF32 or BF16 inputs, f32
   accumulation): a field's columns split over a cluster of blocks (TF32 4,
   bf16 2), each product's output tiles moved by bulk copies to the block
@@ -432,15 +435,37 @@ def alu_pair_counts(loop: collections.Counter) -> dict:
     return {op: c / n for op, c in loop.items() if c >= 8}
 
 
-def sass_text(lib: str) -> str:
-    """``cuobjdump -sass`` of the built library ``lib`` of ``cuda_step``
+def cuobjdump(lib: str, flag: str = "-sass") -> str:
+    """``cuobjdump flag`` of the built library ``lib`` of ``cuda_step``
     (after :func:`cuda_step.build`); empty where the toolkit has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return ""
     path = cuda_step.BUILD_DIR / f"{lib}-{cuda_step._digest()}.so"
-    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+    return subprocess.run([tool, flag, str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+
+
+def sass_text(lib: str) -> str:
+    """``cuobjdump -sass`` of the built library ``lib``."""
+    return cuobjdump(lib)
+
+
+def res_usage(text: str) -> dict:
+    """{function: {"REG": n, "STACK": n, "LOCAL": n, ...}} of ``cuobjdump
+    -res-usage`` output (:func:`cuobjdump`): each kernel's registers, stack
+    frame and local memory (spills) a thread."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function ([^\s:]+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and "REG:" in line:
+            out[name] = {k: int(v) for k, v in
+                         re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", line)}
+            name = None
+    return out
 
 
 def alu_sass() -> dict:
@@ -510,9 +535,104 @@ def _sigma(sigma: float, what: str) -> str:
     return f"s{sigma}"
 
 
+# ---- the stencil kernel's plan --------------------------------------------------
+
+STENCIL_CLUSTER = 2  # blocks a field, a cluster (csrc kStCl)
+STENCIL_STRIP = 8  # rows a warp owns in both passes (csrc kStStrip)
+STENCIL_COLS = 8  # columns a lane owns (csrc kStCols)
+STENCIL_THREADS = 512  # threads a block (csrc kStThreads)
+SM_SHARED_BYTES = 233472  # shared memory of an SM; a block also takes 1 KB
+
+
+def stencil_radius(sigma: float) -> int:
+    return (len(gaussian_taps(sigma)) - 1) // 2
+
+
+def stencil_chunk(q: int) -> int:
+    """Where a row's 16-byte chunk ``q`` sits in the kernel's shared memory:
+    ``q ^ ((q >> 3) & 1)``, so that a warp's 16-byte accesses at 32-byte lane
+    strides meet every bank once in a quarter-warp."""
+    return q ^ ((q >> 3) & 1)
+
+
+def stencil_plan(B: int, sigma: float = SIGMAS[-1], sms: int = 132) -> dict:
+    """What ``die_probe_stencil`` (``csrc/probe_diffuse.cu``) launches for
+    ``B`` fields at ``sigma`` on a card of ``sms`` SMs: ``blocks``, a
+    ``cluster`` of them a field, block ``b`` holding the field's rows
+    ``rows[b]`` in shared memory with ``threads`` threads; warp ``w`` owns the
+    strip of ``strip`` rows ``strips[b][w]``, lane ``l`` its columns
+    ``cols[l]``, in both passes.  The block's ``radius`` halo rows ``above``
+    and ``below`` (global rows, on the torus) are the ``peer``'s last and
+    first rows, pushed by its last warp and its warp 0
+    (``push[b] = {"above": (peer, warp, its strip rows), ...}``) into one of
+    2 parities of ``halo_bytes``; ``smem_bytes`` a block with its 4
+    mbarriers; ``blocks_per_sm`` by shared memory, ``waves`` of clusters at
+    that (the card's own count is ``cudaOccupancyMaxActiveClusters``,
+    :func:`stencil_clusters`).  ``smem_traffic``: bytes a block moves
+    through shared memory an application (each lane's strip rows and halo
+    rows read, 16 bytes each, the strip written back, the pushed rows)."""
+    if B < 1 or B > 65535 // STENCIL_CLUSTER:
+        raise ValueError(f"stencil_plan: 1 to {65535 // STENCIL_CLUSTER} "
+                         f"fields, got {B}")
+    r = stencil_radius(sigma)
+    rows = SIDE // STENCIL_CLUSTER
+    warps = rows // STENCIL_STRIP
+    lanes = SIDE // STENCIL_COLS
+    if warps * lanes != STENCIL_THREADS or lanes != 32 or \
+            not 0 < r <= STENCIL_STRIP:
+        raise ValueError("stencil_plan: the geometry does not hold")
+    halo_bytes = 2 * 2 * r * SIDE * 4
+    smem = rows * SIDE * 4 + halo_bytes + 4 * 8
+    per_sm = SM_SHARED_BYTES // (smem + 1024)
+    fit = sms * per_sm // STENCIL_CLUSTER
+    rows_of = [(b * rows, (b + 1) * rows) for b in range(STENCIL_CLUSTER)]
+    strips = [[(g0 + w * STENCIL_STRIP, g0 + (w + 1) * STENCIL_STRIP)
+               for w in range(warps)] for g0, _ in rows_of]
+    above = [[(g0 - r + k) % SIDE for k in range(r)] for g0, _ in rows_of]
+    below = [[(g1 + k) % SIDE for k in range(r)] for _, g1 in rows_of]
+    peer = [b ^ 1 for b in range(STENCIL_CLUSTER)]
+    push = [{"above": (peer[b], warps - 1, strips[peer[b]][-1]),
+             "below": (peer[b], 0, strips[peer[b]][0])}
+            for b in range(STENCIL_CLUSTER)]
+    reads = warps * lanes * (STENCIL_STRIP + 2 * r) * STENCIL_COLS * 4
+    return {"blocks": STENCIL_CLUSTER * B, "cluster": STENCIL_CLUSTER,
+            "threads": STENCIL_THREADS, "warps": warps, "strip": STENCIL_STRIP,
+            "lane_cols": STENCIL_COLS, "radius": r, "rows": rows_of,
+            "strips": strips,
+            "cols": [(l * STENCIL_COLS, (l + 1) * STENCIL_COLS)
+                     for l in range(lanes)],
+            "above": above, "below": below, "peer": peer, "push": push,
+            "halo_bytes": halo_bytes, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "waves": -(-B // fit),
+            "smem_traffic": reads + rows * SIDE * 4 + 2 * r * SIDE * 4}
+
+
+def stencil_placement(plan: dict) -> str:
+    """The plan in words, for the measurement rows."""
+    return (f"cluster{plan['cluster']}-halo: {plan['rows'][0][1]} rows a "
+            f"block, {plan['blocks_per_sm']} block an SM; a warp a strip of "
+            f"{plan['strip']} rows, a lane {plan['lane_cols']} columns, both "
+            f"passes in registers (axis 1 by warp shuffles), written back in "
+            f"place; {plan['radius']} halo rows each side pushed by the peer "
+            f"onto an mbarrier, 2 parities, no cluster barrier an "
+            f"application")
+
+
+def stencil_clusters(sigma: float) -> int:
+    """Clusters of the stencil's launch at ``sigma`` that fit card 0 at once
+    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    cuda_step.build()
+    n = cuda_step.entry("probe_diffuse", "die_probe_stencil_clusters")(
+        len(gaussian_taps(sigma)))
+    if n < 1:
+        raise RuntimeError(f"stencil_clusters: error {n}")
+    return n
+
+
 def stencil(x: torch.Tensor, sigma: float, apps: int = DIFFUSE_APPS,
             decay: float = DECAY):
-    """P4's stencil leg on f32 ``[B, 256, 256]``."""
+    """P4's stencil leg on f32 ``[B, 256, 256]`` (the kernel's geometry:
+    :func:`stencil_plan`)."""
     key = f"probe_diffuse_stencil_{_sigma(sigma, 'stencil')}"
     _rounds(apps, key)
     if x.device.type == "cpu":
@@ -994,12 +1114,21 @@ def measure_diffuse(sigma, kind, rates, B=BLOCKS, apps=DIFFUSE_APPS, reps=3):
     lib = time_ms(lambda: library_diffuse(x, sigma, lib_kind, apps), 1)
     item = f"diffuse_kernel_{'stencil' if kind == 'stencil' else 'tc_' + kind}"
     nbytes = 2 * x.numel() * 4 + (0 if kind == "stencil" else SIDE * SIDE * 4)
+    if kind == "stencil":
+        plan = stencil_plan(B, sigma, rates["sms"])
+        fit = stencil_clusters(sigma)
+        extra = {"placement": stencil_placement(plan),
+                 "phase_bound_ms": _smem_bound(
+                     plan["blocks"] * plan["smem_traffic"] * apps, rates),
+                 "phase_bound_by": "shared-memory bytes of the design "
+                                   "(128 a clock an SM)",
+                 "clusters_that_fit": fit, "waves": -(-B // fit)}
+    else:
+        extra = {"placement": tc_placement(tc_plan(B, True, kind))}
     return _row(f"{item}_s{sigma}", key, ms, plain_ms, out, ref, nbytes, ops,
                 rate, rates, library_ms=lib,
-                placement="cluster4-dsmem" if kind == "stencil" else
-                tc_placement(tc_plan(B, True, kind)),
                 us_per_app=ms * 1e3 / (B * apps),
-                max_ulp=max_ulp(out, ref), rel_err=err / scale)
+                max_ulp=max_ulp(out, ref), rel_err=err / scale, **extra)
 
 
 def measure_tc_roll(rates, B=BLOCKS, rounds=SHIFT_ROUNDS, reps=3):

@@ -37,7 +37,9 @@ Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure2.py``
   & 31)) & 1``, ``PACKREPS`` times xor-accumulated.  ``pltpu.repeat`` tiles
   the 8 word rows, so row ``r`` reads word row ``r % 8``: this is what the
   TPU kernel computes, and it is not the inverse of P9 (whose inverse reads
-  word row ``r // 32``).
+  word row ``r // 32``).  A thread a word (or a part of its 32 cells:
+  :func:`unpack_plan`), the word read once a rep, each cell its own shift
+  and LOP3 in registers.
 - P11 ``funnel_kernel`` -> :func:`funnel`: ``FREPS`` chained ``(x << 1) |
   (roll(x, 1, 0) >> 31)`` on ``[8, 256]`` words, the roll along the 8 word
   rows of a column.
@@ -57,6 +59,8 @@ plain version, CUDA-event times at the full and at one rep, the bound and,
 where one PyTorch call computes the same function, its time.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -249,12 +253,62 @@ def gather_phase_bound(B: int, n: int, reps: int, rates: dict,
             f"random reads, 32 a cycle on {sms} SMs")
 
 
+UNPACK_PARTS = (1, 2, 4, 8)  # threads a word (csrc unpack_kernel<32 / parts>)
+UNPACK_WARPS = 16  # warps an SM the plan gives work to, where the words allow
+UNPACK_THREADS = 256  # threads a block: the 256 columns of one word row
+
+
+def unpack_plan(B: int, sms: int) -> dict:
+    """What ``die_probe_unpack`` launches for ``B`` boards on a card of
+    ``sms`` SMs: ``parts`` threads a word (the fewest of ``UNPACK_PARTS``
+    that give ``UNPACK_WARPS`` warps an SM, else the most), each owning
+    ``cells`` of the word's 32 cells in registers; ``blocks`` of ``threads``,
+    block ``b`` the columns of word row ``q = b // parts % 8`` of board ``b
+    // (8 parts)``, part ``p = b % parts``: the cells ``i = cells p`` ..
+    ``cells p + cells - 1``, rows ``q + 8 i``."""
+    if B < 1 or B > 65535:
+        raise ValueError(f"unpack_plan: 1 to 65535 boards, got {B}")
+    words = B * WORD_ROWS * SIDE
+    want = sms * UNPACK_WARPS * 32
+    parts = next((k for k in UNPACK_PARTS if words * k >= want),
+                 UNPACK_PARTS[-1])
+    return {"parts": parts, "cells": 32 // parts, "threads": UNPACK_THREADS,
+            "blocks": B * WORD_ROWS * parts,
+            "warps_per_sm": words * parts / 32 / sms}
+
+
 def onehot_plan(n: int, sms: int) -> int:
     """Blocks of P7's persistent grid: one an SM, no more than the
     ``ONEHOT_GROUPS`` warpgroups of each have tiles to walk.  Block ``b``
     walks the m64 tiles ``b``, ``b + grid``, ``b + 2 grid``, ..., its
     warpgroups in turn."""
     return max(1, min(sms, -(-(n // ONEHOT_TILE) // ONEHOT_GROUPS)))
+
+
+UNPACK_SHIFTS = ("SHF", "IMAD", "IMAD.SHL")  # SASS of a shift (IMAD: by 2^k)
+
+
+def unpack_sass(sass: str) -> dict:
+    """{cells a thread: {"shift": n, "LOP3": n}}: the shifts (``SHF``, or an
+    ``IMAD`` multiply by a power of two; ``IMAD.WIDE``, ``.MOV`` and
+    ``.IADD`` are address and move work) and the ``LOP3`` in
+    ``unpack_kernel``'s rep loop (``probes.sass_loops`` of ``cuobjdump
+    -sass`` output), each over the loop's loads (one a rep) times the
+    cells.  Each cell has its own shift and its own LOP3 when both are at
+    least 1."""
+    out = {}
+    for fn, loop in P.sass_loops(sass).items():
+        m = re.search(r"unpack_kernelILi(\d+)E", fn)
+        if not m:
+            continue
+        shifts = sum(n for op, n in loop.items()
+                     if op in UNPACK_SHIFTS or op.startswith(("SHF.",
+                                                              "IMAD.SHL")))
+        lop3 = sum(n for op, n in loop.items() if op.split(".")[0] == "LOP3")
+        loads = sum(n for op, n in loop.items() if op.startswith("LDG"))
+        work = int(m[1]) * max(1, loads)
+        out[int(m[1])] = {"shift": shifts / work, "LOP3": lop3 / work}
+    return out
 
 
 # ---- wrappers -------------------------------------------------------------------
@@ -369,9 +423,10 @@ def unpack(w: torch.Tensor, reps: int = PACKREPS) -> torch.Tensor:
     P._rounds(reps, "unpack")
     if w.device.type == "cpu":
         return unpack_plain(w, reps)
+    plan = unpack_plan(B, cuda_step._num_sms(w.device))
     out = torch.empty((B, SIDE, SIDE), dtype=torch.int32, device=w.device)
     P._launch("probe_bits", "die_probe_unpack", "probe_unpack", w.data_ptr(),
-              out.data_ptr(), B, reps)
+              out.data_ptr(), B, reps, plan["parts"])
     return out
 
 
@@ -622,10 +677,14 @@ def measure_unpack(rates, B=1, reps=PACKREPS):
         lambda: unpack_plain(w, reps))
     _check_bits(item, out, ref)
     cells = B * CELLS
+    plan = unpack_plan(B, rates["sms"])
     return _row(item, "probe_unpack", ms, plain_ms, out, ref,
                 w.numel() * 4 + cells * 4, UNPACK_OPS * cells * reps,
                 int_dispatch_rate(rates), rates,
-                placement="a thread a cell, its word read each rep",
+                placement=f"a thread a word's {plan['cells']} cells "
+                          f"({plan['parts']} a word), the word read once a "
+                          f"rep, each cell its own shift (an IMAD by 2^k, on "
+                          f"the FMA pipe) and LOP3 in registers",
                 B=B, reps=reps, ms_1rep=ms1,
                 us_per_unpack=ms * 1e3 / (B * reps))
 

@@ -7,6 +7,7 @@ unpacked beside the working tree) compare on one card in one call.
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --gather-probes
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --diffuse-probes
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --shift-alu-probes
+    python3 die_tpu_torch/tools/tree_timing.py --tree PATH --bit-probes
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -29,8 +30,11 @@ CUDA graph; with ``--large``, the large-field env-steps/s
 ``--diffuse-probes``, only the diffusion and roll probes
 (``diffuse_probes_ms``): P4's four tensor-core legs and two stencil legs and
 P5's product leg at the TPU probes' shape, device time from a CUDA graph,
-beside the ``torch.matmul`` chains of the same precision under the same
-timing.  With ``--shift-alu-probes``, only the ALU and roll probes
+beside the ``torch.matmul`` chains under the same timing (f32 with TF32
+off, the stencil's yardstick; TF32; bf16).  With ``--bit-probes``, only the
+bit-plane probes (``bit_probes_ms``): P8 at its three shapes, P9, P10 and
+P11 at B = 1 and 64, device time from a CUDA graph of 20 calls.  With
+``--shift-alu-probes``, only the ALU and roll probes
 (``shift_alu_probes_ms``): P1's seven legs and P2's four at the TPU
 probes' shape, beside 64 chained ``torch.roll(chains, s, dim) + 1``, and
 the controls P3 (three kinds), P5's shift leg and P4's stencil legs,
@@ -219,10 +223,11 @@ def diffuse_probes_ms(calls: int = 2) -> dict:
     inputs of ``probes.measure_diffuse`` and ``measure_tc_roll``, each
     output first held against its plain twin (the stencil and P5 bitwise,
     the products to ``TC_REL_TOL``); beside them (``library_*``) the
-    ``torch.matmul`` chains of the same precision, captured the same way:
-    ``A x A^T`` with TF32 on, in bf16, and 256 chained ``P x + 1`` with
-    TF32 on.  The chains are built here from the tree's ``circulant`` and
-    ``permutation``, so both trees time the same library work."""
+    ``torch.matmul`` chains, captured the same way: ``A x A^T`` in f32 with
+    TF32 off (the stencil's yardstick), with TF32 on, in bf16, and 256
+    chained ``P x + 1`` with TF32 on.  The chains are built here from the
+    tree's ``circulant`` and ``permutation``, so both trees time the same
+    library work."""
     import torch
 
     from die_tpu_torch.ops.gaussian import gaussian_taps
@@ -264,6 +269,9 @@ def diffuse_probes_ms(calls: int = 2) -> dict:
                 lambda: chain(a, a.T, x, apps), calls)
         out[f"library_bf16_s{sigma}"] = P2.device_ms(
             lambda: chain(ab, ab.T, x, apps, torch.bfloat16), calls)
+        with P.tf32_matmul(False):
+            out[f"library_f32_s{sigma}"] = P2.device_ms(
+                lambda: chain(a, a.T, x, apps), calls)
     x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 6)
     timed("tc_roll", lambda: P.tc_roll(x, rounds),
           lambda: P.tc_roll_plain(x, rounds))
@@ -331,6 +339,40 @@ def shift_alu_probes_ms(calls: int = 2) -> dict:
     for sigma in P.SIGMAS:
         timed(f"stencil_s{sigma}", lambda: P.stencil(x, sigma),
               lambda: P.diffuse_plain(x, sigma, "stencil"))
+    return out
+
+
+def bit_probes_ms(calls: int = 20) -> dict:
+    """Device ms a call (``probes2.device_ms``, ``calls`` calls a graph) of
+    the bit-plane probes at B = 1 and 64 on the inputs of
+    ``probes2.measure_chain``, ``measure_pack``, ``measure_unpack`` and
+    ``measure_funnel``: P8 at its three shapes (``chain_{tag}_B{B}``), P9
+    (``pack_B{B}``), P10 (``unpack_B{B}``) and P11 (``funnel_B{B}``), each
+    called with its arguments by position (which every tree's wrappers
+    take) and first held bitwise against its plain twin."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    def timed(name, run, plain):
+        if not P.same_bits(run(), plain()):
+            raise AssertionError(f"{name} differs from its plain twin")
+        out[name] = P2.device_ms(run, calls)
+
+    out = {}
+    for B in P2.BATCHES:
+        for tag, shape in P2.CHAIN_SHAPES.items():
+            x = P2.seeded_words((B, *shape), 34)
+            timed(f"chain_{tag}_B{B}", lambda: P2.chain(x, P2.CHAIN),
+                  lambda: P2.chain_plain(x, P2.CHAIN))
+        x = P2.seeded_words((B, P2.SIDE, P2.SIDE), 35, bits=True)
+        timed(f"pack_B{B}", lambda: P2.pack(x, P2.PACKREPS),
+              lambda: P2.pack_plain(x, P2.PACKREPS))
+        w = P2.seeded_words((B, P2.WORD_ROWS, P2.SIDE), 36)
+        timed(f"unpack_B{B}", lambda: P2.unpack(w, P2.PACKREPS),
+              lambda: P2.unpack_plain(w, P2.PACKREPS))
+        x = P2.seeded_words((B, P2.WORD_ROWS, P2.SIDE), 37)
+        timed(f"funnel_B{B}", lambda: P2.funnel(x, P2.FREPS),
+              lambda: P2.funnel_plain(x, P2.FREPS))
     return out
 
 
@@ -421,6 +463,7 @@ def main():
     ap.add_argument("--gather-probes", action="store_true")
     ap.add_argument("--diffuse-probes", action="store_true")
     ap.add_argument("--shift-alu-probes", action="store_true")
+    ap.add_argument("--bit-probes", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -455,6 +498,10 @@ def main():
     if args.shift_alu_probes:
         print(json.dumps({"tree": str(tree),
                           "shift_alu_probes_ms": shift_alu_probes_ms(),
+                          "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.bit_probes:
+        print(json.dumps({"tree": str(tree), "bit_probes_ms": bit_probes_ms(),
                           "nvidia_smi": smi}), flush=True)
         return 0
     B, field = args.envs, (256, 256)
