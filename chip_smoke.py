@@ -94,12 +94,18 @@ Phases (any failure exits non-zero):
      bf16 legs also on fields holding every int8 and int16 value and every
      finite bf16 pattern and +-inf, at 1 and 3 rounds; the roll probe at 2
      and 3 fields and 0, 1, 4, 15, 16, 17 rounds around its unrolled group
-     of 16; the stencil at 1, 2, 3 and 65 fields and 0, 1, 2, 3 and 64
-     applications on a uniform and a wide-range field, its clusters that
-     fit the card printed and its instances held to no stack frame and no
-     spill; the unpack probe at 1 to 64 boards, every cells-a-thread
-     instance, 0 to 65 reps, its SASS held to a shift and a LOP3 a cell a
-     rep), bitwise (bf16 and
+     of 16; the neighbour probe's three kinds and P5's shift at 1, 2, 3
+     and 64 fields and 0, 1, 2, 3 and 5 rounds on a uniform and a
+     wide-range field, the clusters of 2 that fit the card printed and
+     held to one wave at 64 fields; the stencil at 1, 2, 3 and 65 fields
+     and 0, 1, 2, 3 and 64 applications on a uniform and a wide-range
+     field, its clusters that fit the card printed; the stencil's,
+     neighbour, roll, pack and unpack instances held to no spill, the
+     stencil's and the neighbour kernels' to no stack frame; the pack
+     probe at 1 to 64 boards, every threads-a-word instance, 0 to 65 reps,
+     its SASS held to a word's 31 shifts and 16 LOP3 a rep; the unpack
+     probe at 1 to 64 boards, every cells-a-thread instance, 0 to 65 reps,
+     its SASS held to a shift and a LOP3 a cell a rep), bitwise (bf16 and
      the TF32 one-hot leg too) except the tensor-core diffusion legs (at
      ``probes.TC_REL_TOL``, max ulp printed), the tensor-core legs of P4
      and P5 at 1, 2, 3 and 64 fields and 0 to 5 applications (P5 also on a
@@ -1829,11 +1835,8 @@ def phase_probe_parity():
                 check(f"probe_roll_ax{axis}_s{shift}",
                       P.roll(x, axis, shift, rounds),
                       P.roll_plain(x, axis, shift, rounds))
+    neighbour_parity(check)
     x = P.seeded(shape, torch.float32, 11)
-    for kind in P.NEIGHBOUR_KINDS:
-        check(f"probe_rollk_{kind}", P.neighbour(x, kind, 3),
-              P.neighbour_plain(x, kind, 3))
-    check("probe_roll_kernel_shift", P.shift(x, 5), P.shift_plain(x, 5))
     stencil_parity(check)
     probe_resources()
     for sigma in P.SIGMAS:
@@ -1852,6 +1855,54 @@ def phase_probe_parity():
     for sigma in P.SIGMAS:
         log(json.dumps(P.ulp_check(sigma)))
     return errs
+
+
+NEIGHBOUR_BATCHES = (1, 2, 3, 64)
+NEIGHBOUR_COUNTS = (0, 1, 2, 3, 5)
+
+
+def neighbour_parity(check):
+    """P3's three kinds (``csrc/probe_shift.cu``: ``neighbour_alu_kernel``,
+    ``neighbour_kernel``) and P5's shift (``roll_kernel`` with one chain)
+    against their plain twins, bitwise, at 1, 2, 3 and 64 fields (3 an
+    uneven grid, 64 one wave of clusters) and 0, 1, 2, 3 and 5 rounds (odd
+    and even counts end on either halo parity), on a uniform field and on a
+    wide-range one (both signs, +0 and -0, magnitudes 2^-100 to 2^101).
+    Then how many clusters of the neighbour kinds' launch fit the card at
+    once: B = 64 fields must run in one wave."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    for B in NEIGHBOUR_BATCHES:
+        fields = (P.seeded((B, P.SIDE, P.SIDE), torch.float32, 80 + B),
+                  P2.seeded_wide((B, P.SIDE, P.SIDE), 90 + B))
+        for x in fields:
+            for n in NEIGHBOUR_COUNTS:
+                for kind in P.NEIGHBOUR_KINDS:
+                    check(f"probe_rollk_{kind}", P.neighbour(x, kind, n),
+                          P.neighbour_plain(x, kind, n))
+                check("probe_roll_kernel_shift", P.shift(x, n),
+                      P.shift_plain(x, n))
+    log(f"probe neighbour kinds {P.NEIGHBOUR_KINDS} and P5's shift equal "
+        f"their twins bitwise at B {NEIGHBOUR_BATCHES} x {NEIGHBOUR_COUNTS} "
+        f"rounds, uniform and wide-range fields")
+    for kind in P.NEIGHBOUR_KINDS:
+        plan = P.neighbour_plan(P.BLOCKS, kind)
+        if kind == "alu":
+            log(f"probe rollk_alu: {plan['blocks']} blocks of "
+                f"{plan['threads']}, {plan['lane_cells']} cells a thread in "
+                f"registers, no shared memory, no cluster")
+            continue
+        fit = P.neighbour_clusters(kind)
+        log(f"probe rollk_{kind}: {fit} clusters of {plan['cluster']} fit "
+            f"the card at once (cudaOccupancyMaxActiveClusters), so B = "
+            f"{P.BLOCKS} runs in {-(-P.BLOCKS // fit)} wave(s); plan "
+            f"{plan['smem_bytes']} bytes of shared memory a block, "
+            f"{plan['blocks_per_sm']} block(s) an SM, "
+            f"{plan['smem_wavefronts']} wavefronts a block a round")
+        if fit < P.BLOCKS:
+            raise AssertionError(f"rollk_{kind}: {fit} clusters fit, B = "
+                                 f"{P.BLOCKS} takes more than one wave")
 
 
 STENCIL_BATCHES = (1, 2, 3, 65)
@@ -1892,33 +1943,41 @@ def stencil_parity(check):
             f"{plan['blocks_per_sm']} block(s) an SM")
 
 
-def probe_resources():
-    """The stencil's and P10's registers, stack frame and local memory a
-    thread (``cuobjdump -res-usage``): the stencil's instances with no stack
-    frame and no spill, P10's with no spill."""
-    from die_tpu_torch.tools import probes as P
-    from die_tpu_torch.tools import probes2 as P2
+# kernel name fragment -> (instances, whether a stack frame fails the run)
+RESOURCE_KERNELS = {"stencil_kernel": (2, True), "unpack_kernel": (4, False),
+                    "neighbour_kernel": (2, True),
+                    "neighbour_alu_kernel": (1, True),
+                    "roll_kernel": (5, False), "pack_kernel": (4, False)}
 
-    usage = {**P.res_usage(P.cuobjdump("probe_diffuse", "-res-usage")),
-             **P.res_usage(P.cuobjdump("probe_bits", "-res-usage"))}
+
+def probe_resources():
+    """The registers, stack frame and local memory a thread (``cuobjdump
+    -res-usage``) of the stencil, the neighbour kernels, the roll kernel
+    (P2's four instances, P5's one chain), the pack and the unpack: none
+    spills, and the stencil's and the neighbour kernels' instances keep no
+    stack frame."""
+    from die_tpu_torch.tools import probes as P
+
+    usage = {}
+    for lib in ("probe_diffuse", "probe_bits", "probe_shift"):
+        usage.update(P.res_usage(P.cuobjdump(lib, "-res-usage")))
     if not usage:
         log("cuobjdump not found: stack frames and spills not checked")
         return
-    mine = {k: v for k, v in usage.items()
-            if "stencil_kernel" in k or "unpack_kernel" in k}
-    regs = {k: (v.get("REG"), v.get("STACK"), v.get("LOCAL"))
-            for k, v in mine.items()}
-    log(f"probe stencil and unpack kernels (cuobjdump -res-usage: "
-        f"registers, stack frame, local memory): {regs}")
-    if sum("stencil_kernel" in k for k in mine) != 2 or \
-            sum("unpack_kernel" in k for k in mine) != len(P2.UNPACK_PARTS):
-        raise AssertionError(f"stencil or unpack kernels missing from the "
-                             f"resource usage: {sorted(mine)}")
-    for name, u in mine.items():
-        if u.get("LOCAL", 1) or ("stencil_kernel" in name and
-                                 u.get("STACK", 1)):
-            raise AssertionError(f"{name} spills or keeps a stack frame: "
-                                 f"{u}")
+    for frag, (n, no_stack) in RESOURCE_KERNELS.items():
+        mine = {k: v for k, v in usage.items()
+                if re.search(rf"\d{frag}[IE]", k)}
+        regs = {k: (v.get("REG"), v.get("STACK"), v.get("LOCAL"))
+                for k, v in mine.items()}
+        log(f"probe {frag} (cuobjdump -res-usage: registers, "
+            f"stack frame, local memory): {regs}")
+        if len(mine) != n:
+            raise AssertionError(f"{n} instances of {frag} expected in the "
+                                 f"resource usage: {sorted(mine)}")
+        for name, u in mine.items():
+            if u.get("LOCAL", 1) or (no_stack and u.get("STACK", 1)):
+                raise AssertionError(f"{name} spills or keeps a stack "
+                                     f"frame: {u}")
 
 
 TC_BATCHES = (1, 2, 3, 64)
@@ -2005,11 +2064,20 @@ def probe2_parity(check):
         for rounds in (0, 3):
             check(f"probe_chain_{tag}", P2.chain(x, rounds),
                   P2.chain_plain(x, rounds))
-    x = P2.seeded_words((2, P2.SIDE, P2.SIDE), 17)  # not 0/1: any word
+    for B in PACK_BATCHES:  # every threads-a-word instance of the plan
+        x = P2.seeded_words((B, P2.SIDE, P2.SIDE), 17 + B)  # any word
+        for reps in (0, 1, 2, 3, P2.PACKREPS):
+            check("probe_pack", P2.pack(x, reps), P2.pack_plain(x, reps))
     bits = P2.seeded_words((2, P2.SIDE, P2.SIDE), 18, bits=True)
-    for reps in (1, 2, 3):
-        check("probe_pack", P2.pack(x, reps), P2.pack_plain(x, reps))
     check("probe_pack", P2.pack(bits, 1), P2.pack_plain(bits, 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = {P2.pack_plan(B, sms)["parts"] for B in PACK_BATCHES}
+    if parts != set(P2.PACK_PARTS):
+        raise AssertionError(f"P9's parity ran parts {parts}, not every "
+                             f"one of {P2.PACK_PARTS}")
+    log(f"probe pack equals its twin bitwise at B {PACK_BATCHES} (threads "
+        f"a word {sorted(parts)}) x 0, 1, 2, 3, {P2.PACKREPS} reps on words "
+        f"of random bit patterns")
     for B in UNPACK_BATCHES:  # every cells-a-thread instance of the plan
         words = P2.seeded_words((B, P2.WORD_ROWS, P2.SIDE), 19 + B)
         for reps in (0, 1, 2, 3, P2.PACKREPS):
@@ -2029,12 +2097,41 @@ def probe2_parity(check):
             c["shift"] < 1 or c["LOP3"] < 1 for c in sass.values())):
         raise AssertionError(f"unpack_kernel does fewer than a shift and a "
                              f"LOP3 a cell a rep: {sass}")
+    pack_sass_check()
     w = P2.seeded_words((2, P2.WORD_ROWS, P2.SIDE), 19)
     for steps in (0, 1, 33):
         check("probe_funnel", P2.funnel(w, steps), P2.funnel_plain(w, steps))
 
 
 UNPACK_BATCHES = (1, 2, 3, 16, 32, 64)
+PACK_BATCHES = (1, 3, 16, 32, 64)
+
+
+def pack_sass_check() -> dict:
+    """P9's rep loop in the SASS (``probes2.pack_sass``), every instance: at
+    one thread a word a word's work a rep, at least 31 shifts (``SHF`` or
+    ``IMAD`` by 2^k) and 16 ``LOP3``, else the run fails; the instructions
+    priced by pipe (``probes.alu_cycles``) are logged.  Returns the counts
+    by threads a word, empty without ``cuobjdump``."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    sass = P2.pack_sass(P.sass_text("probe_bits"))
+    if not sass:
+        log("cuobjdump not found: P9's SASS not checked")
+        return {}
+    for parts, c in sorted(sass.items()):
+        cycles, by = P.alu_cycles({op: n / parts for op, n in
+                                   c["ops"].items()})
+        log(f"probe pack SASS, {parts} thread(s) a word, a word a rep: "
+            f"{c['shift']:g} shifts (SHF, IMAD by 2^k), {c['LOP3']:g} LOP3; "
+            f"ops {c['ops']}; {cycles:g} clocks a warp a rep ({by})")
+    one = sass.get(1)
+    if set(sass) != set(P2.PACK_PARTS) or one is None or \
+            one["shift"] < 31 or one["LOP3"] < 16:
+        raise AssertionError(f"pack_kernel's rep loop does less than a "
+                             f"word's 31 shifts and 16 LOP3: {sass}")
+    return sass
 
 
 def kernel_registers(lib: str) -> str:
@@ -2115,7 +2212,7 @@ def phase_probes(smi: str):
              for k in ("stencil", *P.TC_KINDS)]
     # the gather and bit-plane probes at the TPU's shape (B = 1) and at
     # B = 64; the kernels line takes the TPU shape's row, the other beside it
-    rows2 = probe2_rows(rates)
+    rows2 = probe2_rows(rates, P2.pack_sass(P.sass_text("probe_bits")))
     torch.cuda.synchronize()
     counts = dict(cuda_step.launches)
     for row in rows + rows2 + P.rollk_deltas(rollk):
@@ -2137,12 +2234,13 @@ def phase_probes(smi: str):
             **{k: row[k] for k in ("placement", "phase_bound_ms",
                                    "phase_bound_by", "max_ulp", "ms_1rep",
                                    "max_ulp_vs_exact", "clusters_that_fit",
-                                   "waves")
+                                   "waves", "library_chain_graph_ms")
                if k in row}}
         if key in at64:
             entry["at_B64"] = {k: at64[key][k] for k in (
                 "item", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "ms_1rep")}
+                "library_ms", "ms_1rep", "phase_bound_ms")
+                if k in at64[key]}
         kernels.append(entry)
     missing = (set(P.KERNEL_INFO) | set(P2.KERNEL_INFO)) - \
         {k["name"] for k in kernels}
@@ -2154,17 +2252,18 @@ def phase_probes(smi: str):
     return kernels
 
 
-def probe2_rows(rates) -> list:
+def probe2_rows(rates, pack_sass=None) -> list:
     """Every item of ``tools/probes2.py`` at full shape: P6 and P8-P11 at
-    B = 1 and B = 64, P7 at the TPU's one field."""
+    B = 1 and B = 64, P7 at the TPU's one field; P9 priced by its SASS
+    (``pack_sass``, :func:`pack_sass_check`) where it was read."""
     from die_tpu_torch.tools import probes2 as P2
 
     rows = []
     for B in P2.BATCHES:
         rows += [P2.measure_gather(p, rates, B) for p in P2.GATHER_PLACEMENTS]
         rows += [P2.measure_chain(t, rates, B) for t in P2.CHAIN_SHAPES]
-        rows += [P2.measure_pack(rates, B), P2.measure_unpack(rates, B),
-                 P2.measure_funnel(rates, B)]
+        rows += [P2.measure_pack(rates, B, sass=pack_sass),
+                 P2.measure_unpack(rates, B), P2.measure_funnel(rates, B)]
     rows += [P2.measure_onehot(leg, rates) for leg in P2.ONEHOT_LEGS]
     return rows
 

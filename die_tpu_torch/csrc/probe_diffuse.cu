@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_push.cuh"
+
 namespace {
 
 constexpr int kN = 256;
@@ -126,10 +128,6 @@ struct TcParams {
   float decay;  // two-sided: y = acc * decay
   float add;    // one-sided: y = acc + add
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ uint32_t tf32(float f) {
   uint32_t r;
@@ -220,45 +218,6 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t a,
 }
 
 // ---- moving tiles: mbarriers and bulk copies across the cluster ------------
-// the shared::cluster address of local shared address `addr` in block `rank`
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-}
-
-// the one arrival of a phase, which also expects `bytes` of copies in it
-// (copies may land before it: the count of bytes may run below zero)
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase of `parity` to complete; a copy that never lands
-// traps (the launch then fails) instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1u << 26)) __trap();
-  }
-}
-
 // one arrival on block `rank`'s mbarrier at `bar`, released to the cluster
 __device__ __forceinline__ void bar_arrive_at(uint32_t bar, int rank) {
   asm volatile(
@@ -282,19 +241,6 @@ __device__ __forceinline__ void bulk_to(int rank, uint32_t dst, uint32_t src,
 // proxy (wgmma's reads, bulk copies)
 __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
 }
 
 // the 128 threads of warpgroup wg
@@ -729,37 +675,6 @@ __device__ __forceinline__ float4 st_scale(float t, float4 v) {
 
 __device__ __forceinline__ float4 st_add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// a 16-byte store into block-of-the-cluster shared memory at `addr` that
-// completes its bytes on that block's mbarrier at `bar` (both shared::cluster
-// addresses); the complete-tx is a release at cluster scope, so no fence
-__device__ __forceinline__ void st_async4(uint32_t addr, uint32_t bar, float a,
-                                          float b, float c, float d) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
-      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
-      : "memory");
-}
-
-// waits for the phase of `parity` to complete and acquires, at cluster scope,
-// the writes released by its arrivals; traps rather than hang
-__device__ __forceinline__ void bar_wait_cluster(uint32_t bar,
-                                                 uint32_t parity) {
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1u << 26)) __trap();
-  }
 }
 
 // rows I0 .. I0 + R - 1 of the strip's outputs into the peer's halo rows at

@@ -208,7 +208,7 @@ def build() -> float:
                 ("probe_alu", "die_probe_alu",
                  [vp, vp, lp, ip, ip, ip, vp]),
                 ("probe_shift", "die_probe_roll",
-                 [vp, vp, ip, ip, ip, ip]),
+                 [vp, vp, ip, ip, ip, ip, ip]),
                 ("probe_shift", "die_probe_neighbour",
                  [vp, vp, ip, ip, ip, vp]),
                 ("probe_diffuse", "die_probe_stencil",
@@ -220,14 +220,16 @@ def build() -> float:
                 ("probe_gather", "die_probe_onehot",
                  [vp, vp, vp, vp, ip, ip, ip, ip]),
                 ("probe_bits", "die_probe_chain", [vp, vp, lp, ip]),
-                ("probe_bits", "die_probe_pack", [vp, vp, ip, ip]),
+                ("probe_bits", "die_probe_pack", [vp, vp, ip, ip, ip]),
                 ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip, ip]),
                 ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip])):
             entry_fn = getattr(_libs[lib], fn)
             entry_fn.argtypes = args + [vp]  # the stream last
             entry_fn.restype = ip
-        fit = _libs["probe_diffuse"].die_probe_stencil_clusters
-        fit.argtypes, fit.restype = [ip], ip
+        for lib, fn in (("probe_diffuse", "die_probe_stencil_clusters"),
+                        ("probe_shift", "die_probe_neighbour_clusters")):
+            fit = getattr(_libs[lib], fn)
+            fit.argtypes, fit.restype = [ip], ip
         return time.perf_counter() - t0
 
 

@@ -8,13 +8,14 @@ Items, under the TPU tool's names with the card's kinds (64 fields of
 warm-up; each kernel's output first held against its plain version):
 
 - ``diffuse_kernel_{stencil,tc_tf32,tc_bf16}_s{0.5,1.25}``: 64 applications
-  of ``y = G(x) * 0.9`` in one launch, the field held in a cluster of 4
-  blocks; µs per application;
+  of ``y = G(x) * 0.9`` in one launch, the field held on a cluster of
+  blocks (``probes.stencil_plan``, ``tc_plan``); µs per application;
 - ``diffuse_plain_{stencil,matmul}_s*``: the twins of ``make_diffuse_xla``,
   eager PyTorch (the separable stencil; ``torch.matmul`` with
   ``allow_tf32`` stated and set, the product legs' library time);
 - ``roll_kernel_{shift,tc}``: 256 chained ``roll(x, 1, 0) + 1`` as a shift
-  and as the permutation product on the tensor cores; ns per roll;
+  (P2's register kernel with one chain) and as the permutation product on
+  the tensor cores; ns per roll;
 - ``ulp_sigma{0.5,1.25}``: max ulp and max abs of one application of each
   tensor-core leg against the stencil;
 - ``null_offset``: the device time of a trivial launch (CUDA events time

@@ -18,12 +18,16 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
   cluster, no shared memory and no barrier a round (placement
   ``registers``).
 - P3 ``make_rollk`` -> :func:`neighbour` (``csrc/probe_shift.cu``): rounds
-  of 8-neighbour sums against an 8-multiply stand-in, the field held in a
-  cluster of 4 blocks.  The TPU's two lowerings become the card's two ways
-  to reach a neighbour: ``smem`` (a read at an offset in shared memory,
-  twin of ``rolls``: neighbour ``x[i+o0, j+o1]``) and ``shfl`` (warp
-  shuffles along axis 1, twin of ``ptpu_rolls``, whose ``pltpu.roll`` by
-  ``+o1`` reads ``x[i+o0, j-o1]``).
+  of 8-neighbour sums against an 8-multiply stand-in (``alu``: a thread's 8
+  cells in registers for all rounds).  The neighbour kinds hold a field on
+  a cluster of 2 blocks of 128 rows, a warp's strip of 8 rows walked down
+  with a lane's 8 contiguous columns in registers, the peer's boundary rows
+  pushed into halo rows (:func:`neighbour_plan`).  The TPU's two lowerings
+  become the card's two ways to reach the columns beside a lane's: ``smem``
+  (a read at an offset in shared memory, twin of ``rolls``: neighbour
+  ``x[i+o0, j+o1]``) and ``shfl`` (warp shuffles along axis 1, twin of
+  ``ptpu_rolls``, whose ``pltpu.roll`` by ``+o1`` reads ``x[i+o0,
+  j-o1]``).
 - P4 ``make_diffuse_kernel`` -> :func:`stencil` (``csrc/probe_diffuse.cu``,
   the separable wrap Gaussian in K1's order, a field on a cluster of 2
   blocks, a warp's strip of rows in registers through both passes, the
@@ -35,10 +39,10 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
   that owns them next, the matrix held in registers (TF32: half of its k,
   the rest in shared memory); :func:`tc_plan` states the layout and the
   routing.
-- P5 ``make_roll_kernel`` -> :func:`shift` (``roll(x, 1, 0) + 1``, a cluster
-  of 4) and :func:`tc_roll` (``P x + 1`` with the permutation ``P`` on the
-  tensor cores, TF32, the same kernel one-sided: no cluster, each block's
-  output stored transposed into its own buffer).
+- P5 ``make_roll_kernel`` -> :func:`shift` (``roll(x, 1, 0) + 1``: P2's
+  register kernel with one chain) and :func:`tc_roll` (``P x + 1`` with the
+  permutation ``P`` on the tensor cores, TF32, the same kernel one-sided:
+  no cluster, each block's output stored transposed into its own buffer).
 
 Each wrapper given CPU tensors runs its plain version (``*_plain``); given
 CUDA tensors it launches its kernel or raises, and adds one to
@@ -95,7 +99,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
 _ALU_KIND = {"fma": 0, "cmpsel": 1, "intops": 2}
 _ALU_DT = {"float32": 0, "bfloat16": 1, "int32": 2, "int16": 3, "int8": 4}
-_NEIGHBOUR_KIND = {"alu": 0, "smem": 1, "shfl": 2, "shift": 3}
+_NEIGHBOUR_KIND = {"alu": 0, "smem": 1, "shfl": 2}
 
 # counter key -> (source, the TPU kernel's pallas_call it replaces)
 _MEASURE = "tools/tpu_measure.py:"
@@ -497,14 +501,34 @@ def roll(x: torch.Tensor, axis: int, shift: int, rounds: int = ROLL_ROUNDS):
     _check(x, torch.float32, "roll")
     out = torch.empty_like(x)
     _launch("probe_shift", "die_probe_roll", f"probe_roll_ax{axis}_s{shift}",
-            x.data_ptr(), out.data_ptr(), x.shape[0], axis, shift, rounds)
+            x.data_ptr(), out.data_ptr(), x.shape[0], axis, shift, rounds,
+            CHAINS)
     return out
 
 
-def _neighbour(x, kind, rounds, key, plain):
+def shift(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
+    """P5's shift leg on f32 ``[B, 256, 256]``: ``roll_kernel`` with one
+    chain (``x`` itself, no maximum) at axis 0, shift 1."""
+    key = "probe_roll_kernel_shift"
     _rounds(rounds, key)
     if x.device.type == "cpu":
-        return plain()
+        return shift_plain(x, rounds)
+    _check(x, torch.float32, key)
+    out = torch.empty_like(x)
+    _launch("probe_shift", "die_probe_roll", key, x.data_ptr(),
+            out.data_ptr(), x.shape[0], 0, 1, rounds, 1)
+    return out
+
+
+def neighbour(x: torch.Tensor, kind: str, rounds: int = NEIGHBOUR_ROUNDS):
+    """P3 on f32 ``[B, 256, 256]``, ``kind`` in ``NEIGHBOUR_KINDS`` (the
+    kernels' geometry: :func:`neighbour_plan`)."""
+    if kind not in NEIGHBOUR_KINDS:
+        raise ValueError(f"neighbour probe: no kind {kind!r}")
+    key = f"probe_rollk_{kind}"
+    _rounds(rounds, key)
+    if x.device.type == "cpu":
+        return neighbour_plain(x, kind, rounds)
     _check(x, torch.float32, key)
     out = torch.empty_like(x)
     consts = np.array(NEIGHBOUR_ALU, dtype=np.float32)
@@ -512,20 +536,6 @@ def _neighbour(x, kind, rounds, key, plain):
             out.data_ptr(), x.shape[0], _NEIGHBOUR_KIND[kind], rounds,
             consts.ctypes.data)
     return out
-
-
-def neighbour(x: torch.Tensor, kind: str, rounds: int = NEIGHBOUR_ROUNDS):
-    """P3 on f32 ``[B, 256, 256]``, ``kind`` in ``NEIGHBOUR_KINDS``."""
-    if kind not in NEIGHBOUR_KINDS:
-        raise ValueError(f"neighbour probe: no kind {kind!r}")
-    return _neighbour(x, kind, rounds, f"probe_rollk_{kind}",
-                      lambda: neighbour_plain(x, kind, rounds))
-
-
-def shift(x: torch.Tensor, rounds: int = SHIFT_ROUNDS):
-    """P5's shift leg on f32 ``[B, 256, 256]``."""
-    return _neighbour(x, "shift", rounds, "probe_roll_kernel_shift",
-                      lambda: shift_plain(x, rounds))
 
 
 def _sigma(sigma: float, what: str) -> str:
@@ -644,6 +654,160 @@ def stencil(x: torch.Tensor, sigma: float, apps: int = DIFFUSE_APPS,
             out.data_ptr(), x.shape[0], apps, taps.ctypes.data, len(taps),
             decay)
     return out
+
+
+# ---- the neighbour kernels' plan ------------------------------------------------
+
+NEIGHBOUR_CLUSTER = 2  # blocks a field, smem and shfl (csrc kNbCl)
+NEIGHBOUR_STRIP = 8  # rows a warp walks (csrc kNbStrip)
+NEIGHBOUR_COLS = 8  # contiguous columns a lane owns (csrc kNbCols)
+NEIGHBOUR_THREADS = 512  # threads a block (csrc kNbThreads)
+ALU_THREADS = 256  # threads a block of the alu stand-in (csrc kAluThreads)
+ALU_CELLS = 8  # contiguous cells a thread of it holds (csrc kAluCells)
+SM_THREADS = 2048  # threads an SM can hold
+SMEM_BANKS = 32  # 4-byte banks; a wavefront serves one word of each a clock
+
+
+def smem_wavefronts(words, width: int) -> int:
+    """Wavefronts of one warp-wide shared-memory access: ``words[l]`` the
+    4-byte word index lane ``l`` starts at, ``width`` 4 or 16 bytes a lane.
+    A 16-byte access goes a quarter-warp (8 lanes, 128 bytes) at a time; in
+    each pass the wavefronts are the most distinct words any one bank is
+    asked for."""
+    per = 32 * 4 // width  # lanes a pass
+    n = 0
+    for p0 in range(0, len(words), per):
+        banks = collections.defaultdict(set)
+        for w in words[p0:p0 + per]:
+            for k in range(width // 4):
+                banks[(w + k) % SMEM_BANKS].add(w + k)
+        n += max(len(v) for v in banks.values())
+    return n
+
+
+def neighbour_plan(B: int, kind: str, sms: int = 132) -> dict:
+    """What ``die_probe_neighbour`` (``csrc/probe_shift.cu``) launches for
+    ``B`` fields of ``kind`` on a card of ``sms`` SMs.
+
+    ``alu``: ``blocks`` of ``threads`` threads, no cluster and no shared
+    memory; thread ``t`` of block ``b`` holds the ``lane_cells`` cells
+    ``(b * threads + t) * lane_cells ..`` of the flattened fields for all
+    rounds.
+
+    ``smem``, ``shfl``: a ``cluster`` of blocks a field, block ``b`` holding
+    its rows ``rows[b]`` in shared memory with ``threads`` threads; warp
+    ``w`` walks the strip of ``strip`` rows ``strips[b][w]``, lane ``l`` its
+    columns ``cols[l]``, reading the columns ``edges[l]`` (left, right)
+    beside them (``smem``: in the order ``edge_order[l]``, 0 left first).
+    The block's halo row ``above`` and ``below`` (global rows, on the
+    torus) are the ``peer``'s last and first rows, pushed by its last warp
+    and its warp 0 (``push[b] = {"above": (peer, warp, its strip rows),
+    ...}``) into one of 2 parities of ``halo_bytes``.  A warp's first and
+    last output rows also go to its edge rows (2 parities, ``edge_bytes``
+    in all), which are what the warps beside it read: ``above_of[w]`` and
+    ``below_of[w]`` name where warp ``w`` reads the rows above and below
+    its strip, ``("edge", warp, 0 first or 1 last)`` or ``("halo", 0 above
+    or 1 below)``; no warp reads another's rows in place.  ``chunks[l]`` the
+    16-byte chunks a lane's columns sit in (``stencil_chunk``);
+    ``smem_wavefronts``: a block's shared-memory wavefronts a round (a
+    strip's rows and the rows above and below it read, the smem kind's edge
+    columns, the strip and its edge rows written, the pushed rows).
+
+    Both: ``smem_bytes`` a block, ``blocks_per_sm``, ``waves`` at that (the
+    card's own count of clusters is ``cudaOccupancyMaxActiveClusters``,
+    :func:`neighbour_clusters`)."""
+    if kind not in NEIGHBOUR_KINDS:
+        raise ValueError(f"neighbour_plan: no kind {kind!r}")
+    if B < 1 or B > 65535:
+        raise ValueError(f"neighbour_plan: 1 to 65535 fields, got {B}")
+    if kind == "alu":
+        blocks = B * SIDE * SIDE // (ALU_THREADS * ALU_CELLS)
+        per_sm = SM_THREADS // ALU_THREADS
+        return {"kind": kind, "blocks": blocks, "cluster": 1,
+                "threads": ALU_THREADS, "lane_cells": ALU_CELLS,
+                "smem_bytes": 0, "blocks_per_sm": per_sm,
+                "waves": -(-blocks // (sms * per_sm))}
+    rows = SIDE // NEIGHBOUR_CLUSTER
+    warps = rows // NEIGHBOUR_STRIP
+    lanes = SIDE // NEIGHBOUR_COLS
+    if warps * lanes != NEIGHBOUR_THREADS or lanes != 32:
+        raise ValueError("neighbour_plan: the geometry does not hold")
+    halo_bytes = 2 * 2 * SIDE * 4
+    edge_bytes = warps * 2 * 2 * SIDE * 4
+    smem = rows * SIDE * 4 + halo_bytes + edge_bytes + (4 + 2 * warps) * 8
+    per_sm = SM_SHARED_BYTES // (smem + 1024)
+    fit = sms * per_sm // NEIGHBOUR_CLUSTER
+    rows_of = [(b * rows, (b + 1) * rows) for b in range(NEIGHBOUR_CLUSTER)]
+    strips = [[(g0 + w * NEIGHBOUR_STRIP, g0 + (w + 1) * NEIGHBOUR_STRIP)
+               for w in range(warps)] for g0, _ in rows_of]
+    peer = [b ^ 1 for b in range(NEIGHBOUR_CLUSTER)]
+    cols = [(l * NEIGHBOUR_COLS, (l + 1) * NEIGHBOUR_COLS)
+            for l in range(lanes)]
+    edges = [((c0 - 1) % SIDE, c1 % SIDE) for c0, c1 in cols]
+    chunks = [[stencil_chunk(c0 // 4 + h) for h in range(NEIGHBOUR_COLS // 4)]
+              for c0, _ in cols]
+
+    def word(c):  # where column c of a row sits, in words
+        return 4 * stencil_chunk(c // 4) + c % 4
+
+    order = [l // 16 for l in range(lanes)]  # lanes 16-31 right first
+    chunk_row = sum(smem_wavefronts([4 * ch[h] for ch in chunks], 16)
+                    for h in range(NEIGHBOUR_COLS // 4))
+    row = chunk_row
+    if kind == "smem":
+        row += sum(smem_wavefronts([word(e[side ^ o]) for e, o in
+                                    zip(edges, order)], 4) for side in (0, 1))
+    wavefronts = warps * ((NEIGHBOUR_STRIP + 2) * row
+                          + (NEIGHBOUR_STRIP + 2) * chunk_row)
+    wavefronts += 2 * (NEIGHBOUR_COLS // 4) * 4  # two rows pushed in
+    return {"kind": kind, "blocks": NEIGHBOUR_CLUSTER * B,
+            "cluster": NEIGHBOUR_CLUSTER, "threads": NEIGHBOUR_THREADS,
+            "warps": warps, "strip": NEIGHBOUR_STRIP,
+            "lane_cols": NEIGHBOUR_COLS, "rows": rows_of, "strips": strips,
+            "cols": cols, "edges": edges, "edge_order": order,
+            "chunks": chunks,
+            "above_of": [("halo", 0) if w == 0 else ("edge", w - 1, 1)
+                         for w in range(warps)],
+            "below_of": [("halo", 1) if w == warps - 1 else ("edge", w + 1, 0)
+                         for w in range(warps)],
+            "above": [(g0 - 1) % SIDE for g0, _ in rows_of],
+            "below": [g1 % SIDE for _, g1 in rows_of], "peer": peer,
+            "push": [{"above": (peer[b], warps - 1, strips[peer[b]][-1]),
+                      "below": (peer[b], 0, strips[peer[b]][0])}
+                     for b in range(NEIGHBOUR_CLUSTER)],
+            "halo_bytes": halo_bytes, "edge_bytes": edge_bytes,
+            "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "waves": -(-B // fit),
+            "smem_wavefronts": wavefronts}
+
+
+def neighbour_placement(plan: dict) -> str:
+    """The plan in words, for the measurement rows."""
+    if plan["kind"] == "alu":
+        return (f"registers: a thread {plan['lane_cells']} cells for all "
+                f"rounds, no shared memory, no cluster, no barrier")
+    reach = ("the edge columns read at their offsets in shared memory"
+             if plan["kind"] == "smem" else
+             "the edge columns from lanes l - 1 and l + 1 by warp shuffles")
+    return (f"cluster{plan['cluster']}-halo: {plan['rows'][0][1]} rows a "
+            f"block, {plan['blocks_per_sm']} block an SM; a warp walks a "
+            f"strip of {plan['strip']} rows, a lane {plan['lane_cols']} "
+            f"contiguous columns ({reach}), written back in place, its first "
+            f"and last rows also to edge rows the warps beside it read after "
+            f"its mbarrier; the halo rows pushed by the peer onto an "
+            f"mbarrier; 2 parities, no cluster or block barrier a round")
+
+
+def neighbour_clusters(kind: str) -> int:
+    """Clusters of the neighbour kernel's launch of ``kind`` (``smem`` or
+    ``shfl``) that fit card 0 at once (``cudaOccupancyMaxActiveClusters``);
+    raises on a CUDA error."""
+    cuda_step.build()
+    n = cuda_step.entry("probe_shift", "die_probe_neighbour_clusters")(
+        _NEIGHBOUR_KIND[kind])
+    if n < 1:
+        raise RuntimeError(f"neighbour_clusters: error {n}")
+    return n
 
 
 @lru_cache(maxsize=None)
@@ -1001,8 +1165,9 @@ NEIGHBOUR_OPS = {"alu": 8 + 7 + 3, "smem": 7 + 3, "shfl": 7 + 3}
 def measure_neighbour(kind, rates, B=BLOCKS, rounds=NEIGHBOUR_ROUNDS,
                       reps=3):
     """P3 item ``rollk_{kind}``.  Ops a cell a round: 8 muls and 7 adds
-    (alu) or 7 adds, and 3 for the update.  Phase bound: the field read and
-    written once a round in shared memory."""
+    (alu) or 7 adds, and 3 for the update.  Phase bound (smem, shfl): the
+    design's shared-memory wavefronts (:func:`neighbour_plan`) at one a
+    clock an SM; the alu stand-in touches no shared memory."""
     x = seeded((B, SIDE, SIDE), torch.float32, 3)
     out = neighbour(x, kind, rounds)
     plain_ms, ref = timed_once(lambda: neighbour_plain(x, kind, rounds))
@@ -1011,38 +1176,66 @@ def measure_neighbour(kind, rates, B=BLOCKS, rounds=NEIGHBOUR_ROUNDS,
                              f"at the full shape")
     ms = time_ms(lambda: neighbour(x, kind, rounds), reps)
     cells = B * SIDE * SIDE
+    plan = neighbour_plan(B, kind, rates["sms"])
+    extra = {"placement": neighbour_placement(plan), "waves": plan["waves"]}
+    if kind != "alu":
+        fit = neighbour_clusters(kind)
+        extra.update(
+            phase_bound_ms=_smem_bound(
+                plan["blocks"] * plan["smem_wavefronts"] * 128 * rounds,
+                rates),
+            phase_bound_by="shared-memory wavefronts of the design (one a "
+                           "clock an SM)",
+            clusters_that_fit=fit, waves=-(-B // fit))
     return _row(f"rollk_{kind}", f"probe_rollk_{kind}", ms, plain_ms, out,
                 ref, 2 * x.numel() * 4, cells * rounds * NEIGHBOUR_OPS[kind],
-                rates["float32"], rates, placement="cluster4-dsmem",
-                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
-                phase_bound_by="shared-memory bytes",
-                us_per_env_round=ms * 1e3 / (B * rounds))
+                rates["float32"], rates,
+                us_per_env_round=ms * 1e3 / (B * rounds), **extra)
 
 
 def rollk_deltas(rows: dict, B=BLOCKS, rounds=NEIGHBOUR_ROUNDS) -> list:
-    """``(t_kind - t_alu) / (B * K * 8)`` per neighbour traversal, in ns."""
+    """``(t_kind - t_alu) / (B * K * 8)`` per neighbour traversal, in ns:
+    the whole cost of reaching the neighbours (their loads or shuffles, the
+    block barriers, the halo rows and their waits), since the alu stand-in
+    runs in registers alone."""
     return [{"item": f"rollk_delta_{k}",
              "ns_per_roll_traversal": (rows[k]["ms"] - rows["alu"]["ms"])
              * 1e6 / (B * rounds * 8)} for k in ("smem", "shfl")]
 
 
 def measure_shift(rates, B=BLOCKS, rounds=SHIFT_ROUNDS, reps=3):
-    """P5 item ``roll_kernel_shift``; library: ``rounds`` x ``torch.roll``."""
+    """P5 item ``roll_kernel_shift``, device time from a CUDA graph of 20
+    calls (``probes2.device_ms``).  Phase bound: ``roll_kernel``'s shuffles
+    (:func:`roll_shuffles`, one chain) at 32 lane-results a clock an SM.
+    Library: ``rounds`` x one ``torch.roll``; beside it the chain of
+    ``rounds`` ``torch.roll(x, 1, 1) + 1`` under a CUDA graph."""
+    from die_tpu_torch.tools.probes2 import device_ms
+
     x = seeded((B, SIDE, SIDE), torch.float32, 4)
     out = shift(x, rounds)
     plain_ms, ref = timed_once(lambda: shift_plain(x, rounds))
     if not same_bits(out, ref):
         raise AssertionError("roll_kernel_shift differs from its plain "
                              "version at the full shape")
-    ms = time_ms(lambda: shift(x, rounds), reps)
+    ms = device_ms(lambda: shift(x, rounds), 20, reps)
     lib = rounds * time_ms(lambda: torch.roll(x, 1, 1), 5)
+
+    def chain():
+        y = x
+        for _ in range(rounds):
+            y = torch.roll(y, 1, 1) + 1.0
+        return y
+
     cells = B * SIDE * SIDE
     return _row("roll_kernel_shift", "probe_roll_kernel_shift", ms, plain_ms,
                 out, ref, 2 * x.numel() * 4, cells * rounds,
                 rates["float32"], rates, library_ms=lib,
-                placement="cluster4-dsmem",
-                phase_bound_ms=_smem_bound(cells * rounds * 8, rates),
-                phase_bound_by="shared-memory bytes",
+                placement="registers: roll_kernel with one chain, each "
+                          "column in the registers of 16 lanes",
+                phase_bound_ms=roll_shuffles(cells, 1, rounds)
+                / rates["shfl"] * 1e3,
+                phase_bound_by="warp shuffles (32 lane-results a clock an SM)",
+                library_chain_graph_ms=device_ms(chain, 2),
                 ns_per_roll=ms * 1e6 / (B * rounds))
 
 

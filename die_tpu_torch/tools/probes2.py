@@ -32,7 +32,10 @@ Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure2.py``
 - P9 ``pack_kernel`` -> :func:`pack`: 32 rows of u32 to one word row,
   ``word[j, c] = OR_i x[32 j + i, c] << i``, ``PACKREPS`` times
   xor-accumulated (odd: the result is one pack).  Equal on any u32, not
-  only on 0/1.
+  only on 0/1.  A thread a word (or a part of its rows: :func:`pack_plan`),
+  its rows loaded once into registers and shifted anew each rep, the
+  shifts split between ``SHF`` on the ALU pipe and ``IMAD`` by ``2^k`` on
+  the FMA pipe (``PACK_SHF_EVERY``; :func:`pack_sass` counts them).
 - P10 ``unpack_kernel`` -> :func:`unpack`: ``out[r, c] = (w[r % 8, c] >> (r
   & 31)) & 1``, ``PACKREPS`` times xor-accumulated.  ``pltpu.repeat`` tiles
   the 8 word rows, so row ``r`` reads word row ``r % 8``: this is what the
@@ -253,6 +256,11 @@ def gather_phase_bound(B: int, n: int, reps: int, rates: dict,
             f"random reads, 32 a cycle on {sms} SMs")
 
 
+PACK_PARTS = (1, 2, 4, 8)  # threads a word (csrc pack_kernel<parts>)
+PACK_WARPS = 16  # warps an SM the pack's plan gives work to, where it can
+PACK_THREADS = 256  # threads a block
+PACK_SHF_EVERY, PACK_SHF_ROWS = 4, 7  # rows k = 4 m + 1, m < 7: SHF; else IMAD
+PACK_UNROLL = 5  # reps a turn of the rep loop (csrc kPackUnroll)
 UNPACK_PARTS = (1, 2, 4, 8)  # threads a word (csrc unpack_kernel<32 / parts>)
 UNPACK_WARPS = 16  # warps an SM the plan gives work to, where the words allow
 UNPACK_THREADS = 256  # threads a block: the 256 columns of one word row
@@ -277,6 +285,42 @@ def unpack_plan(B: int, sms: int) -> dict:
             "warps_per_sm": words * parts / 32 / sms}
 
 
+def pack_shf(k: int) -> bool:
+    """Whether ``pack_kernel`` shifts a thread's row ``k`` by ``SHF`` (on the
+    ALU pipe; else by an ``IMAD`` by ``2^k`` on the FMA pipe): 7 rows of a
+    word and 24, beside its 16 ``LOP3`` and the rep's add."""
+    return k % PACK_SHF_EVERY == 1 and k // PACK_SHF_EVERY < PACK_SHF_ROWS
+
+
+def pack_plan(B: int, sms: int) -> dict:
+    """What ``die_probe_pack`` launches for ``B`` boards on a card of
+    ``sms`` SMs: ``parts`` threads a word (the fewest of ``PACK_PARTS``
+    that give ``PACK_WARPS`` warps an SM, else the most), each holding
+    ``rows`` of the word's 32 rows in registers; ``blocks`` of ``threads``,
+    block ``b`` the ``cols`` columns ``b % parts * cols ..`` of word row
+    ``j = b // parts % 8`` of board ``b // (8 parts)``; thread ``t`` the
+    column ``t // parts`` of them and part ``t % parts``: rows ``32 j +
+    rows * part ..`` (the parts of a word neighbouring lanes).  A rep a
+    thread: ``shf`` funnel shifts and ``imad`` multiplies by ``2^k`` of its
+    rows (row 0 unshifted), ``lop3`` three-input ORs (the last one xoring
+    into the sum where ``parts`` is 1), then, where it is more, one shift of
+    the partial word by ``rows * part`` and ``log2 parts`` shuffles, each
+    ORed in."""
+    if B < 1 or B > 65535:
+        raise ValueError(f"pack_plan: 1 to 65535 boards, got {B}")
+    words = B * WORD_ROWS * SIDE
+    want = sms * PACK_WARPS * 32
+    parts = next((k for k in PACK_PARTS if words * k >= want), PACK_PARTS[-1])
+    rows = 32 // parts
+    shf = sum(pack_shf(k) for k in range(1, rows))
+    return {"parts": parts, "rows": rows, "threads": PACK_THREADS,
+            "cols": PACK_THREADS // parts, "blocks": B * WORD_ROWS * parts,
+            "shf": shf,
+            "imad": rows - 1 - shf, "lop3": rows // 2,
+            "shuffles": parts.bit_length() - 1,
+            "warps_per_sm": words * parts / 32 / sms}
+
+
 def onehot_plan(n: int, sms: int) -> int:
     """Blocks of P7's persistent grid: one an SM, no more than the
     ``ONEHOT_GROUPS`` warpgroups of each have tiles to walk.  Block ``b``
@@ -286,6 +330,34 @@ def onehot_plan(n: int, sms: int) -> int:
 
 
 UNPACK_SHIFTS = ("SHF", "IMAD", "IMAD.SHL")  # SASS of a shift (IMAD: by 2^k)
+
+
+def _shift_ops(loop) -> int:
+    """Shifts of a SASS loop's counts: ``SHF``, or an ``IMAD`` multiply by a
+    power of two; ``IMAD.WIDE``, ``.MOV`` and ``.IADD`` are address, move
+    and add work."""
+    return sum(n for op, n in loop.items()
+               if op in UNPACK_SHIFTS or op.startswith(("SHF.", "IMAD.SHL")))
+
+
+def pack_sass(sass: str) -> dict:
+    """{threads a word: {"shift": n, "LOP3": n, "ops": {opcode: n}}} a word
+    a rep of ``pack_kernel``'s rep loop (``probes.sass_loops`` of
+    ``cuobjdump -sass`` output, whose largest loop holds ``PACK_UNROLL``
+    reps): the shifts (``SHF``, ``IMAD`` by ``2^k``), the ``LOP3`` and every
+    opcode, each over the unroll and times the threads of a word."""
+    out = {}
+    for fn, loop in P.sass_loops(sass).items():
+        m = re.search(r"(?<!un)pack_kernelILi(\d+)E", fn)
+        if not m:
+            continue
+        parts = int(m[1])
+        per = parts / PACK_UNROLL
+        out[parts] = {"shift": _shift_ops(loop) * per,
+                      "LOP3": sum(n for op, n in loop.items()
+                                  if op.split(".")[0] == "LOP3") * per,
+                      "ops": {op: n * per for op, n in loop.items()}}
+    return out
 
 
 def unpack_sass(sass: str) -> dict:
@@ -301,9 +373,7 @@ def unpack_sass(sass: str) -> dict:
         m = re.search(r"unpack_kernelILi(\d+)E", fn)
         if not m:
             continue
-        shifts = sum(n for op, n in loop.items()
-                     if op in UNPACK_SHIFTS or op.startswith(("SHF.",
-                                                              "IMAD.SHL")))
+        shifts = _shift_ops(loop)
         lop3 = sum(n for op, n in loop.items() if op.split(".")[0] == "LOP3")
         loads = sum(n for op, n in loop.items() if op.startswith("LDG"))
         work = int(m[1]) * max(1, loads)
@@ -409,10 +479,11 @@ def pack(x: torch.Tensor, reps: int = PACKREPS) -> torch.Tensor:
     P._rounds(reps, "pack")
     if x.device.type == "cpu":
         return pack_plain(x, reps)
+    plan = pack_plan(B, cuda_step._num_sms(x.device))
     out = torch.empty((B, WORD_ROWS, SIDE), dtype=torch.int32,
                       device=x.device)
     P._launch("probe_bits", "die_probe_pack", "probe_pack", x.data_ptr(),
-              out.data_ptr(), B, reps)
+              out.data_ptr(), B, reps, plan["parts"])
     return out
 
 
@@ -647,9 +718,12 @@ def measure_chain(tag, rates, B=1, rounds=CHAIN):
                 ns_per_op_per_cell256=per_op / (B * CELLS))
 
 
-def measure_pack(rates, B=1, reps=PACKREPS):
+def measure_pack(rates, B=1, reps=PACKREPS, sass=None):
     """P9 item ``pk_pack_B{B}`` on random 0/1 cells.  Bound: the cells in and
-    the words out once against ``PACK_OPS`` instructions a word a rep."""
+    the words out once against ``PACK_OPS`` instructions a word a rep.
+    Phase bound, where ``sass`` (:func:`pack_sass`) has the plan's
+    instance: its instructions a thread a rep priced by pipe
+    (``probes.alu_cycles``), every scheduler of the card busy."""
     x = seeded_words((B, SIDE, SIDE), 35, bits=True)
     item = f"pk_pack_B{B}"
     out, plain_ms, ref, ms, ms1 = _timings(
@@ -657,14 +731,30 @@ def measure_pack(rates, B=1, reps=PACKREPS):
         lambda: pack_plain(x, reps))
     _check_bits(item, out, ref)
     words = B * WORD_ROWS * SIDE
+    plan = pack_plan(B, rates["sms"])
+    extra = {}
+    counts = (sass or {}).get(plan["parts"])
+    if counts:
+        cycles, by = P.alu_cycles({op: n / plan["parts"] for op, n in
+                                   counts["ops"].items()})
+        warp_reps = words * plan["parts"] / 32 * reps
+        extra = {"phase_bound_ms": cycles * warp_reps
+                 / (4 * rates["sms"] * rates["clock_mhz"] * 1e6) * 1e3,
+                 "phase_bound_by": f"instructions (SASS), {by}"}
+    split = (f"{plan['shf']} SHF.L.W and {plan['lop3']} LOP3 on the ALU "
+             f"pipe beside {plan['imad']} IMAD by 2^k on the FMA pipe")
     return _row(item, "probe_pack", ms, plain_ms, out, ref,
                 x.numel() * 4 + words * 4, PACK_OPS * words * reps,
                 int_dispatch_rate(rates), rates,
-                placement="a thread a word: its 32 rows read each rep "
-                          "(coalesced; L1 after the first) and ORed in "
-                          "registers, no warp primitive",
+                placement=f"a thread {plan['rows']} rows of a word "
+                          f"({plan['parts']} a word), loaded once into "
+                          f"registers and kept across reps; a rep a "
+                          f"thread {split}"
+                          + (f", its partial word ORed in by "
+                             f"{plan['shuffles']} shuffles"
+                             if plan["parts"] > 1 else ""),
                 B=B, reps=reps, ms_1rep=ms1,
-                us_per_pack=ms * 1e3 / (B * reps))
+                us_per_pack=ms * 1e3 / (B * reps), **extra)
 
 
 def measure_unpack(rates, B=1, reps=PACKREPS):

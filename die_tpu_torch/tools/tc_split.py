@@ -140,9 +140,9 @@ def build(cuda_step, name: str, text: str):
     if name == "whole":  # the query after the anonymous namespace
         text = text.replace("}  // namespace\n", "}  // namespace\n" + _FIT)
     src.write_text(text)
-    proc = subprocess.run([cuda_step._nvcc(), *cuda_step.NVCC_FLAGS, "-o",
-                           str(lib), str(src)], capture_output=True, text=True,
-                          timeout=600)
+    proc = subprocess.run([cuda_step._nvcc(), *cuda_step.NVCC_FLAGS,
+                           "-I", str(SOURCE.parent), "-o", str(lib), str(src)],
+                          capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     so = ctypes.CDLL(str(lib))

@@ -34,11 +34,11 @@ beside the ``torch.matmul`` chains under the same timing (f32 with TF32
 off, the stencil's yardstick; TF32; bf16).  With ``--bit-probes``, only the
 bit-plane probes (``bit_probes_ms``): P8 at its three shapes, P9, P10 and
 P11 at B = 1 and 64, device time from a CUDA graph of 20 calls.  With
-``--shift-alu-probes``, only the ALU and roll probes
-(``shift_alu_probes_ms``): P1's seven legs and P2's four at the TPU
-probes' shape, beside 64 chained ``torch.roll(chains, s, dim) + 1``, and
-the controls P3 (three kinds), P5's shift leg and P4's stencil legs,
-device time from a CUDA graph.  Uses only what every tree of the port has (the entry points and
+``--shift-alu-probes``, only the ALU, roll and neighbour probes
+(``shift_alu_probes_ms``): P3's three kinds, P5's shift leg (beside 256
+chained ``torch.roll(x, 1, 1) + 1``), P1's seven legs and P2's four
+(beside 64 chained ``torch.roll(chains, s, dim) + 1``) and P4's stencil
+legs at the TPU probes' shape, device time from a CUDA graph.  Uses only what every tree of the port has (the entry points and
 wrappers, ``train_lattice``, the committed artifacts, ``tools/probes2.py``).
 """
 from __future__ import annotations
@@ -290,15 +290,18 @@ def diffuse_probes_ms(calls: int = 2) -> dict:
 
 def shift_alu_probes_ms(calls: int = 2) -> dict:
     """Device ms a call (``probes2.device_ms``, ``calls`` calls a graph, 20
-    for P2) of P1's legs (``alu_{kind}_{dtype}``, 64 fields, 256 rounds) and
-    P2's (``roll_ax{a}_s{s}``, 64 fields, 64 rounds; ``roll`` called with its
-    arguments by position, which every tree's signature takes) on the inputs
-    of ``probes.measure_alu`` and ``measure_roll``, each output first held
-    bitwise against its plain twin; beside P2 (``library_roll_ax{a}_s{s}``)
-    the chain of 64 ``torch.roll(chains, s, dim) + 1`` on the four chains,
-    captured the same way; and the controls, whose source no tree of this
-    comparison changes: P3 (``rollk_{kind}``), P5's shift
-    (``roll_kernel_shift``) and P4's stencil (``stencil_s{sigma}``)."""
+    for P2 and P5's shift) of P3 (``rollk_{kind}``, 64 fields, 64 rounds),
+    P5's shift (``roll_kernel_shift``, 64 fields, 256 rounds), P1's legs
+    (``alu_{kind}_{dtype}``, 256 rounds), P2's (``roll_ax{a}_s{s}``, 64
+    rounds; ``roll`` called with its arguments by position, which every
+    tree's signature takes) and P4's stencil (``stencil_s{sigma}``) on the
+    inputs of the ``probes.measure_*`` functions, each output first held
+    bitwise against its plain twin; beside P5's shift
+    (``library_roll_kernel_shift``) the chain of 256 ``torch.roll(x, 1, 1) +
+    1`` and beside P2 (``library_roll_ax{a}_s{s}``) the chain of 64
+    ``torch.roll(chains, s, dim) + 1`` on the four chains, captured the same
+    way.  A comparison of trees that changes P3 and P5's shift reads P1, P2
+    and the stencil as its controls."""
     import torch
 
     from die_tpu_torch.tools import probes as P
@@ -334,7 +337,16 @@ def shift_alu_probes_ms(calls: int = 2) -> dict:
         timed(f"rollk_{kind}", lambda: P.neighbour(x, kind),
               lambda: P.neighbour_plain(x, kind))
     x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 4)
-    timed("roll_kernel_shift", lambda: P.shift(x), lambda: P.shift_plain(x))
+    timed("roll_kernel_shift", lambda: P.shift(x), lambda: P.shift_plain(x),
+          20)
+
+    def shift_chain():
+        y = x
+        for _ in range(P.SHIFT_ROUNDS):
+            y = torch.roll(y, 1, 1) + 1.0
+        return y
+
+    out["library_roll_kernel_shift"] = P2.device_ms(shift_chain, calls)
     x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 5)
     for sigma in P.SIGMAS:
         timed(f"stencil_s{sigma}", lambda: P.stencil(x, sigma),
@@ -349,7 +361,8 @@ def bit_probes_ms(calls: int = 20) -> dict:
     ``measure_funnel``: P8 at its three shapes (``chain_{tag}_B{B}``), P9
     (``pack_B{B}``), P10 (``unpack_B{B}``) and P11 (``funnel_B{B}``), each
     called with its arguments by position (which every tree's wrappers
-    take) and first held bitwise against its plain twin."""
+    take) and first held bitwise against its plain twin.  A comparison of
+    trees that changes P9 reads P8, P10 and P11 as its controls."""
     from die_tpu_torch.tools import probes as P
     from die_tpu_torch.tools import probes2 as P2
 
