@@ -1947,15 +1947,16 @@ def stencil_parity(check):
 RESOURCE_KERNELS = {"stencil_kernel": (2, True), "unpack_kernel": (4, False),
                     "neighbour_kernel": (2, True),
                     "neighbour_alu_kernel": (1, True),
-                    "roll_kernel": (5, False), "pack_kernel": (4, False)}
+                    "roll_kernel": (5, False), "pack_kernel": (4, False),
+                    "chain_kernel": (3, True), "funnel_kernel": (2, True)}
 
 
 def probe_resources():
     """The registers, stack frame and local memory a thread (``cuobjdump
     -res-usage``) of the stencil, the neighbour kernels, the roll kernel
-    (P2's four instances, P5's one chain), the pack and the unpack: none
-    spills, and the stencil's and the neighbour kernels' instances keep no
-    stack frame."""
+    (P2's four instances, P5's one chain), the pack, the unpack, the chain
+    and the funnel: none spills, and the stencil's, the neighbour kernels',
+    the chain's and the funnel's instances keep no stack frame."""
     from die_tpu_torch.tools import probes as P
 
     usage = {}
@@ -2025,10 +2026,14 @@ def probe2_parity(check):
     1 and 3 reps, on a uniform field and on a wide-range one (both signs, +0
     and -0, magnitudes 2^-100 to 2^101: its bf16 parts are normal or zero;
     subnormal parts are outside the probe, which the tensor cores may
-    flush); words of random bit patterns (non-0/1 words for the pack).  The
-    TF32 one-hot leg is bitwise against its twin (the field rounded to TF32)
-    and its ulp against the exact gather is printed.  Then the one-hot
-    kernels' SASS (``cuobjdump``): ``HGMMA``, no ``HMMA``."""
+    flush); words of random bit patterns (non-0/1 words for the pack): P8
+    at every form of its plan (:func:`chain_parity`), P9 and P10 at every
+    threads-a-word instance, P11 at both lane counts
+    (:func:`funnel_parity`).  The TF32 one-hot leg is bitwise against its
+    twin (the field rounded to TF32) and its ulp against the exact gather
+    is printed.  Then the one-hot kernels' SASS (``cuobjdump``): ``HGMMA``,
+    no ``HMMA``; P8's, P9's, P10's and P11's loops
+    (:func:`bits_sass_check`, :func:`pack_sass_check`)."""
     from die_tpu_torch.tools import probes as P
     from die_tpu_torch.tools import probes2 as P2
 
@@ -2059,11 +2064,7 @@ def probe2_parity(check):
     log("probe_gather kernels (ptxas): " + kernel_registers("probe_gather"))
     hgmma = wgmma_sass("probe_gather", "onehot_kernel")
     log(f"probe_gather SASS, tensor-core instructions by kernel: {hgmma}")
-    for tag, shape in P2.CHAIN_SHAPES.items():
-        x = P2.seeded_words((2, *shape), 16)
-        for rounds in (0, 3):
-            check(f"probe_chain_{tag}", P2.chain(x, rounds),
-                  P2.chain_plain(x, rounds))
+    chain_parity(check)
     for B in PACK_BATCHES:  # every threads-a-word instance of the plan
         x = P2.seeded_words((B, P2.SIDE, P2.SIDE), 17 + B)  # any word
         for reps in (0, 1, 2, 3, P2.PACKREPS):
@@ -2098,13 +2099,113 @@ def probe2_parity(check):
         raise AssertionError(f"unpack_kernel does fewer than a shift and a "
                              f"LOP3 a cell a rep: {sass}")
     pack_sass_check()
-    w = P2.seeded_words((2, P2.WORD_ROWS, P2.SIDE), 19)
-    for steps in (0, 1, 33):
-        check("probe_funnel", P2.funnel(w, steps), P2.funnel_plain(w, steps))
+    funnel_parity(check)
+    bits_sass_check()
 
 
 UNPACK_BATCHES = (1, 2, 3, 16, 32, 64)
 PACK_BATCHES = (1, 3, 16, 32, 64)
+CHAIN_BATCHES = (1, 2, 64)
+CHAIN_COUNTS = (0, 1, 3, 5, 11, 12, 13, 256)
+FUNNEL_BATCHES = (1, 2, 3, 64)
+FUNNEL_COUNTS = (0, 1, 2, 7, 8, 9, 33, 512)
+
+
+def edge_words(shape, seed: int) -> torch.Tensor:
+    """Random u32 words (``probes2.seeded_words``) whose first three are 0,
+    2^32 - 1 and 2^31."""
+    from die_tpu_torch.tools import probes2 as P2
+
+    x = P2.seeded_words(shape, seed)
+    x.view(-1)[:3] = torch.tensor([0, -1, -2 ** 31], dtype=torch.int32)
+    return x
+
+
+def chain_parity(check):
+    """P8 (``chain_kernel<FORM, W>``) against ``chain_plain``, bitwise, at
+    every ``probes2.chain_plan`` instance: each shape at 1, 2 and 64 arrays
+    (every form), 0 to 13 rounds (the unrolled turn's tail and one turn of
+    12) and the timed 256, on random words and 0, 2^32 - 1, 2^31; fails
+    where a form of the plan went unchecked."""
+    from die_tpu_torch.tools import probes2 as P2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    forms = set()
+    for B in CHAIN_BATCHES:
+        for tag, shape in P2.CHAIN_SHAPES.items():
+            forms.add(P2.chain_plan(B, shape, sms)["form"])
+            x = edge_words((B, *shape), 16 + B)
+            for rounds in CHAIN_COUNTS:
+                check(f"probe_chain_{tag}", P2.chain(x, rounds),
+                      P2.chain_plain(x, rounds))
+    if forms != set(P2.CHAIN_FORMS):
+        raise AssertionError(f"P8's parity ran forms {forms}, not every one "
+                             f"of {set(P2.CHAIN_FORMS)}")
+    log(f"probe chain equals its twin bitwise at B {CHAIN_BATCHES} x every "
+        f"shape (forms {sorted(forms)}) x {CHAIN_COUNTS} rounds")
+
+
+def funnel_parity(check):
+    """P11 (``funnel_kernel<L>``) against ``funnel_plain``, bitwise, at 1,
+    2, 3 and 64 boards (both lane counts of ``probes2.funnel_plan``) and 0
+    to 33 steps (the unrolled turn of 8 and its tail) and the timed 512, on
+    random words and 0, 2^32 - 1, 2^31; fails where a lane count of the
+    plan went unchecked."""
+    from die_tpu_torch.tools import probes2 as P2
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lanes = set()
+    for B in FUNNEL_BATCHES:
+        lanes.add(P2.funnel_plan(B, sms)["lanes"])
+        w = edge_words((B, P2.WORD_ROWS, P2.SIDE), 19 + B)
+        for steps in FUNNEL_COUNTS:
+            check("probe_funnel", P2.funnel(w, steps),
+                  P2.funnel_plain(w, steps))
+    if lanes != set(P2.FUNNEL_LANES):
+        raise AssertionError(f"P11's parity ran lanes {lanes}, not every "
+                             f"one of {P2.FUNNEL_LANES}")
+    log(f"probe funnel equals its twin bitwise at B {FUNNEL_BATCHES} (lanes "
+        f"{sorted(lanes)}) x {FUNNEL_COUNTS} steps")
+
+
+def bits_sass_check() -> tuple:
+    """P8's and P11's loops in the SASS (``probes2.chain_sass``,
+    ``funnel_sass``), every instance, priced by pipe
+    (``probes.alu_cycles``) and logged: a chain round at least 6
+    instructions a word, 3 of them ``LOP3``; a funnel step at least one
+    ``SHF`` a word (no two steps merged into one shift), else the run
+    fails.  Returns (chain counts by form, funnel counts by lanes), empty
+    without ``cuobjdump``."""
+    from die_tpu_torch.tools import probes as P
+    from die_tpu_torch.tools import probes2 as P2
+
+    sass = P.sass_text("probe_bits")
+    chain, funnel = P2.chain_sass(sass), P2.funnel_sass(sass)
+    if not sass:
+        log("cuobjdump not found: P8's and P11's SASS not checked")
+        return {}, {}
+    for form, c in sorted(chain.items()):
+        cycles, by = P.alu_cycles(c["ops"])
+        log(f"probe chain SASS, {form}, a word a round: {c['instructions']:g}"
+            f" instructions, {c['LOP3']:g} LOP3; ops {c['ops']}; {cycles:g} "
+            f"clocks a warp ({by})")
+    for lanes, c in sorted(funnel.items()):
+        words = P2.WORD_ROWS // lanes
+        cycles, by = P.alu_cycles({op: n * words
+                                   for op, n in c["ops"].items()})
+        log(f"probe funnel SASS, {lanes} lane(s) a column, a word a step: "
+            f"{c['shift']:g} SHF; ops {c['ops']}; {cycles:g} clocks a warp "
+            f"a step ({by})")
+    if set(chain) != set(P2.CHAIN_FORMS) or any(
+            c["instructions"] < P2.CHAIN_OPS or c["LOP3"] < 3
+            for c in chain.values()):
+        raise AssertionError(f"chain_kernel does less than 6 instructions "
+                             f"and 3 LOP3 a word a round: {chain}")
+    if set(funnel) != set(P2.FUNNEL_LANES) or any(
+            c["shift"] < 1 for c in funnel.values()):
+        raise AssertionError(f"funnel_kernel does less than a shift a word "
+                             f"a step: {funnel}")
+    return chain, funnel
 
 
 def pack_sass_check() -> dict:
@@ -2212,7 +2313,12 @@ def phase_probes(smi: str):
              for k in ("stencil", *P.TC_KINDS)]
     # the gather and bit-plane probes at the TPU's shape (B = 1) and at
     # B = 64; the kernels line takes the TPU shape's row, the other beside it
-    rows2 = probe2_rows(rates, P2.pack_sass(P.sass_text("probe_bits")))
+    bits = P.sass_text("probe_bits")
+    latency = P2.int_latencies(bits)
+    for op, r in latency.items():
+        log(json.dumps({"int_latency": op, **r, "card": smi}))
+    rows2 = probe2_rows(rates, bits, {op: r["latency"]
+                                      for op, r in latency.items()})
     torch.cuda.synchronize()
     counts = dict(cuda_step.launches)
     for row in rows + rows2 + P.rollk_deltas(rollk):
@@ -2232,14 +2338,15 @@ def phase_probes(smi: str):
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "item": row["item"],
             **{k: row[k] for k in ("placement", "phase_bound_ms",
-                                   "phase_bound_by", "max_ulp", "ms_1rep",
+                                   "phase_bound_by", "chain_floor_ms",
+                                   "max_ulp", "ms_1rep",
                                    "max_ulp_vs_exact", "clusters_that_fit",
                                    "waves", "library_chain_graph_ms")
                if k in row}}
         if key in at64:
             entry["at_B64"] = {k: at64[key][k] for k in (
                 "item", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "ms_1rep", "phase_bound_ms")
+                "library_ms", "ms_1rep", "phase_bound_ms", "chain_floor_ms")
                 if k in at64[key]}
         kernels.append(entry)
     missing = (set(P.KERNEL_INFO) | set(P2.KERNEL_INFO)) - \
@@ -2252,18 +2359,24 @@ def phase_probes(smi: str):
     return kernels
 
 
-def probe2_rows(rates, pack_sass=None) -> list:
+def probe2_rows(rates, sass: str = "", latency=None) -> list:
     """Every item of ``tools/probes2.py`` at full shape: P6 and P8-P11 at
-    B = 1 and B = 64, P7 at the TPU's one field; P9 priced by its SASS
-    (``pack_sass``, :func:`pack_sass_check`) where it was read."""
+    B = 1 and B = 64, P7 at the TPU's one field; P8, P9 and P11 priced by
+    their SASS (``sass``, the ``cuobjdump -sass`` of ``probe_bits``) where
+    it was read, P8's chain floor from ``latency`` (clocks by op,
+    ``probes2.int_latencies``) where given."""
     from die_tpu_torch.tools import probes2 as P2
 
+    pack, chain = P2.pack_sass(sass), P2.chain_sass(sass)
+    funnel = P2.funnel_sass(sass)
     rows = []
     for B in P2.BATCHES:
         rows += [P2.measure_gather(p, rates, B) for p in P2.GATHER_PLACEMENTS]
-        rows += [P2.measure_chain(t, rates, B) for t in P2.CHAIN_SHAPES]
-        rows += [P2.measure_pack(rates, B, sass=pack_sass),
-                 P2.measure_unpack(rates, B), P2.measure_funnel(rates, B)]
+        rows += [P2.measure_chain(t, rates, B, sass=chain, latency=latency)
+                 for t in P2.CHAIN_SHAPES]
+        rows += [P2.measure_pack(rates, B, sass=pack),
+                 P2.measure_unpack(rates, B),
+                 P2.measure_funnel(rates, B, sass=funnel)]
     rows += [P2.measure_onehot(leg, rates) for leg in P2.ONEHOT_LEGS]
     return rows
 

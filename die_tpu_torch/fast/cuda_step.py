@@ -219,10 +219,13 @@ def build() -> float:
                  [vp, vp, vp, ip, ip, ip, ip, ip, ip]),
                 ("probe_gather", "die_probe_onehot",
                  [vp, vp, vp, vp, ip, ip, ip, ip]),
-                ("probe_bits", "die_probe_chain", [vp, vp, lp, ip]),
+                ("probe_bits", "die_probe_chain",
+                 [vp, vp, lp, ip, ip, ip]),
                 ("probe_bits", "die_probe_pack", [vp, vp, ip, ip, ip]),
                 ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip, ip]),
-                ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip])):
+                ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip, ip]),
+                ("probe_bits", "die_probe_int_latency",
+                 [vp, vp, ip, ip, ip, ip])):
             entry_fn = getattr(_libs[lib], fn)
             entry_fn.argtypes = args + [vp]  # the stream last
             entry_fn.restype = ip

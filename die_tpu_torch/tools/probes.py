@@ -381,7 +381,8 @@ def alu(x: torch.Tensor, kind: str, rounds: int = ALU_ROUNDS):
 ALU_PIPES = {"alu": ("LOP3", "ISETP", "SEL", "PRMT", "VIMNMX", "FSETP",
                      "FSEL", "IMNMX", "SHF"),
              "half": ("HSET2", "HFMA2", "HMUL2", "HADD2", "HMNMX2"),
-             "imad": ("IMAD", "VIADD")}
+             "imad": ("IMAD", "VIADD"),
+             "fp64": ("DADD", "DFMA", "DMUL")}
 
 
 def alu_cycles(counts: dict) -> tuple:

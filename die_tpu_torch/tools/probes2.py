@@ -28,7 +28,15 @@ Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure2.py``
   ``HIGHEST``), which gathers the field rounded to TF32.
 - P8 ``chain_kernel`` -> :func:`chain` (``csrc/probe_bits.cu``): ``CHAIN``
   rounds of four dependent u32 operations on every word, at the TPU's three
-  shapes (``CHAIN_SHAPES``).
+  shapes (``CHAIN_SHAPES``).  Each word's rounds a chain in a register, in
+  one of three forms (:func:`chain_plan`): where many warps share a
+  scheduler, 3 ``LOP3`` on the ALU pipe, 2 ``IMAD`` on the FMA pipe and the
+  ``>> 3`` as a ``DADD.RZ`` on the FP64 pipe (``fp64``); where one warp a
+  scheduler or fewer leaves the chain's latency as the floor, 5 dependent
+  operations deep (``depth5``); between, the ``>> 3`` on ``SHF`` with 4
+  chains a thread (``shf``).  :func:`chain_sass` counts them,
+  :func:`int_latencies` measures the instructions' latencies for the
+  chain's floor.
 - P9 ``pack_kernel`` -> :func:`pack`: 32 rows of u32 to one word row,
   ``word[j, c] = OR_i x[32 j + i, c] << i``, ``PACKREPS`` times
   xor-accumulated (odd: the result is one pack).  Equal on any u32, not
@@ -45,7 +53,10 @@ Counterparts of the TPU probes of the JAX package's ``tools/tpu_measure2.py``
   and LOP3 in registers.
 - P11 ``funnel_kernel`` -> :func:`funnel`: ``FREPS`` chained ``(x << 1) |
   (roll(x, 1, 0) >> 31)`` on ``[8, 256]`` words, the roll along the 8 word
-  rows of a column.
+  rows of a column.  A column's 8 words in the registers of one thread, or
+  of 2 lanes exchanging a word a step by a shuffle where that still keeps
+  one warp a scheduler (:func:`funnel_plan`); a step 8 ``SHF``
+  (:func:`funnel_sass` counts them).
 
 u32 words are carried as ``int32`` tensors (the same bits); the plain
 versions compute in ``int64`` masked to 32 bits, so that right shifts are
@@ -321,6 +332,61 @@ def pack_plan(B: int, sms: int) -> dict:
             "warps_per_sm": words * parts / 32 / sms}
 
 
+FUNNEL_THREADS = 128  # threads a block, 4 warps (csrc kFunnelThreads)
+FUNNEL_UNROLL = 8  # steps a turn of the step loop (csrc kFunnelUnroll)
+FUNNEL_LANES = (1, 2)  # lanes a column (csrc funnel_kernel<L>)
+CHAIN_THREADS = (128, 256)  # threads a block die_probe_chain takes
+# forms (csrc kChainFp64, kChainDepth5, kChainShf) -> words a thread
+CHAIN_FORMS = {"fp64": 2, "depth5": 1, "shf": 4}
+CHAIN_UNROLL = 12  # rounds a turn of the round loop (csrc kChainUnroll)
+SCHEDULERS = 4  # warp schedulers an SM
+
+
+def funnel_plan(B: int, sms: int) -> dict:
+    """What ``die_probe_funnel`` launches for ``B`` boards on a card of
+    ``sms`` SMs: ``lanes`` a column (2 where the ``16 B`` warps of 4 words a
+    lane still fit one a scheduler, else 1), each holding ``words`` of its
+    8 in registers, in ``blocks`` of ``threads``: thread ``t`` of block
+    ``b`` the part ``g % lanes`` of column ``g // lanes`` (``g = 128 b +
+    t``), the words ``8 / lanes`` part .. of it.  ``warps_per_scheduler``
+    the most any scheduler holds (the blocks shared out one an SM first).
+    A step a thread: ``words`` ``SHF`` and, at 2 lanes, one shuffle."""
+    if B < 1 or B > 65535:
+        raise ValueError(f"funnel_plan: 1 to 65535 boards, got {B}")
+    lanes = 2 if B * SIDE * 2 // 32 <= SCHEDULERS * sms else 1
+    blocks = B * SIDE * lanes // FUNNEL_THREADS
+    return {"lanes": lanes, "words": WORD_ROWS // lanes,
+            "threads": FUNNEL_THREADS, "blocks": blocks,
+            "shf": WORD_ROWS // lanes, "shuffles": lanes - 1,
+            "warps_per_scheduler": -(-blocks // sms)
+            * (FUNNEL_THREADS // 32) // SCHEDULERS}
+
+
+def chain_plan(B: int, shape, sms: int) -> dict:
+    """What ``die_probe_chain`` launches for ``B`` arrays of ``shape`` words
+    on a card of ``sms`` SMs: the ``form`` and its ``words`` a thread
+    (``CHAIN_FORMS``), in ``blocks`` of ``threads``, block ``b`` the words
+    ``b threads words ..``, its thread ``t`` the words ``t``, ``t +
+    threads``, ...; ``warps_per_scheduler`` the warps over the card's
+    schedulers.  A word a thread in ``depth5`` where that gives one warp a
+    scheduler or fewer (a warp's chain of rounds, not the issue rate, sets
+    the pace); else 4 words a thread in ``shf`` where that does; else 2
+    words a thread in ``fp64``, blocks of 256.  ``depth5`` and ``shf`` take
+    blocks of 128: one warp on each scheduler of an SM."""
+    if B < 1 or B > 65535:
+        raise ValueError(f"chain_plan: 1 to 65535 arrays, got {B}")
+    n = B * int(np.prod(shape))
+    form = next((f for f in ("depth5", "shf")
+                 if -(-n // (32 * CHAIN_FORMS[f])) <= SCHEDULERS * sms),
+                "fp64")
+    words = CHAIN_FORMS[form]
+    threads = 256 if form == "fp64" else 128
+    warps = -(-n // (32 * words))
+    return {"form": form, "words": words, "threads": threads,
+            "blocks": -(-n // (threads * words)),
+            "warps_per_scheduler": warps / (SCHEDULERS * sms)}
+
+
 def onehot_plan(n: int, sms: int) -> int:
     """Blocks of P7's persistent grid: one an SM, no more than the
     ``ONEHOT_GROUPS`` warpgroups of each have tiles to walk.  Block ``b``
@@ -379,6 +445,121 @@ def unpack_sass(sass: str) -> dict:
         work = int(m[1]) * max(1, loads)
         out[int(m[1])] = {"shift": shifts / work, "LOP3": lop3 / work}
     return out
+
+
+def _per(loop, n) -> dict:
+    return {op: c / n for op, c in loop.items()}
+
+
+def funnel_sass(sass: str) -> dict:
+    """{lanes: {"shift": n, "ops": {opcode: n}}} a word a step of each
+    ``funnel_kernel<L>``'s step loop (``probes.sass_loops``; the largest
+    loop holds ``FUNNEL_UNROLL`` steps of ``8 / L`` words): ``shift`` the
+    ``SHF`` (not the ``SHFL`` of 2 lanes)."""
+    out = {}
+    for fn, loop in P.sass_loops(sass).items():
+        m = re.search(r"\d{1,2}funnel_kernelILi(\d)E", fn)
+        if not m:
+            continue
+        n = FUNNEL_UNROLL * WORD_ROWS // int(m[1])
+        out[int(m[1])] = {
+            "shift": sum(c for op, c in loop.items()
+                         if op.split(".")[0] == "SHF") / n,
+            "ops": _per(loop, n)}
+    return out
+
+
+CHAIN_WORK_SKIP = ("BRA", "ISETP", "NOP")  # loop control, not a round's work
+
+
+def chain_sass(sass: str) -> dict:
+    """{form: {"instructions": n, "LOP3": n, "ops": {opcode: n}}} a word a
+    round of each form's ``chain_kernel<FORM, W>`` round loop
+    (``probes.sass_loops``; the largest loop holds ``CHAIN_UNROLL`` rounds
+    of ``W`` words): ``instructions`` every opcode but the loop's compare
+    and branch."""
+    out = {}
+    forms = list(CHAIN_FORMS)
+    for fn, loop in P.sass_loops(sass).items():
+        m = re.search(r"\d{1,2}chain_kernelILi(\d)ELi(\d)E", fn)
+        if not m:
+            continue
+        ops = _per(loop, CHAIN_UNROLL * int(m[2]))
+        out[forms[int(m[1])]] = {
+            "instructions": sum(n for op, n in ops.items()
+                                if op.split(".")[0] not in CHAIN_WORK_SKIP),
+            "LOP3": sum(n for op, n in ops.items()
+                        if op.split(".")[0] == "LOP3"),
+            "ops": ops}
+    return out
+
+
+# ---- the integer instructions' latency ------------------------------------------
+
+# csrc die_probe_int_latency's ops: ADD.IMM an add of an immediate, timed in
+# a pair with a LOP3 xor and reported less the LOP3's latency; DADD the
+# FP64 shift of the chain (DADD.RZ); SHF+IMAD and SHF+IMAD+DADD those in
+# turn (int_latencies gives the SASS of each)
+INT_LATENCY_OPS = ("LOP3", "SHF", "IMAD", "IMAD.HI", "ADD.IMM", "SHF+IMAD",
+                   "DADD", "SHF+IMAD+DADD")
+LATENCY_UNROLL = 16  # instructions a chain a turn (csrc kLatUnroll)
+# each form's critical path: instructions a round by latency ("a|b": the
+# larger of two side by side)
+CHAIN_PATH = {"fp64": {"IMAD": 2, "LOP3": 3, "DADD": 1},
+              "depth5": {"IMAD|SHF": 1, "LOP3": 3, "ADD.IMM": 1},
+              "shf": {"IMAD": 2, "LOP3": 3, "SHF": 1}}
+
+
+def int_latency(op: str, chains: int = 1, threads: int = 128,
+                iters: int = 2048) -> float:
+    """Clocks of one instruction ``op`` (``INT_LATENCY_OPS``) on the card,
+    from ``clock64()`` around a loop of ``iters`` x 16 in each of ``chains``
+    chains a thread, one block of ``threads``: with one chain the dependent
+    latency; with 8 the clocks a warp-instruction takes its scheduler (128
+    threads: one warp a scheduler; 512: four), the median warp's."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("int_latency: needs a CUDA device")
+    out = torch.empty(threads, dtype=torch.int32, device="cuda")
+    clk = torch.zeros(threads // 32, dtype=torch.int64, device="cuda")
+    cuda_step.build()
+    entry = cuda_step.entry("probe_bits", "die_probe_int_latency")
+    for _ in range(2):  # the first launch warms the instruction cache
+        cuda_step.check_launch(entry(
+            out.data_ptr(), clk.data_ptr(), INT_LATENCY_OPS.index(op), chains,
+            iters, threads, torch.cuda.current_stream().cuda_stream),
+            f"int_latency {op}")
+    torch.cuda.synchronize()
+    warps_a_scheduler = threads // 32 // SCHEDULERS
+    return float(clk.double().median()) / (
+        iters * LATENCY_UNROLL * chains * warps_a_scheduler)
+
+
+def int_latencies(sass: str = "") -> dict:
+    """{op: {"latency": clocks, "clocks_1warp": n, "clocks_4warps": n,
+    "sass": {opcode: n an instruction}}} of every ``INT_LATENCY_OPS`` op:
+    its dependent latency, the clocks a warp-instruction takes its
+    scheduler at one and four warps a scheduler (8 chains each), and the
+    opcodes of its loop in ``sass`` (``cuobjdump -sass`` of
+    ``probe_bits``), where given."""
+    loops = {}
+    for fn, loop in P.sass_loops(sass).items():
+        m = re.search(r"latency_kernelILi(\d)ELi(\d)E", fn)
+        if m and m[2] == "1":
+            loops[INT_LATENCY_OPS[int(m[1])]] = _per(loop, LATENCY_UNROLL)
+    out = {op: {"latency": int_latency(op),
+                "clocks_1warp": int_latency(op, 8),
+                "clocks_4warps": int_latency(op, 8, 512),
+                "sass": loops.get(op, {})}
+           for op in INT_LATENCY_OPS}
+    out["ADD.IMM"]["latency"] -= out["LOP3"]["latency"]  # timed beside one
+    return out
+
+
+def chain_floor_cycles(form: str, latency: dict) -> float:
+    """Clocks a round of ``form``'s critical path (``CHAIN_PATH``) at the
+    dependent latencies ``latency`` = {op: clocks}."""
+    return sum(n * max(latency[o] for o in op.split("|"))
+               for op, n in CHAIN_PATH[form].items())
 
 
 # ---- wrappers -------------------------------------------------------------------
@@ -466,9 +647,11 @@ def chain(x: torch.Tensor, rounds: int = CHAIN) -> torch.Tensor:
     P._rounds(rounds, "chain")
     if x.device.type == "cpu":
         return chain_plain(x, rounds)
+    plan = chain_plan(B, CHAIN_SHAPES[tag], cuda_step._num_sms(x.device))
     out = torch.empty_like(x)
     P._launch("probe_bits", "die_probe_chain", f"probe_chain_{tag}",
-              x.data_ptr(), out.data_ptr(), x.numel(), rounds)
+              x.data_ptr(), out.data_ptr(), x.numel(), rounds,
+              plan["threads"], list(CHAIN_FORMS).index(plan["form"]))
     return out
 
 
@@ -510,7 +693,8 @@ def funnel(x: torch.Tensor, steps: int = FREPS) -> torch.Tensor:
         return funnel_plain(x, steps)
     out = torch.empty_like(x)
     P._launch("probe_bits", "die_probe_funnel", "probe_funnel", x.data_ptr(),
-              out.data_ptr(), B, steps)
+              out.data_ptr(), B, steps,
+              funnel_plan(B, cuda_step._num_sms(x.device))["lanes"])
     return out
 
 
@@ -696,26 +880,63 @@ def measure_onehot(leg, rates, n=N, reps=GATHER_REPS):
                                        .max()))
 
 
-def measure_chain(tag, rates, B=1, rounds=CHAIN):
+def _pipe_bound_ms(ops: dict, warp_items: float, rates) -> tuple:
+    """(ms, by) of ``warp_items`` warp-rounds (or steps) of the SASS
+    ``ops`` = {opcode: instructions a thread a round} priced by pipe
+    (``probes.alu_cycles``), every scheduler of the card busy."""
+    cycles, by = P.alu_cycles(ops)
+    return (cycles * warp_items / (SCHEDULERS * rates["sms"]
+                                   * rates["clock_mhz"] * 1e6) * 1e3,
+            f"instructions (SASS), {by}")
+
+
+def measure_chain(tag, rates, B=1, rounds=CHAIN, sass=None, latency=None):
     """P8 item ``pk_chain_{tag}_B{B}``.  Bound: the words in and out once
     against ``CHAIN_OPS`` integer instructions a word a round at
     :func:`int_dispatch_rate` (P9-P11 the same, each with the fewest
-    instructions its work needs).  ns per op per word and per 256² cell
-    with the TPU tool's 4 ops a round."""
+    instructions its work needs).  Phase bound, where ``sass``
+    (:func:`chain_sass`) has the plan's form: its instructions a word a
+    round priced by pipe, every scheduler busy.  Chain floor, where
+    ``latency`` (:func:`int_latencies`' ``latency`` by op) is given:
+    ``rounds`` times the form's critical path (:func:`chain_floor_cycles`),
+    what a word's chain takes however many SMs work.  ns per op per word
+    and per 256² cell with the TPU tool's 4 ops a round."""
     x = seeded_words((B, *CHAIN_SHAPES[tag]), 34)
     item = f"pk_chain_{tag}_B{B}"
     out, plain_ms, ref, ms, ms1 = _timings(
         lambda: chain(x, rounds), lambda: chain(x, 1),
         lambda: chain_plain(x, rounds))
     _check_bits(item, out, ref)
+    plan = chain_plan(B, CHAIN_SHAPES[tag], rates["sms"])
+    extra = {}
+    counts = (sass or {}).get(plan["form"])
+    if counts:
+        warps = x.numel() / 32
+        extra["phase_bound_ms"], extra["phase_bound_by"] = _pipe_bound_ms(
+            counts["ops"], warps * rounds, rates)
+    if latency:
+        cycles = chain_floor_cycles(plan["form"], latency)
+        extra["chain_floor_ms"] = cycles * rounds / (rates["clock_mhz"]
+                                                     * 1e3)
+        extra["chain_floor_by"] = (f"{CHAIN_PATH[plan['form']]} at "
+                                   f"{cycles:.2f} clocks a round")
     per_op = ms * 1e6 / rounds / 4
+    form = {"fp64": "3 LOP3 on the ALU pipe, 2 IMAD on the FMA pipe and "
+                    ">> 3 as a DADD.RZ on the FP64 pipe",
+            "shf": "3 LOP3 and >> 3 as SHF on the ALU pipe beside 2 IMAD on "
+                   "the FMA pipe",
+            "depth5": "5 dependent operations deep, 7 instructions"}[
+                plan["form"]]
     return _row(item, f"probe_chain_{tag}", ms, plain_ms, out, ref,
                 2 * x.numel() * 4, CHAIN_OPS * rounds * x.numel(),
                 int_dispatch_rate(rates), rates,
-                placement="registers, a thread a word", B=B,
-                shape=list(CHAIN_SHAPES[tag]), ms_1rep=ms1,
+                placement=f"registers, a thread {plan['words']} word(s), "
+                          f"blocks of {plan['threads']} ({plan['blocks']}); "
+                          f"a round "
+                          f"{form} ({plan['form']})",
+                B=B, shape=list(CHAIN_SHAPES[tag]), ms_1rep=ms1,
                 ns_per_op_per_word=per_op / x.numel(),
-                ns_per_op_per_cell256=per_op / (B * CELLS))
+                ns_per_op_per_cell256=per_op / (B * CELLS), **extra)
 
 
 def measure_pack(rates, B=1, reps=PACKREPS, sass=None):
@@ -735,12 +956,9 @@ def measure_pack(rates, B=1, reps=PACKREPS, sass=None):
     extra = {}
     counts = (sass or {}).get(plan["parts"])
     if counts:
-        cycles, by = P.alu_cycles({op: n / plan["parts"] for op, n in
-                                   counts["ops"].items()})
-        warp_reps = words * plan["parts"] / 32 * reps
-        extra = {"phase_bound_ms": cycles * warp_reps
-                 / (4 * rates["sms"] * rates["clock_mhz"] * 1e6) * 1e3,
-                 "phase_bound_by": f"instructions (SASS), {by}"}
+        extra["phase_bound_ms"], extra["phase_bound_by"] = _pipe_bound_ms(
+            {op: n / plan["parts"] for op, n in counts["ops"].items()},
+            words * plan["parts"] / 32 * reps, rates)
     split = (f"{plan['shf']} SHF.L.W and {plan['lop3']} LOP3 on the ALU "
              f"pipe beside {plan['imad']} IMAD by 2^k on the FMA pipe")
     return _row(item, "probe_pack", ms, plain_ms, out, ref,
@@ -779,18 +997,37 @@ def measure_unpack(rates, B=1, reps=PACKREPS):
                 us_per_unpack=ms * 1e3 / (B * reps))
 
 
-def measure_funnel(rates, B=1, steps=FREPS):
+def measure_funnel(rates, B=1, steps=FREPS, sass=None):
     """P11 item ``pk_funnel_B{B}``.  Bound: the words in and out once
-    against ``FUNNEL_OPS`` instruction a word a step."""
+    against ``FUNNEL_OPS`` instruction a word a step.  Phase bound, where
+    ``sass`` (:func:`funnel_sass`) is given: a step's instructions a thread
+    priced by pipe, times the steps and the plan's warps a scheduler (a
+    column's steps run on one scheduler)."""
     x = seeded_words((B, WORD_ROWS, SIDE), 37)
     item = f"pk_funnel_B{B}"
     out, plain_ms, ref, ms, ms1 = _timings(
         lambda: funnel(x, steps), lambda: funnel(x, 1),
         lambda: funnel_plain(x, steps))
     _check_bits(item, out, ref)
+    plan = funnel_plan(B, rates["sms"])
+    extra = {}
+    counts = (sass or {}).get(plan["lanes"])
+    if counts:
+        cycles, by = P.alu_cycles({op: n * plan["words"]
+                                   for op, n in counts["ops"].items()})
+        extra = {"phase_bound_ms": cycles * steps
+                 * plan["warps_per_scheduler"] / (rates["clock_mhz"] * 1e3),
+                 "phase_bound_by": f"instructions (SASS) of a step, {by}, "
+                                   f"{plan['warps_per_scheduler']} warp(s) "
+                                   f"a scheduler"}
     return _row(item, "probe_funnel", ms, plain_ms, out, ref,
                 2 * x.numel() * 4, FUNNEL_OPS * x.numel() * steps,
                 int_dispatch_rate(rates), rates,
-                placement="registers: a thread a column, its 8 words",
+                placement=f"registers: a column's 8 words on "
+                          f"{plan['lanes']} lane(s), {plan['words']} each; "
+                          f"{plan['blocks']} blocks of {plan['threads']}, "
+                          f"{plan['warps_per_scheduler']} warp(s) a "
+                          f"scheduler; a step {plan['shf']} SHF a thread"
+                          + (", one shuffle" if plan["shuffles"] else ""),
                 B=B, steps=steps, ms_1rep=ms1,
-                ns_per_shift=ms * 1e6 / (B * steps))
+                ns_per_shift=ms * 1e6 / (B * steps), **extra)
