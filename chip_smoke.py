@@ -5,6 +5,7 @@ versions.
     python3 chip_smoke.py --envs 64 --steps 16   # a shorter main path
     python3 chip_smoke.py --only-exact           # the exact engine alone
     python3 chip_smoke.py --only-probes          # the phase probes alone
+    python3 chip_smoke.py --only-nca             # the conv-NCA and NCA alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -120,7 +121,29 @@ Phases (any failure exits non-zero):
      ``tools/gpu_measure2.py`` run it: held against its plain version once
      more, timed by CUDA events beside its bound, its plain version and,
      where one PyTorch call computes it, that call; one JSON line per item
-     (``--only-probes`` runs this phase alone).
+     (``--only-probes`` runs this phase alone);
+ 11. the conv-NCA and the exact engine's NCA (``--only-nca`` runs this
+     phase alone): the conv rule's rollout (``fast/nca.py``, eager torch:
+     the JAX package runs it on XLA, so no TPU kernel lies on it) on the
+     card against the CPU's, bitwise (16 directions, 64x64, 4 envs with
+     per-env random params, 8 steps); the four committed conv artifacts
+     over the full EVAL_PROTOCOL block (32 seeds, 64x64, 50 steps) on the
+     card, each mean beside its documented score and the Jones rule's mean
+     on the same block, the first 4 seeds bitwise against the CPU;
+     ``train_conv_nca`` at the 16-direction record's configuration
+     (warm_r05: popsize 64 x 8 envs, 64x64, 50 steps, the Jones-mimic warm
+     start) for 3 generations, ms a generation, env-steps/s
+     and a step's time split into the conv rule and the rest (CUDA
+     events); the flagship NCA artifact (``nca_flagship_pgpe1000``) on
+     st-perlin-wide 0.10 at 96x96, 9,216 slots, 30 steps, 16 held-out
+     seeds from 777,000, trained and untrained means beside the documented
+     ones, K5's launches read around the trained run (one F = 3 gather a
+     step for the policy, F = 1 for the env), the first 2 seeds' rewards
+     bitwise against the CPU; and ``learn/train.py::train`` at
+     ``examples/learning_agents.py``'s configuration (popsize 10, 96x96, 30
+     steps, PGPE radius 1.5) for 3 generations with a
+     checkpoint after each, resumed from the one before the last: the last
+     generation's metrics bitwise the uninterrupted run's.
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -428,14 +451,17 @@ ARTIFACTS = {  # file -> (lattice, held-out score documented by the JAX package)
 }
 
 
-def artifact(name):
+def artifact_path(name: str):
     from pathlib import Path
 
+    return Path(__file__).resolve().parent / "docs" / "artifacts" / \
+        f"{name}.npz"
+
+
+def artifact(name):
     from die_tpu_torch.fast.convert import load_turn_params
 
-    path = Path(__file__).resolve().parent / "docs" / "artifacts" / \
-        f"{name}.npz"
-    return load_turn_params(path, device="cuda")
+    return load_turn_params(artifact_path(name), device="cuda")
 
 
 def random_live_params(shape, seed: int):
@@ -2381,6 +2407,389 @@ def probe2_rows(rates, sass: str = "", latency=None) -> list:
     return rows
 
 
+# ---- the conv-NCA and the exact-engine trainer -------------------------------------
+
+CONV_ARTIFACTS = {  # file -> (lattice, held-out score documented by the JAX package)
+    "lattice_conv_beats_jones": (8, 340.5),
+    "lattice4_conv_beats_jones": (4, 565.7),
+    "lattice16_conv_beats_jones": (16, 692.9),
+    "lattice8_conv_resumed": (8, 351.3),
+}
+FLAGSHIP = ("nca_flagship_pgpe1000", 728.2, -1695.7)  # trained, untrained
+FLAGSHIP_HELDOUT = 777_000
+CONV_CPU_SEEDS = 4  # held-out seeds of each conv artifact also run on the CPU
+NCA_CPU_SEEDS = 2   # flagship seeds also run on the CPU
+CONV_GENS = 3       # train_conv_nca generations (the record ran 200)
+NCA_GENS = 3        # train generations: resumed from the one before the last
+
+
+def fast_differences(a, b):
+    """Names of the parts of two lattice rollouts (state, rewards, nums)
+    that differ in any bit."""
+    names = list(a[0]._fields) + ["rewards", "nums"]
+    pairs = zip(names, list(a[0]) + list(a[1:]), list(b[0]) + list(b[1:]))
+    return [n for n, x, y in pairs if not same_words(x.cpu(), y.cpu())]
+
+
+def phase_conv_parity(smi: str):
+    """The conv rule's rollout on the card against the same rollout on the
+    CPU: 16 directions, 64x64, 4 envs with a random conv params set each, 8
+    steps; every state field, reward and count, bitwise."""
+    import numpy as np
+
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.nca import (ConvTurnParams, conv_nca_rollout,
+                                        np_init_conv_turn_params)
+
+    dyn, B, T, size = eval_protocol_dynamics(16), 4, 8, (64, 64)
+    sets = [np_init_conv_turn_params(env_keys(60, B)[b]) for b in range(B)]
+    rng = np.random.default_rng(0)
+    params = ConvTurnParams(*(np.stack([s[i] for s in sets])
+                              * np.float32(rng.uniform(2.0, 8.0))
+                              for i in range(3)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = fast_init(env_keys(61, B), size, dyn, device=dev)
+        out[dev] = conv_nca_rollout(dyn, params, st, env_keys(62, B), T,
+                                    device=dev)
+    diff = fast_differences(out["cuda"], out["cpu"])
+    if diff:
+        raise AssertionError(f"conv rollout on the card differs from the "
+                             f"CPU's: {diff}")
+    turns = float(out["cuda"][1].abs().sum())
+    log(f"conv parity: card == CPU bitwise (16 dirs, {B} envs x 64x64 with "
+        f"per-env params, {T} steps; every state field, reward and count; "
+        f"reward sum {turns:.4f}) ({smi})")
+
+
+def phase_conv_heldout(smi: str):
+    """Every conv artifact over the full EVAL_PROTOCOL block on the card,
+    beside the Jones rule on the same block; the first seeds also on the
+    CPU, bitwise."""
+    from die_tpu_torch.core.mathx import tree_sum_1d
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.fast.convert import load_conv_params
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.nca import conv_nca_rollout
+    from die_tpu_torch.fast.rollout import fast_rollout_auto
+
+    n, size = EVAL_PROTOCOL["full_seeds"], (EVAL_PROTOCOL["size"],) * 2
+    steps, seed0 = EVAL_PROTOCOL["steps"], EVAL_PROTOCOL["seed0"]
+    ikeys, rkeys = heldout_keys(seed0, n)
+    c = CONV_CPU_SEEDS
+    scores = {}
+    for name, (dirs, documented) in CONV_ARTIFACTS.items():
+        dyn = eval_protocol_dynamics(dirs)
+        params = load_conv_params(artifact_path(name), device="cuda")
+        st = fast_init(ikeys, size, dyn, device="cuda")
+        out = conv_nca_rollout(dyn, params, st, rkeys, steps, device="cuda")
+        _, jones, _ = fast_rollout_auto(dyn, st, rkeys, steps, device="cuda")
+        cpu = conv_nca_rollout(
+            dyn, load_conv_params(artifact_path(name), device="cpu"),
+            fast_init(ikeys[:c], size, dyn, device="cpu"), rkeys[:c], steps,
+            device="cpu")
+        head = (type(out[0])(*(x[:c] for x in out[0])), out[1][:c],
+                out[2][:c])
+        diff = fast_differences(head, cpu)
+        if diff:
+            raise AssertionError(f"conv held-out {name}: the card's first "
+                                 f"{c} seeds differ from the CPU's: {diff}")
+        totals = tree_sum_1d(out[1])
+        if not bool(torch.isfinite(totals).all()):
+            raise AssertionError(f"conv held-out {name}: scores not finite")
+        mean = float(totals.double().mean())
+        jones_mean = float(tree_sum_1d(jones).double().mean())
+        scores[name] = {"dirs": dirs, "mean": mean, "documented": documented,
+                        "jones_mean": jones_mean, "seeds": n}
+        log(f"conv held-out {name} ({dirs} dirs, {n} seeds from {seed0}, "
+            f"{size[0]}x{size[1]}, {steps} steps): {mean:.4f} on the card, "
+            f"documented {documented} (JAX package); Jones {jones_mean:.4f}; "
+            f"first {c} seeds == CPU bitwise ({smi})")
+    return scores
+
+
+class SpanTimer:
+    """CUDA events around every call of ``fn`` (a turn rule, a policy's
+    forward): its device time summed over the calls."""
+
+    def __init__(self, fn):
+        self.fn, self.spans = fn, []
+
+    def __call__(self, *a, **k):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = self.fn(*a, **k)
+        ev1.record()
+        self.spans.append((ev0, ev1))
+        return out
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def conv_step_split(dyn, params, st, rkeys, steps: int):
+    """ms a step of the conv path at ``st``'s batch, split into the conv
+    rule and the rest of the step (CUDA events), after one warm step."""
+    from die_tpu_torch.fast import nca as N
+    from die_tpu_torch.fast.rollout import fast_rollout
+
+    rule = SpanTimer(N.make_conv_turn_rule(N.conv_params_on(params, "cuda")))
+    fast_rollout(dyn, st, rkeys, 1, device="cuda", turn_rule=rule)
+    rule.spans.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fast_rollout(dyn, st, rkeys, steps, device="cuda", turn_rule=rule)
+    end.record()
+    torch.cuda.synchronize()
+    total = start.elapsed_time(end) / steps
+    conv = rule.ms() / steps
+    return total, conv, total - conv
+
+
+def phase_conv_train(gens: int, smi: str):
+    """train_conv_nca at the 16-direction record's configuration (warm_r05:
+    the Jones-mimic warm start, popsize 64 x 8 envs, 64x64, 50 steps, common
+    random envs, PGPE lr 0.05, radius 0.5, max speed 0.1, seed 12), cut
+    from 200 generations to ``gens``, timed; then one of its generations'
+    batches taken apart into the conv rule and the rest of the step."""
+    import numpy as np
+
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import LatticeTrainConfig
+    from die_tpu_torch.fast.nca import jones_mimic_conv_params, train_conv_nca
+
+    dyn = eval_protocol_dynamics(16)
+    cfg = LatticeTrainConfig(field_size=(64, 64), epochs=gens,
+                             epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
+                             envs_per_eval=8, seed=12)
+    stamps = []
+
+    def log_fn(epoch, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"  conv generation {epoch}: best {m['best']:.4f} mean "
+            f"{m['mean']:.4f}")
+
+    mimic = jones_mimic_conv_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, _, history = train_conv_nca(
+        dyn, cfg, hidden=8, log_fn=log_fn, center_learning_rate=0.05,
+        radius_init=0.5, max_speed=0.1, common_random_envs=True,
+        params_init=mimic, device="cuda")
+    if len(history) != gens or tuple(best.conv.shape) != (8, 7, 3, 3) or \
+            not all(math.isfinite(h["best"]) for h in history):
+        raise AssertionError("train_conv_nca result is malformed")
+    per_gen = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    envs = cfg.popsize * cfg.envs_per_eval
+    steady = per_gen[1:] or per_gen
+    rate = envs * cfg.epoch_iters * len(steady) / sum(steady)
+    log(f"conv train: {gens} generations of {envs} envs x {cfg.epoch_iters} "
+        f"steps at 64x64; ms a generation "
+        f"{[round(x * 1e3, 2) for x in per_gen]}; {rate:.1f} env-steps/s "
+        f"after the first generation ({smi})")
+    keys = env_keys(70, envs)
+    st = fast_init(keys, cfg.field_size, dyn, device="cuda")
+    mimics = type(mimic)(*(np.broadcast_to(a, (envs,) + a.shape)
+                           for a in mimic))
+    total, conv, rest = conv_step_split(dyn, mimics, st, env_keys(71, envs),
+                                        10)
+    log(f"conv step at {envs} envs x 64x64 (per-env params): {total:.4f} ms "
+        f"= conv rule {conv:.4f} ms + the rest of the step {rest:.4f} ms "
+        f"(CUDA events, 10 steps) ({smi})")
+    return {"generations": gens, "envs": envs, "steps": cfg.epoch_iters,
+            "ms_per_generation": [x * 1e3 for x in per_gen],
+            "env_steps_per_s": rate, "step_ms": total, "conv_rule_ms": conv,
+            "rest_of_step_ms": rest}
+
+
+def flagship_keys(n: int):
+    """(env init, policy init, rollout) keys of held-out seed i as
+    ``tools/eval_nca_flagship.py`` makes them: fold_in(fold_in(key(777000),
+    i), tag)."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
+
+    master = as_key_tensor(np_key(FLAGSHIP_HELDOUT), "cpu")
+    mk = fold_in(master, torch.arange(n, dtype=torch.int64))
+    return tuple(fold_in(mk, tag) for tag in (ch.TAG_SESSION_ENV_INIT,
+                                               ch.TAG_SESSION_POLICY_INIT,
+                                               ch.TAG_SESSION_ROLLOUT))
+
+
+def phase_nca_replay(smi: str):
+    """The flagship NCA on its dynamics (st-perlin-wide, 0.10), 96x96,
+    9,216 slots, 30 steps, 16 held-out seeds, as
+    ``tools/eval_nca_flagship.py``: trained and untrained means, K5's
+    launches read around the trained run, the first seeds' rewards on the
+    CPU, bitwise."""
+    from die_tpu_torch.core.config import preset
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.core.mathx import tree_sum_1d
+    from die_tpu_torch.core.rng import np_key
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.models.nca import NCAPolicy
+    from die_tpu_torch.parallel.rollout import rollout
+
+    name, documented, documented_untrained = FLAGSHIP
+    dyn, size, T, n = preset("st-perlin-wide", 0.10), (96, 96), 30, 16
+    slots = size[0] * size[1]
+    policy, trained = NCAPolicy.load(artifact_path(name), device="cuda")
+    untrained = policy.init_model_params(np_key(FLAGSHIP_HELDOUT + 1),
+                                         device="cuda")
+    ekeys, _, rkeys = flagship_keys(n)
+
+    def run(params, dev, envs=n):
+        st = init_env_state(ekeys[:envs], size, dyn, slots, device=dev)
+        return rollout(dyn, policy, params, st, None, rkeys[:envs].to(dev),
+                       T)
+
+    cuda_step.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run(trained, "cuda")
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda_step.launches.items() if v}
+    ms = start.elapsed_time(end)
+    if counts.get("gather_fields_f3", 0) != T or \
+            counts.get("gather_fields_f1", 0) < 1:
+        raise AssertionError(f"the NCA replay did not run its gathers "
+                             f"through K5: {counts}")
+    log(f"NCA replay launches (trained, {n} envs x {T} steps): {counts}")
+    policy.forward = SpanTimer(policy.forward)
+    start.record()
+    run(trained, "cuda")
+    end.record()
+    torch.cuda.synchronize()
+    split = (start.elapsed_time(end) / T, policy.forward.ms() / T)
+    del policy.forward  # the class's own again
+    un = run(untrained, "cuda")
+    c = NCA_CPU_SEEDS
+    cpu = run(tuple(k.cpu() for k in trained), "cpu", c)
+    if not same_words(res.rewards[:c].cpu(), cpu.rewards):
+        raise AssertionError("the flagship NCA's rewards on the card differ "
+                             "from the CPU's")
+    # K5 at the policy's shape: the three action channels of the final
+    # state's conv output at the agents' cells
+    from die_tpu_torch.core import env as E
+    from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+
+    W, H = size
+    field = policy._field(trained, res.state.medium)
+    ix, iy = E.agent_cells(res.state.agents, size)
+    cell = (ix * H + iy).contiguous()
+    fields = [field[:, c].flatten(-2) for c in range(3)]
+    if not same_words(gather_fields(fields, cell),
+                      gather_fields_plain(fields, cell)):
+        raise AssertionError("gather_fields (F=3) differs from its plain "
+                             "version at the NCA policy's shapes")
+    wide = cell.to(torch.int64)
+    k5 = {"ms": time_ms(lambda: gather_fields(fields, cell), 20),
+          "plain_ms": time_ms(lambda: gather_fields_plain(fields, cell), 10),
+          "library_ms": time_ms(lambda: [torch.gather(f, 1, wide)
+                                         for f in fields], 10),
+          "bound_ms": n * slots * (4 + 8 * 3) / mem_rate(
+              torch.cuda.get_device_name(0)) * 1e3}
+    log(f"gather_fields_f3: {k5['ms']:.4f} ms/launch at {n} x {slots} "
+        f"indices (bound {k5['bound_ms']:.4f} ms); plain "
+        f"{k5['plain_ms']:.4f} ms; 3 x torch.gather {k5['library_ms']:.4f} "
+        f"ms; NCA-path launches {counts.get('gather_fields_f3', 0)} ({smi})")
+    row = {"name": "gather_fields_f3", "route": "cuda",
+           "source": "die_tpu_torch/csrc/gather_fields.cu",
+           "replaces": "die_tpu/ops/pallas_gather.py:53",
+           "launches": counts.get("gather_fields_f3", 0), "match": True,
+           "max_abs_err": 0.0, "bound_by": "bytes", **k5}
+    means = []
+    for r in (res, un):
+        if not bool(torch.isfinite(r.rewards).all()):
+            raise AssertionError("the NCA replay's rewards are not finite")
+        means.append(float(tree_sum_1d(r.rewards).double().mean()))
+    log(f"NCA replay {name} (st-perlin-wide 0.10, 96x96, {slots} slots, {T} "
+        f"steps, {n} seeds from {FLAGSHIP_HELDOUT}): trained {means[0]:.4f} "
+        f"(documented {documented}), untrained {means[1]:.4f} (documented "
+        f"{documented_untrained}); first {c} seeds' rewards == CPU bitwise; "
+        f"{ms:.2f} ms = {ms / T:.3f} ms a step; a second run {split[0]:.3f} "
+        f"ms a step, of which the policy (conv stack, tanh, K5) "
+        f"{split[1]:.3f} ms (CUDA events) ({smi})")
+    return {"trained_mean": means[0], "untrained_mean": means[1],
+            "documented": [documented, documented_untrained], "seeds": n,
+            "ms": ms, "ms_per_step": ms / T, "launches": counts,
+            "timed_ms_per_step": split[0], "policy_ms_per_step": split[1],
+            "k5_row": row}
+
+
+def phase_nca_train(gens: int, smi: str):
+    """learn/train.py::train at examples/learning_agents.py's configuration
+    (the flagship NCA, st-perlin-wide 0.10, 96x96, popsize 10, 30 steps,
+    PGPE radius 1.5), ``gens`` generations checkpointing every one, then
+    resumed from the second to last checkpoint: the resumed generation's
+    metrics must equal the uninterrupted run's bitwise."""
+    import tempfile
+    from pathlib import Path
+
+    from die_tpu_torch.core.config import preset
+    from die_tpu_torch.learn.train import TrainConfig, train
+    from die_tpu_torch.models.nca import NCAPolicy
+
+    dyn = preset("st-perlin-wide", 0.10)
+    policy = NCAPolicy(scale=0.01, deposit=2.0, kernel_sizes=(3, 3))
+    cfg = TrainConfig(field_size=(96, 96), max_agents=96 * 96, epochs=gens,
+                      epoch_iters=30, popsize=10, seed=0)
+    stamps = []
+
+    def log_fn(epoch, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as ckdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, hist = train(dyn, policy, cfg, log_fn=log_fn,
+                           checkpoint_dir=ckdir, checkpoint_every=1,
+                           device="cuda")
+        ck = Path(ckdir) / f"es_{gens - 2:06d}.npz"
+        _, _, resumed = train(dyn, policy, cfg, resume_from=str(ck),
+                              start_epoch=gens - 1, device="cuda")
+
+    def strip(h):
+        return {k: v for k, v in h.items() if k != "wall_s"}
+
+    if len(resumed) != 1 or strip(resumed[0]) != strip(hist[-1]):
+        raise AssertionError(f"the resumed generation differs from the "
+                             f"uninterrupted one: {resumed} vs {hist[-1]}")
+    per_gen = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    for h in hist:
+        log(f"  NCA generation {h['epoch']}: best {h['best']:.4f} mean "
+            f"{h['mean']:.4f} worst {h['worst']:.4f} stdev_mean "
+            f"{h['stdev_mean']:.6f}")
+    log(f"NCA train (learn/train.py, popsize 10 x 96x96 x 30 steps): ms a "
+        f"generation {[round(x * 1e3, 2) for x in per_gen]}; resumed from "
+        f"{ck.name}: generation {gens - 1} == the uninterrupted run's, "
+        f"bitwise ({smi})")
+    return {"generations": gens, "ms_per_generation":
+            [x * 1e3 for x in per_gen], "resume_bitwise": True}
+
+
+def phase_nca(smi: str):
+    """The conv-NCA and exact-NCA phases in order; returns their record."""
+    phase_conv_parity(smi)
+    rec = {"conv_heldout": phase_conv_heldout(smi),
+           "conv_train": phase_conv_train(CONV_GENS, smi),
+           "nca_replay": phase_nca_replay(smi),
+           "nca_train": phase_nca_train(NCA_GENS, smi)}
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -2398,6 +2807,9 @@ def main():
                     help="build, then run only the phase probes (no ok line)")
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for one step")
+    ap.add_argument("--only-nca", action="store_true",
+                    help="build, then run only the conv-NCA and exact-NCA "
+                         "phases (no ok line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2439,6 +2851,12 @@ def main():
         return 0
     if args.only_probes:
         log(json.dumps({"kernels": phase_probes(smi)}))
+        log(smi)
+        return 0
+    if args.only_nca:
+        rec = phase_nca(smi)
+        log(json.dumps({"kernels": [rec["nca_replay"].pop("k5_row")],
+                        "nca": rec}))
         log(smi)
         return 0
 
@@ -2603,13 +3021,22 @@ def main():
     # ---- 10. the probes of the step's phases
     kernels += phase_probes(smi)
 
+    # ---- 11. the conv-NCA and the exact engine's NCA and trainer
+    torch.cuda.empty_cache()
+    nca_record = phase_nca(smi)
+    nca_counts = nca_record["nca_replay"]["launches"]
+    for row in kernels:
+        if row["name"].startswith("gather_fields_f"):
+            row["nca_launches"] = nca_counts.get(row["name"], 0)
+    kernels.append(nca_record["nca_replay"].pop("k5_row"))
+
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
               "exact": exact_record,
               "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,
               "train_generation_parts": train_parts,
-              "heldout": scores,
+              "heldout": scores, "nca": nca_record,
               "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -5,7 +5,7 @@ Twin of the JAX package's ``core/mathx.py``: every transcendental is built
 from IEEE-exact primitives (+, -, *, floor, comparisons, bit casts) in the
 same operation order, so results agree bit for bit with the NumPy oracle.
 No ``torch.sin``, ``torch.sqrt``, ``torch.atan2``, ``torch.hypot``,
-``torch.remainder`` or ``/`` appears here.  Eager torch
+``torch.exp``, ``torch.tanh``, ``torch.remainder`` or ``/`` appears here.  Eager torch
 runs each operation as written (no reassociation, no FMA contraction), so
 the JAX package's ``order_barrier`` is the identity and has no twin.
 """
@@ -17,7 +17,7 @@ import torch
 __all__ = ["PI", "TWO_PI", "recip", "div", "rsqrt", "sqrt", "sincos", "atan2",
            "renormalize_radians", "discretize", "round3", "wrap01",
            "polar2xy", "xy2polar_angle", "hypot2", "tree_sum", "tree_sum_1d",
-           "f32", "log1m_sq", "erfinv", "normal_from_uniform"]
+           "f32", "log1m_sq", "erfinv", "normal_from_uniform", "exp", "tanh"]
 
 
 def f32(x) -> float:
@@ -255,3 +255,37 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 def normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
     """Standard normals from uniforms in (0, 1): sqrt(2) * erfinv(2u - 1)."""
     return _SQRT2 * erfinv(2.0 * u - 1.0)
+
+
+# exp (cephes expf) and tanh on it: the NCA's activation.
+_LOG2E = f32(1.44269504088896341)
+_EXP_C1 = f32(0.693359375)
+_EXP_C2 = f32(-2.12194440e-4)
+_EXP_P = tuple(f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+    4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1,
+))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """fp32 e**x for |x| <= 87 (clamped there): a two-constant reduction
+    by round(x * log2(e)), the degree-5 polynomial, and the scale 2**z
+    built in the exponent bits."""
+    x = torch.clamp(x, -87.0, 87.0)
+    z = torch.floor(_LOG2E * x + 0.5)
+    r = x - z * _EXP_C1
+    r = r - z * _EXP_C2
+    zi = z.to(torch.int32)
+    p = _EXP_P[0] * r + _EXP_P[1]
+    for c in _EXP_P[2:]:
+        p = p * r + c
+    y = p * r * r + r + 1.0
+    scale = ((zi + 127) << 23).view(torch.float32)
+    return y * scale
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """fp32 tanh as 1 - 2 / (exp(2|x|) + 1), the sign put back; tanh(0) is
+    about 6e-8, not 0."""
+    t = 1.0 - 2.0 * recip(exp(2.0 * torch.abs(x)) + 1.0)
+    return torch.where(x < 0.0, -t, t)

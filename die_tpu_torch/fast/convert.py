@@ -2,7 +2,8 @@
 package and this one, as numpy arrays.  Configuration crosses as JSON
 (``FastDynamics.to_json`` of one package is ``from_json`` of the other);
 the turn-rule weights cross as the same packed f32 arrays (the committed
-``docs/artifacts/*.npz`` hold them under the key ``params``)."""
+``docs/artifacts/*.npz`` hold them under the key ``params``), the conv
+rule's as its ``conv``, ``head`` and ``bias`` arrays."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,7 +34,6 @@ def state_to_numpy(state: FastEnvState) -> dict:
             for name in FastEnvState._fields}
 
 
-
 def turn_params_from_numpy(a, device="cuda") -> torch.Tensor:
     """A turn-rule params array of the JAX package (``[R, C]`` or
     ``[..., R, C]``, any array-like) -> f32 tensor on ``device``."""
@@ -45,6 +45,24 @@ def load_turn_params(npz_path, device="cuda") -> torch.Tensor:
     """The params of a committed artifact (``np.savez(..., params=...)``)."""
     with np.load(npz_path) as data:
         return turn_params_from_numpy(data["params"], device)
+
+
+def conv_params_from_numpy(conv, head, bias=None, device="cuda"):
+    """The conv rule's arrays (``conv [..., hidden, 7, 3, 3]``, ``head
+    [..., 3, hidden, 1, 1]``, ``bias [..., 3]`` or None) -> a
+    ``fast/nca.py::ConvTurnParams`` of f32 tensors on ``device``."""
+    from die_tpu_torch.fast.nca import ConvTurnParams, conv_params_on
+
+    return conv_params_on(ConvTurnParams(conv, head, bias), device)
+
+
+def load_conv_params(npz_path, device="cuda"):
+    """The ConvTurnParams of a committed conv artifact (keys ``conv``,
+    ``head`` and, where trained with one, ``bias``)."""
+    with np.load(npz_path) as data:
+        bias = data["bias"] if "bias" in data.files else None
+        return conv_params_from_numpy(data["conv"], data["head"], bias,
+                                      device)
 
 
 def es_state_from_numpy(state, kind, device="cuda"):

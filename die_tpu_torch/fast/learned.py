@@ -22,7 +22,8 @@ the batch or ``[..., R, C]`` with one set per env (the population axis).
 ``learned_fast_rollout_auto`` is the path: on CUDA every step is one launch
 of the hand-written learned step kernel (``fast/cuda_step.py``), on the CPU
 the plain step.  ``train_lattice`` runs a whole ES generation (popsize x
-envs_per_eval envs) as one lockstep batch through it.
+envs_per_eval envs) as one lockstep batch through it, and checkpoints and
+resumes in the JAX package's format.
 
 Two deliberate differences from the JAX dispatch: a wide or ctx shape with
 fewer than one hidden unit raises instead of running as the linear rule,
@@ -458,8 +459,8 @@ def generation_keys(key: torch.Tensor, popsize: int, envs_per_eval: int,
 
 
 def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
-                  mesh=None, checkpoint_dir=None, resume_from=None,
-                  start_epoch: int = 0, params_init=None,
+                  mesh=None, checkpoint_dir=None, checkpoint_every: int = 0,
+                  resume_from=None, start_epoch: int = 0, params_init=None,
                   common_random_envs: bool = False,
                   radius_init: float = 0.5, searcher_fn=None,
                   device="cuda"):
@@ -472,17 +473,21 @@ def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
     ``envs_per_eval``.  ``params_init`` (its shape selects the family;
     default the linear init of ``key(seed)``), ``searcher_fn`` (``num_params
     -> searcher``; default PGPE + ClipUp) and ``common_random_envs`` are the
-    JAX package's.  Multi-GPU population sharding and checkpoints are not
-    ported: ``mesh``, ``checkpoint_dir`` and ``resume_from`` raise.
+    JAX package's.  ``checkpoint_dir``/``checkpoint_every`` write the
+    searcher state and the running best after every ``checkpoint_every``-th
+    epoch (``utils/checkpoint.py``, the JAX package's format);
+    ``resume_from`` (an ``es_*.npz`` of either package) continues at
+    ``start_epoch`` with that state and its best: epochs are keyed by
+    index, so the resumed run replays the uninterrupted one.  Multi-GPU
+    population sharding is not ported: ``mesh`` raises.
 
     Returns (best center shaped like the init, es_state, history)."""
     from die_tpu_torch.fast.init import fast_init
-    from die_tpu_torch.learn.es import PGPE, es_center
+    from die_tpu_torch.learn.es import PGPE
+    from die_tpu_torch.learn.train import es_loop
 
-    if mesh is not None or checkpoint_dir is not None \
-            or resume_from is not None:
-        raise NotImplementedError(
-            "population sharding and checkpoints are not ported")
+    if mesh is not None:
+        raise NotImplementedError("population sharding is not ported")
     dev = resolve_device(device)
     if params_init is not None:
         params0 = _as_params(params_init, dev)
@@ -496,7 +501,6 @@ def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
         searcher = PGPE(flat0.shape[0], popsize=cfg.popsize,
                         center_learning_rate=0.05, radius_init=radius_init,
                         max_speed=0.1)
-    es_state = searcher.init(flat0)
     P, E = cfg.popsize, cfg.envs_per_eval
 
     def generation(es_state, key):
@@ -509,19 +513,11 @@ def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
             dyn, params, st, roll_keys, cfg.epoch_iters, device=dev)
         per_env = tree_sum_1d(rewards).reshape(P, E)
         fitnesses = tree_sum_1d(per_env) / float(E)
-        return searcher.tell(es_state, eps, fitnesses), fitnesses
+        return (searcher.tell(es_state, eps, fitnesses),
+                {"best": fitnesses.max(), "mean": fitnesses.mean()})
 
-    master = as_key_tensor(np_key(cfg.seed), dev)
-    history = []
-    best_fit, best_center = -np.inf, es_center(es_state).cpu().numpy()
-    for epoch in range(start_epoch, cfg.epochs):
-        es_state, fits = generation(es_state, fold_in(master, epoch))
-        m = {"epoch": epoch, "best": float(fits.max()),
-             "mean": float(fits.mean())}
-        history.append(m)
-        if m["best"] > best_fit:
-            best_fit = m["best"]
-            best_center = es_center(es_state).cpu().numpy()
-        if log_fn:
-            log_fn(epoch, m)
-    return best_center.reshape(shape), es_state, history
+    best_center, es_state, history = es_loop(
+        generation, searcher.init(flat0), cfg, log_fn=log_fn,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        resume_from=resume_from, start_epoch=start_epoch, device=dev)
+    return best_center.cpu().numpy().reshape(shape), es_state, history
