@@ -72,10 +72,12 @@ Phases (any failure exits non-zero):
      whole; K1 at ``FastDynamics()`` and ``tuned_dynamics(16)``, K3 wide,
      K4 at K = 1); the training generation taken apart by part (phase 5);
   9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
-     kernel (K5) against ``gather_fields_plain`` bitwise (F in 1..3, M in
-     {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
-     all-equal and last-cell indices; fields of random bit patterns with
-     -0.0, subnormals, NaN payloads and infinities), and four small
+     kernel (K5) against ``gather_fields_plain`` bitwise on both of its
+     routes (F in 1..3, M in {256, 2304, 65536}, N in {1, 777, 65536}, B in
+     {1, 64}; random, sorted, all-equal, last-cell and 90%-zero indices;
+     fields of random bit patterns with -0.0, subnormals, NaN payloads and
+     infinities; then the path's shapes and every cluster size), and four
+     small
      rollouts (Physarum fused-sense; Physarum with deaths and wave flow;
      Gradient with sense mask, limit boundary and nearest diffusion;
      Brownian with perlin flow) on the card against ``device="cpu"``,
@@ -84,8 +86,9 @@ Phases (any failure exits non-zero):
      (256x256, 65,536 slots, 1024 envs, T = 32), counts read around it,
      bitwise against the same rollout with the plain gather,
      ``check_env_state``, env-steps/s, each piece of a step alone, and K5
-     at F = 1 and F = 2 beside its bound, its plain version and
-     ``torch.gather`` (``--only-exact`` runs this phase alone);
+     at F = 1 and F = 2 (events, and device time by route) beside its
+     bound, its plain version and ``torch.gather`` (``--only-exact`` runs
+     this phase alone);
  10. the probes (``die_tpu_torch/tools/probes.py``, the counterparts of the
      TPU probes of ``tools/tpu_measure.py`` and ``tools/tpu_mxu_offload.py``;
      ``tools/probes2.py``, of ``tools/tpu_measure2.py``): every probe kernel
@@ -138,7 +141,9 @@ Phases (any failure exits non-zero):
      st-perlin-wide 0.10 at 96x96, 9,216 slots, 30 steps, 16 held-out
      seeds from 777,000, trained and untrained means beside the documented
      ones, K5's launches read around the trained run (one F = 3 gather a
-     step for the policy, F = 1 for the env), the first 2 seeds' rewards
+     step for the policy, F = 1 for the env) and K5 at F = 3 timed in turns
+     with 3 x ``torch.gather`` (host and device apart), the first 2 seeds'
+     rewards
      bitwise against the CPU; and ``learn/train.py::train`` at
      ``examples/learning_agents.py``'s configuration (popsize 10, 96x96, 30
      steps, PGPE radius 1.5) for 3 generations with a
@@ -199,6 +204,32 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host ms a call of ``fn``: the host clock around ``reps`` calls
+    started after a synchronise, the device's work left out (at a shape
+    whose calls take less device time than host time, what the host spends
+    to launch one)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
+
+
+def k5_plan(B: int, F: int, M: int, N: int) -> str:
+    """K5's route at a shape on this card (``ops/gather.py::gather_plan``)."""
+    from die_tpu_torch.ops.gather import gather_plan
+
+    p = gather_plan(B, F, M, N,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    if p.route == "l2":
+        return "l2"
+    return f"staged, clusters of {p.cluster}, {p.per_env} an env"
 
 
 def env_keys(seed: int, n: int):
@@ -1498,46 +1529,130 @@ def exotic_fields(B: int, F: int, M: int, seed: int) -> torch.Tensor:
 
 
 def phase_gather_parity():
-    """K5 against its plain version on the card, bitwise: F in 1..3, M in
-    {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64}; random, sorted,
-    all-equal and last-cell indices; fields of exotic bit patterns; fields
-    passed as channel views of one tensor and as separate tensors."""
-    from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+    """K5 against its plain version on the card, bitwise, on the route of
+    ``gather_plan`` and, where the shape can take it, the other route too:
+    F in 1..3, M in {256, 2304, 65536}, N in {1, 777, 65536}, B in {1, 64};
+    random, sorted, all-equal, last-cell and 90%-zero (the deposit's)
+    indices; fields of exotic bit patterns; fields passed as channel views
+    of one tensor and as separate tensors.  Then the shapes the port
+    launches K5 at, on both routes: the NCA layout (F = 3 channel views of
+    ``[16, 3, 9216]``; the plan's l2, or staged on one block an env, each
+    env over 8), the exact main path's 1024 x 65,536 at F = 1 (the plan's
+    staged on clusters of 2) and F = 2 (clusters of 4), F = 4 at 8 envs
+    (clusters of 8), a shape no cluster of 8 holds and views that are not
+    16-byte aligned (the l2 route alone); each launch's route checked
+    against the plan and its counter."""
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.ops.gather import (gather_fields, gather_fields_plain,
+                                          gather_plan)
 
-    g = torch.Generator().manual_seed(5)
-    cases = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(5)
+    routes = {}
+
+    def kinds(B, N, M):
+        rand = torch.randint(0, M, (B, N), generator=g, device="cuda")
+        zero = torch.rand((B, N), generator=g, device="cuda") < 0.9
+        return {"random": rand, "sorted": rand.sort(dim=1).values,
+                "all-equal": torch.full_like(rand, M // 3),
+                "last-cell": torch.full_like(rand, M - 1),
+                "deposit": torch.where(zero, torch.zeros_like(rand), rand)}
+
+    def took(run):
+        before = dict(cuda_step.launches)
+        out = run()
+        torch.cuda.synchronize()
+        return out, [r for r in ("staged", "l2")
+                     if cuda_step.launches[f"gather_fields_{r}"] !=
+                     before[f"gather_fields_{r}"]]
+
+    def case(args, idx, label, route=None, aligned=True):
+        """The plan's route (checked against ``route`` where given) and,
+        where the shape can take it, the other one, each bitwise the plain
+        version."""
+        B, N = idx.shape[-2] if idx.dim() == 2 else 1, idx.shape[-1]
+        F = args.shape[-2] if isinstance(args, torch.Tensor) else len(args)
+        M = (args[0] if isinstance(args, list) else args).shape[-1]
+        what = f"B={B} F={F} M={M} N={N} {label}"
+        want = gather_fields_plain(args, idx)
+        plan = gather_plan(B, F, M, N, sms, aligned)
+        if route is not None and plan.route != route:
+            raise AssertionError(f"gather_plan took {plan.route}, expected "
+                                 f"{route}: {what}")
+        runs = [(None, plan)]
+        other = "staged" if plan.route == "l2" else "l2"
+        try:
+            runs.append((other, gather_plan(B, F, M, N, sms, aligned,
+                                            other)))
+        except ValueError:
+            pass  # no staged route at this shape
+        for asked, p in runs:
+            got, ran = took(lambda: gather_fields(args, idx, asked))
+            if ran != [p.route]:
+                raise AssertionError(f"gather_fields ran {ran}, expected "
+                                     f"{p.route}: {what}")
+            if not same_words(got, want):
+                raise AssertionError(f"gather_fields ({p.route}) differs "
+                                     f"from its plain version: {what}")
+            key = (p.route, p.cluster, p.per_env > 1)
+            routes[key] = routes.get(key, 0) + 1
+
     for B in (1, 64):
         for F in (1, 2, 3):
             for M in (256, 2304, 65536):
                 fields = exotic_fields(B, F, M, 100 * F + B)
                 separate = [fields[:, f].contiguous() for f in range(F)]
                 for N in (1, 777, 65536):
-                    rand = torch.randint(0, M, (B, N), generator=g)
-                    kinds = {"random": rand,
-                             "sorted": rand.sort(dim=1).values,
-                             "all-equal": torch.full((B, N), M // 3),
-                             "last-cell": torch.full((B, N), M - 1)}
-                    for label, idx in kinds.items():
-                        idx = idx.to(torch.int32).cuda()
-                        want = gather_fields_plain(fields, idx)
+                    for label, idx in kinds(B, N, M).items():
+                        idx = idx.to(torch.int32)
                         for how, arg in (("views", fields),
                                          ("separate", separate)):
-                            got = gather_fields(arg, idx)
-                            torch.cuda.synchronize()
-                            if not same_words(got, want):
-                                raise AssertionError(
-                                    f"gather_fields differs from its plain "
-                                    f"version: B={B} F={F} M={M} N={N} "
-                                    f"{label} indices, {how}")
-                            cases += 1
+                            case(arg, idx, f"{label} indices, {how}")
+    # the shapes the port launches K5 at, and every cluster size
+    shapes = [  # (B, F, M, N, layout channels, the plan's route, the
+        #          staged route's cluster)
+        (16, 3, 9216, 9216, 3, "l2", 1),         # the NCA policy
+        (1024, 1, 65536, 65536, 3, "staged", 2),  # the exact path's sense
+        (1024, 2, 65536, 65536, 3, "staged", 4),  # its feed
+        (8, 4, 65536, 65536, 4, "l2", 8),
+        (2, 1, 1024 * 1024, 65536, 1, "l2", 0),  # no cluster of 8 holds it
+    ]
+    for B, F, M, N, chans, route, cluster in shapes:
+        try:
+            staged = gather_plan(B, F, M, N, sms, route="staged").cluster
+        except ValueError:
+            staged = 0
+        if staged != cluster:
+            raise AssertionError(f"gather_plan({B}, {F}, {M}, {N}) stages on "
+                                 f"{staged} blocks, expected {cluster}")
+        layout = exotic_fields(B, chans, M, B + F)
+        views = [layout[:, f] for f in range(F)]
+        for label, idx in kinds(B, N, M).items():
+            case(views, idx.to(torch.int32),
+                 f"{label} indices, views of [{B}, {chans}, {M}]", route)
+        del layout, views
+        torch.cuda.empty_cache()
+    # views that are not 16-byte aligned: the l2 route
+    flat = exotic_fields(1, 1, 3 * 16 * 9216 + 1, 9)[0, 0]
+    off = flat[1:].view(16, 3, 9216)
+    for label, idx in kinds(16, 9216, 9216).items():
+        case([off[:, f] for f in range(3)], idx.to(torch.int32),
+             f"{label} indices, views 4 bytes off", "l2", aligned=False)
     # unbatched form, and an index row that is not 16-byte aligned
     flat = exotic_fields(1, 2, 4096, 9)[0]
-    idx = torch.randint(0, 4096, (1001,), generator=g).to(torch.int32).cuda()
-    if not same_words(gather_fields(flat, idx[1:]),
-                         gather_fields_plain(flat, idx[1:])):
-        raise AssertionError("gather_fields differs on an unaligned row")
-    log(f"gather_fields == plain, bitwise: {cases + 1} cases "
-        f"(F 1..3, M 256..65536, N 1..65536, B 1 and 64, exotic bits)")
+    idx = torch.randint(0, 4096, (1001,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    case(flat, idx[1:], "unaligned index row", "l2", aligned=False)
+    n = sum(routes.values())
+    log(f"gather_fields == plain, bitwise: {n} cases (F 1..4, M 256..2^20, "
+        f"N 1..65536, B 1..1024, exotic bits) by (route, cluster, split): "
+        + ", ".join(f"{r} c{c}{' split' if s else ''} {k}"
+                    for (r, c, s), k in sorted(routes.items())))
+    for need in ("staged", "l2"):
+        if not any(r == need for r, _, _ in routes):
+            raise AssertionError(f"no case took the {need} route")
+    if {c for r, c, _ in routes if r == "staged"} != {1, 2, 4, 8}:
+        raise AssertionError(f"not every cluster size ran: {routes}")
     return 0.0
 
 
@@ -1624,7 +1739,8 @@ class plain_gather:
         from die_tpu_torch.ops.gather import gather_fields_plain
 
         self._mod, self._kept = env_mod, env_mod.gather_fields
-        env_mod.gather_fields = gather_fields_plain
+        env_mod.gather_fields = \
+            lambda fields, idx, route=None: gather_fields_plain(fields, idx)
 
     def __exit__(self, *exc):
         self._mod.gather_fields = self._kept
@@ -1704,6 +1820,7 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     from die_tpu_torch.models.gradient import PhysarumPolicy
     from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
     from die_tpu_torch.parallel.rollout import rollout
+    from die_tpu_torch.tools.probes2 import device_ms
     from die_tpu_torch.utils.invariants import check_env_state
 
     W, H = EXACT_FIELD
@@ -1798,21 +1915,30 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
             raise AssertionError(f"gather_fields (F={F}) differs from its "
                                  f"plain version at the main path's shapes")
         ms = time_ms(lambda: gather_fields(fields, cell), 20)
+        device = device_ms(lambda: gather_fields(fields, cell))
+        by_route = {r: device_ms(lambda: gather_fields(fields, cell, r))
+                    for r in ("l2", "staged")}
         plain = time_ms(lambda: gather_fields_plain(fields, cell), 10)
         lib = time_ms(lambda: [torch.gather(f, 1, wide) for f in fields], 10)
         nbytes = B * N * (4 + 8 * F)
         bound = nbytes / rate * 1e3
         name = f"gather_fields_f{F}"
-        log(f"{name}: {ms:.4f} ms/launch at {B} x {N} indices into {W * H} "
-            f"cells (bound {bound:.4f} ms, {nbytes / 1e6:.1f} MB at "
-            f"{rate / 1e12:.2f} TB/s); plain {plain:.4f} ms (int64 index "
-            f"cast included); torch.gather {lib:.4f} ms (int64 index given); "
-            f"exact-path launches {counts[name]}")
+        plan = k5_plan(B, F, W * H, N)
+        log(f"{name}: {ms:.4f} ms/launch ({device:.4f} device, CUDA graph; "
+            f"by route: l2 {by_route['l2']:.4f}, staged "
+            f"{by_route['staged']:.4f}) at {B} x {N} indices into {W * H} "
+            f"cells, {plan} (bound "
+            f"{bound:.4f} ms, {nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} "
+            f"TB/s); plain {plain:.4f} ms (int64 index cast included); "
+            f"torch.gather {lib:.4f} ms (int64 index given); exact-path "
+            f"launches {counts[name]}")
         rows.append({"name": name, "route": "cuda",
                      "source": "die_tpu_torch/csrc/gather_fields.cu",
                      "replaces": "die_tpu/ops/pallas_gather.py:53",
                      "launches": counts[name], "match": True,
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                     "max_abs_err": 0.0, "ms": ms, "device_ms": device,
+                     "device_ms_by_route": by_route, "k5_plan": plan,
+                     "plain_ms": plain,
                      "bound_ms": bound, "bound_by": "bytes",
                      "library_ms": lib})
     record = {"envs": B, "steps": T, "slots": N, "field": list(EXACT_FIELD),
@@ -2681,6 +2807,7 @@ def phase_nca_replay(smi: str):
     # state's conv output at the agents' cells
     from die_tpu_torch.core import env as E
     from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+    from die_tpu_torch.tools.probes2 import device_ms
 
     W, H = size
     field = policy._field(trained, res.state.medium)
@@ -2692,16 +2819,35 @@ def phase_nca_replay(smi: str):
         raise AssertionError("gather_fields (F=3) differs from its plain "
                              "version at the NCA policy's shapes")
     wide = cell.to(torch.int64)
-    k5 = {"ms": time_ms(lambda: gather_fields(fields, cell), 20),
+    # both host-bound at this shape: each timed in turns with the other,
+    # three times, the least of each kept (the host's noise only adds)
+    turns = [(time_ms(lambda: gather_fields(fields, cell), 20),
+              time_ms(lambda: [torch.gather(f, 1, wide) for f in fields], 20))
+             for _ in range(3)]
+    k5 = {"ms": min(t[0] for t in turns),
+          "device_ms": device_ms(lambda: gather_fields(fields, cell)),
+          "device_ms_by_route": {r: device_ms(
+              lambda: gather_fields(fields, cell, r))
+              for r in ("l2", "staged")},
+          "host_ms": host_ms(lambda: gather_fields(fields, cell)),
+          "k5_plan": k5_plan(n, 3, slots, slots),
           "plain_ms": time_ms(lambda: gather_fields_plain(fields, cell), 10),
-          "library_ms": time_ms(lambda: [torch.gather(f, 1, wide)
-                                         for f in fields], 10),
+          "library_ms": min(t[1] for t in turns),
+          "library_device_ms": device_ms(lambda: [torch.gather(f, 1, wide)
+                                                  for f in fields]),
           "bound_ms": n * slots * (4 + 8 * 3) / mem_rate(
               torch.cuda.get_device_name(0)) * 1e3}
-    log(f"gather_fields_f3: {k5['ms']:.4f} ms/launch at {n} x {slots} "
-        f"indices (bound {k5['bound_ms']:.4f} ms); plain "
+    log(f"gather_fields_f3: {k5['ms']:.4f} ms/launch (events of a loop of "
+        f"20, the least of 3 in turns with 3 x torch.gather: "
+        f"{[round(t[0], 4) for t in turns]}; device {k5['device_ms']:.4f} "
+        f"from a CUDA graph, by route "
+        f"{k5['device_ms_by_route']}; host {k5['host_ms']:.4f} a call) at "
+        f"{n} x {slots} indices, "
+        f"{k5['k5_plan']} (bound {k5['bound_ms']:.4f} ms); plain "
         f"{k5['plain_ms']:.4f} ms; 3 x torch.gather {k5['library_ms']:.4f} "
-        f"ms; NCA-path launches {counts.get('gather_fields_f3', 0)} ({smi})")
+        f"ms ({[round(t[1], 4) for t in turns]}; device "
+        f"{k5['library_device_ms']:.4f}); NCA-path launches "
+        f"{counts.get('gather_fields_f3', 0)} ({smi})")
     row = {"name": "gather_fields_f3", "route": "cuda",
            "source": "die_tpu_torch/csrc/gather_fields.cu",
            "replaces": "die_tpu/ops/pallas_gather.py:53",

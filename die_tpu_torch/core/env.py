@@ -63,12 +63,14 @@ def agent_cells(agents: torch.Tensor, field_size):
     return ix, iy
 
 
-def gather_cells(fields, cell: torch.Tensor):
+def gather_cells(fields, cell: torch.Tensor, route=None):
     """Each ``[..., M]`` field of ``fields`` at the int32 flat cells
-    ``[..., N]`` -> a tuple of ``[..., N]`` tensors, one gather for all."""
+    ``[..., N]`` -> a tuple of ``[..., N]`` tensors, one gather for all
+    (``route``: the gather kernel's, as ``ops/gather.py::gather_fields``
+    takes it)."""
     lead = cell.shape[:-1]
     rows = [f.reshape(-1, f.shape[-1]) for f in fields]
-    out = gather_fields(rows, cell.reshape(-1, cell.shape[-1]))
+    out = gather_fields(rows, cell.reshape(-1, cell.shape[-1]), route)
     return tuple(out[:, k].reshape(lead + cell.shape[-1:])
                  for k in range(len(rows)))
 
@@ -119,7 +121,9 @@ def _deposit_and_layout(dynamics: Dynamics, medium, agents, action):
                            include_self=True)
     has = winner >= 0
     deposit = action[..., ch.CH_ACT_DEPOSIT, :].reshape(-1, n)
-    (won,) = gather_cells((deposit,), torch.clamp(winner, min=0))
+    # mostly slot 0 (every cell without an agent): read through L2, where
+    # one cached line serves the row (PERF.md)
+    (won,) = gather_cells((deposit,), torch.clamp(winner, min=0), "l2")
     placed = torch.where(has, won, torch.zeros_like(won))
     chem = medium[..., ch.CH_MED_CHEM, :, :] + placed.reshape(lead + (W, H))
     occupancy = has.to(torch.float32).reshape(lead + (W, H))

@@ -27,7 +27,8 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
   streamed through registers in one launch (two where the columns split
   over blocks); :func:`fold_plans` is its launch.
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
-  too; its wrapper is ``ops/gather.py``.
+  too (by field count and by route); its wrapper and launch plan are
+  ``ops/gather.py``.
 - The on-card probes of the step's phases (``probe_alu.cu``,
   ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) and of
   gathers and bit-plane words (``probe_gather.cu``, ``probe_bits.cu``;
@@ -119,7 +120,8 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_steps_fused_learned_ctx",
            "lattice_steps_fused_learned_perlin", "tree_sum_2d",
            "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
-           "gather_fields_f4", *PROBE_KERNELS, *PROBE2_KERNELS)
+           "gather_fields_f4", "gather_fields_staged", "gather_fields_l2",
+           *PROBE_KERNELS, *PROBE2_KERNELS)
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
@@ -200,10 +202,12 @@ def build() -> float:
         fold = _libs["tree_sum_2d"].die_tree_sum_2d
         fold.argtypes = [vp, vp, vp, ip, ip, ip, vp, vp]
         fold.restype = ip
-        gather = _libs["gather_fields"].die_gather_fields
-        gather.argtypes = [vp, vp, vp, vp, ip, ip, ip, vp]
-        gather.restype = ip
         fp, lp = ctypes.c_float, ctypes.c_longlong
+        # four field pointers and batch strides, idx, out, the plan's
+        # words (ops/gather.py::GatherPlan.words), the stream
+        gather = _libs["gather_fields"].die_gather_fields
+        gather.argtypes = [vp] * 4 + [lp] * 4 + [vp, vp, vp, vp]
+        gather.restype = ip
         for lib, fn, args in (
                 ("probe_alu", "die_probe_alu",
                  [vp, vp, lp, ip, ip, ip, vp]),

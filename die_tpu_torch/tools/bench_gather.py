@@ -13,8 +13,9 @@ after ``--steps`` Physarum steps: what the rollout gives the kernel),
 bound ``B * N * (4 + 8 F)`` bytes over 3.35 TB/s, the plain version
 (``torch.gather`` with the int64 cast of the index inside the timed call)
 and ``torch.gather`` given an int64 index; each result is first held
-bitwise against the plain version.  The last line is the ``nvidia-smi``
-name and power limit.
+bitwise against the plain version, and names the launch's plan
+(``ops/gather.py::gather_plan``: its route, cluster and clusters an env).
+The last line is the ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def main():
     from die_tpu_torch.core.init import init_env_state
     from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
     from die_tpu_torch.models.gradient import PhysarumPolicy
-    from die_tpu_torch.ops.gather import gather_fields, gather_fields_plain
+    from die_tpu_torch.ops.gather import (gather_fields, gather_fields_plain,
+                                          gather_plan)
     from die_tpu_torch.parallel.rollout import rollout
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -57,6 +59,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     B, N, side = args.envs, args.indices, args.side
     M = side * side
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def events_ms(fn, reps=20):
         for _ in range(2):
@@ -100,9 +103,10 @@ def main():
                 fields, idx)
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"F={F} {name}: kernel != plain")
+            plan = gather_plan(B, F, M, N, sms)
             print(json.dumps({
                 "fields": F, "order": name, "envs": B, "cells": M,
-                "indices": N,
+                "indices": N, "route": plan.route, "plan": plan._asdict(),
                 "ms": events_ms(lambda: gather_fields(fields, idx)),
                 "bound_ms": B * N * (4 + 8 * F) / MEM_RATE * 1e3,
                 "plain_ms": events_ms(

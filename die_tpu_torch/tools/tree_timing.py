@@ -8,6 +8,7 @@ unpacked beside the working tree) compare on one card in one call.
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --diffuse-probes
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --shift-alu-probes
     python3 die_tpu_torch/tools/tree_timing.py --tree PATH --bit-probes
+    python3 die_tpu_torch/tools/tree_timing.py --tree PATH --gather-fields
 
 Run it once per tree, alternating (A, B, B, A), so that drift shows.
 Prints one JSON line: the tree, ``lattice_step`` ms per launch for
@@ -38,16 +39,30 @@ P11 at B = 1 and 64, device time from a CUDA graph of 20 calls.  With
 (``shift_alu_probes_ms``): P3's three kinds, P5's shift leg (beside 256
 chained ``torch.roll(x, 1, 1) + 1``), P1's seven legs and P2's four
 (beside 64 chained ``torch.roll(chains, s, dim) + 1``) and P4's stencil
-legs at the TPU probes' shape, device time from a CUDA graph.  Uses only what every tree of the port has (the entry points and
+legs at the TPU probes' shape, device time from a CUDA graph.  With
+``--gather-fields``, only the gather kernel K5 (``gather_fields_ms``) at the
+port's path: the NCA policy's F = 3 (16 envs x 9,216 agents' cells into
+96x96 channel views) and the three launches of the exact main path's
+steps 1, 8 and 32 at 1024 envs (``path_gathers``: the sense's F = 1, the
+deposit's F = 1, the feed's F = 2, their own inputs); each held bitwise
+against the plain
+version, then device ms a call from a CUDA graph of 20 calls (and of each
+route, where the tree's ``gather_fields`` takes a ``route``), ms a call by
+CUDA events around a
+loop of 20 calls (host and device together) and the host clock's ms a call
+over 20 calls (the host's launch cost where the device takes less), with
+the plan where the tree has one.  Uses only what every tree of the port has (the entry points and
 wrappers, ``train_lattice``, the committed artifacts, ``tools/probes2.py``).
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 # the reward fold's shapes: the main path, training, the held-out replay,
@@ -213,6 +228,131 @@ def gather_probes_ms() -> dict:
             timed(f"gather_{placement}_B{B}",
                   lambda: P2.gather(field, cells, placement=placement),
                   lambda: P2.gather_plain(field, cells))
+    return out
+
+
+PATH_STEPS = (1, 8, 32)  # the exact main path's steps whose K5 launches are timed
+
+
+def path_gathers(B: int, side: int, steps=(8,)) -> dict:
+    """The K5 launches of the exact-engine steps ``steps`` (1-based) of one
+    rollout (Physarum at the JAX benchmark's exact defaults, ``B`` envs at
+    ``side``², ``side``² slots, from seeds): ``{step: [(fields, idx, the
+    rest of the call's arguments)]}`` in
+    launch order, each field a copy with the strides of the view it was (a
+    channel of the medium).  A step launches the policy's sense gather (F
+    = 1), the deposit's (F = 1, the winner slot of each cell, mostly slot
+    0) and the feed's (F = 2, food and occupancy at the agents' cells); the
+    rollout's opening gather (the sensed food it carries) is left out.
+    The agents start in row-major order of their cells, so the indices of
+    early steps are nearly sorted; they scatter as the agents move."""
+    import torch
+
+    from die_tpu_torch.core import env as E
+    from die_tpu_torch.core.config import Dynamics
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
+    from die_tpu_torch.models.gradient import PhysarumPolicy
+    from die_tpu_torch.parallel.rollout import rollout
+
+    def keys(seed):
+        return fold_in(as_key_tensor(np_key(seed), "cuda"),
+                       torch.arange(B, dtype=torch.int64, device="cuda"))
+
+    def copy(t):
+        base = torch.empty(t.stride(0) * t.shape[0], device="cuda")
+        out = base.as_strided(t.shape, t.stride())
+        out.copy_(t)
+        return out
+
+    dyn = Dynamics(init_agent_ratio=0.15)
+    policy = PhysarumPolicy(max_agents=side * side, scale=0.007,
+                            turn_angle=30, sense_offset=0.04)
+    state = init_env_state(keys(0), (side, side), dyn, side * side,
+                           device="cuda")
+    pstate, rkeys, done, out = policy.init_state(keys(1), device="cuda"), \
+        keys(2), 0, {}
+    real = E.gather_fields
+    for step in sorted(steps):
+        if step - 1 > done:
+            res = rollout(dyn, policy, None, state, pstate, rkeys,
+                          step - 1 - done, t0=done)
+            state, pstate = res.state, res.pstate
+        calls = []
+
+        def record(fields, idx, *args):
+            calls.append(([copy(f) for f in fields], idx.clone(), args))
+            return real(fields, idx, *args)
+
+        E.gather_fields = record
+        try:
+            res = rollout(dyn, policy, None, state, pstate, rkeys, 1,
+                          t0=step - 1)
+        finally:
+            E.gather_fields = real
+        state, pstate, done = res.state, res.pstate, step
+        out[step] = calls[-3:]
+    return out
+
+
+def gather_fields_ms() -> dict:
+    """K5 at the port's path (module docstring): ``{launch: {"plan",
+    "device_ms", "l2_device_ms", "staged_device_ms", "ms", "host_ms"}}``
+    (``device_ms``, ``ms`` and ``host_ms`` on the route the path takes),
+    each output first
+    held bitwise against ``gather_fields_plain``.  The exact main path's
+    three launches of steps ``PATH_STEPS`` are the rollout's own
+    (``path_gathers``); the NCA policy's F = 3 reads three channel views of
+    ``[16, 3, 9216]`` random fields at the agents' cells of the 8th step's
+    feed of a 96x96 exact rollout."""
+    import torch
+
+    from die_tpu_torch.ops import gather as G
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routed = "route" in inspect.signature(G.gather_fields).parameters
+    out = {}
+    launches = [("nca_f3", ([layout[:, f] for f in range(3)],
+                            path_gathers(16, 96)[8][-1][1], ()))
+                for layout in [torch.randn((16, 3, 9216), generator=g,
+                                           device="cuda")]]
+    for step, calls in path_gathers(1024, 256, PATH_STEPS).items():
+        kinds = ["sense", "deposit", "feed"] \
+            if [len(c[0]) for c in calls] == [1, 1, 2] else \
+            [f"call{k}" for k in range(len(calls))]
+        launches += [(f"{kind}_f{len(c[0])}_step{step}", c)
+                     for kind, c in zip(kinds, calls)]
+    for name, (fields, cell, args) in launches:
+        B, N = cell.shape
+        F, M = len(fields), fields[0].shape[-1]
+        got = G.gather_fields(fields, cell)
+        if not torch.equal(got.view(torch.int32), G.gather_fields_plain(
+                fields, cell).view(torch.int32)):
+            raise AssertionError(f"gather_fields differs at {name}")
+        plan = getattr(G, "gather_plan", None)
+        rec = {"plan": str(plan(B, F, M, N, sms, True, *args)) if plan
+               else "l2 (one)",
+               "device_ms": graph_ms(
+                   lambda: G.gather_fields(fields, cell, *args))}
+        for route in ("l2", "staged") if routed else ():
+            rec[f"{route}_device_ms"] = graph_ms(
+                lambda: G.gather_fields(fields, cell, route))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            G.gather_fields(fields, cell, *args)
+        end.record()
+        torch.cuda.synchronize()
+        rec["ms"] = start.elapsed_time(end) / 20
+        t0 = time.perf_counter()
+        for _ in range(20):
+            G.gather_fields(fields, cell, *args)
+        rec["host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        out[name] = rec
     return out
 
 
@@ -477,6 +617,7 @@ def main():
     ap.add_argument("--diffuse-probes", action="store_true")
     ap.add_argument("--shift-alu-probes", action="store_true")
     ap.add_argument("--bit-probes", action="store_true")
+    ap.add_argument("--gather-fields", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -515,6 +656,11 @@ def main():
         return 0
     if args.bit_probes:
         print(json.dumps({"tree": str(tree), "bit_probes_ms": bit_probes_ms(),
+                          "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.gather_fields:
+        print(json.dumps({"tree": str(tree),
+                          "gather_fields_ms": gather_fields_ms(),
                           "nvidia_smi": smi}), flush=True)
         return 0
     B, field = args.envs, (256, 256)
