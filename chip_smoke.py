@@ -6,6 +6,7 @@ versions.
     python3 chip_smoke.py --only-exact           # the exact engine alone
     python3 chip_smoke.py --only-probes          # the phase probes alone
     python3 chip_smoke.py --only-nca             # the conv-NCA and NCA alone
+    python3 chip_smoke.py --only-user            # the user paths alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -148,7 +149,27 @@ Phases (any failure exits non-zero):
      ``examples/learning_agents.py``'s configuration (popsize 10, 96x96, 30
      steps, PGPE radius 1.5) for 3 generations with a
      checkpoint after each, resumed from the one before the last: the last
-     generation's metrics bitwise the uninterrupted run's.
+     generation's metrics bitwise the uninterrupted run's;
+ 12. the user paths, through the entry points a user calls
+     (``--only-user`` runs this phase, with phase 5's held-out replay it
+     compares with): ``core/gym_env.py::GymEnv`` at 256x256, 65,536 slots
+     with ``examples/gym_loop.py``'s Physarum policy for 64 steps, timed
+     (CUDA events and the host clock), K5's launches read around it (4 F =
+     1 launches a step), obs, reward and info every step bitwise the
+     functional core's (``init_env_state`` + ``observe`` + ``env_step``) on
+     the card, the first 8 steps ``GymEnv(device="cpu")``'s, the step split
+     into the policy and the env step, ``reset`` and ``render``;
+     ``examples/minimal_run.py::run_minimal_fast`` at its defaults (one 256²
+     env, 200 steps in chunks of 10: K1 and K2 200 launches each) and one
+     env through the fused kernel at 512² (16 steps) and through the learned
+     kernels (wide, 256² and 512², 8 steps), each bitwise the plain
+     rollout; ``examples/replay_lattice.py`` at its defaults (128²,
+     ``lattice8_mlp_wide``, 120 frames x 2 steps) without and with the
+     render, each run bitwise one 240-step ``learned_fast_rollout_auto``
+     and the plain rollout; ``examples/eval_lattice.py``'s trained mean
+     bitwise phase 5's; each path once under ``torch.profiler`` (kernels and
+     device time a step).  Where matplotlib or pillow does not import, one
+     line says so and the trace view, the plotter and the GIF are not run.
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -2936,6 +2957,434 @@ def phase_nca(smi: str):
     return rec
 
 
+# ---- 12. the user paths -------------------------------------------------------------
+
+GYM_FIELD = (256, 256)
+GYM_SLOTS = 65_536
+GYM_STEPS = 64
+GYM_CPU_STEPS = 8
+# K5 launches a Gym step with the Physarum policy, all F = 1: the policy's
+# direction and food gathers, the deposit's and feed's
+GYM_K5_A_STEP = 4
+FAST_ITERS = 200        # minimal_run's --iters (chunks of 10)
+USER_LARGE_STEPS = 16   # one 512x512 env through the fused kernel
+USER_LEARNED_STEPS = 8
+REPLAY_ARTIFACT = "lattice8_mlp_wide"
+REPLAY_FRAMES = 120     # replay_lattice's defaults: 128x128, 2 steps a frame
+
+
+def absent_render_packages() -> list:
+    """matplotlib and pillow, where either does not import here."""
+    import importlib.util
+
+    return [m for m in ("matplotlib", "PIL")
+            if importlib.util.find_spec(m) is None]
+
+
+def counted(fn):
+    """(fn(), the nonzero launch counts of its run): counts set to 0 just
+    before, read just after."""
+    from die_tpu_torch.fast import cuda_step
+
+    torch.cuda.synchronize()
+    cuda_step.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in cuda_step.launches.items() if v}
+
+
+def expect_counts(what: str, counts: dict, want: dict):
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def device_share(label: str, fn, steps: int, ms_per_step: float) -> dict:
+    """``fn`` run once under torch.profiler: CUDA kernels a step and their
+    device time a step, the device's idle share of ``ms_per_step`` (the
+    path's own timed run; the profiled span holds the profiler's costs),
+    and the host ops that take the most CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    rec = {"kernels_per_step": len(kernels) / steps,
+           "device_ms_per_step": busy_ms / steps,
+           "idle_share": 1.0 - busy_ms / steps / ms_per_step}
+    log(f"{label} under torch.profiler ({steps} steps): "
+        f"{rec['kernels_per_step']:.1f} CUDA kernels a step, "
+        f"{rec['device_ms_per_step']:.4f} ms of device time a step: the "
+        f"device idle {rec['idle_share']:.3f} of the timed run's "
+        f"{ms_per_step:.4f} ms a step; host ops by CPU time:")
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=12))
+    return rec
+
+
+def same_fast(a, b) -> bool:
+    """(state, rewards, nums) of two lattice rollouts, bitwise."""
+    return all(same_words(x, y) for x, y in
+               zip(list(a[0]) + list(a[1:]), list(b[0]) + list(b[1:])))
+
+
+def phase_user_gym(smi: str, absent: list) -> dict:
+    """``GymEnv`` at full width with gym_loop's Physarum policy: timed and
+    counted on the card; every step held to the functional core on the
+    card, the first steps to the CPU's env; reset and render."""
+    import numpy as np
+
+    from die_tpu_torch.core.config import Dynamics
+    from die_tpu_torch.core.env import env_step, observe
+    from die_tpu_torch.core.gym_env import GymEnv
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.core.rng import fold_in
+    from die_tpu_torch.examples.common import key
+    from die_tpu_torch.examples.gym_loop import make_policy
+    from die_tpu_torch.render.renderer import EnvRenderer
+
+    seed, T = 7, GYM_STEPS
+    dyn = Dynamics(init_agent_ratio=0.1)
+
+    def make(device):
+        env = GymEnv(GYM_FIELD, dyn, max_agents=GYM_SLOTS, seed=seed,
+                     device=device)
+        policy = make_policy(GYM_FIELD)
+        ps = policy.init_state(key(seed + 1, device=device), device=device)
+        obs, _ = env.reset(seed=seed)
+        return env, policy, ps, key(seed + 2, device=device), obs
+
+    def run(env, policy, ps, pkey, obs, steps):
+        """gym_loop's loop -> (last obs, [(obs, action, reward,
+        terminated, truncated, info)] a step)."""
+        out = []
+        for t in range(steps):
+            action, ps = policy.forward(None, ps, obs, fold_in(pkey, t))
+            nxt, reward, term, trunc, info = env.step(action)
+            out.append((obs, action, reward, term, trunc, info))
+            obs = nxt
+        return obs, out
+
+    run(*make("cuda"), 2)  # warm: the gather kernel's first launches
+    made = make("cuda")
+    env = made[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    (last, steps), counts = counted(lambda: run(*made, T))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / T * 1e3
+    dev_ms = start.elapsed_time(end) / T
+    k5 = {k: v for k, v in counts.items() if k.startswith("gather_fields")}
+    by_width = sum(k5.get(f"gather_fields_f{F}", 0) for F in (1, 2, 3, 4))
+    if k5.get("gather_fields_f1") != GYM_K5_A_STEP * T or \
+            by_width != GYM_K5_A_STEP * T:
+        raise AssertionError(f"Gym loop: K5 launches {k5}, expected "
+                             f"{GYM_K5_A_STEP} F = 1 launches a step")
+
+    # the functional core on the card, fed the same actions
+    state = init_env_state(fold_in(key(seed, device="cuda"), 0), GYM_FIELD,
+                           dyn, GYM_SLOTS, device="cuda")
+    for t, (obs, action, reward, term, trunc, info) in enumerate(steps):
+        ref = observe(dyn, state)
+        if not (same_words(obs[0], ref[0]) and same_words(obs[1], ref[1])):
+            raise AssertionError(f"Gym obs differs from the core's at {t}")
+        state, ref_info = env_step(dyn, state, action)
+        want = {"num_agents": int(ref_info.num_agents),
+                "reward": float(np.round(float(ref_info.reward), 3)),
+                "mean_reward": float(np.round(float(ref_info.mean_reward),
+                                              5))}
+        if reward != float(ref_info.reward) or info != want or \
+                term != bool(ref_info.terminated) or trunc:
+            raise AssertionError(f"Gym step {t} differs from the core's: "
+                                 f"{reward} {info} {term} vs {want}")
+    ref = observe(dyn, state)
+    if not (same_words(last[0], ref[0]) and same_words(last[1], ref[1])):
+        raise AssertionError("Gym's last obs differs from the core's")
+
+    # the CPU's env, with its own policy
+    _, cpu_steps = run(*make("cpu"), GYM_CPU_STEPS)
+    for t, (a, b) in enumerate(zip(steps, cpu_steps)):
+        if not (same_words(a[0][0], b[0][0]) and
+                same_words(a[0][1], b[0][1]) and same_words(a[1], b[1])
+                and a[2:] == b[2:]):
+            raise AssertionError(f"Gym on the card differs from the CPU's "
+                                 f"at step {t}")
+
+    # where a step's time goes: the policy and the env step apart (host
+    # clock, the device synchronised after each), then the kernels a step
+    env2, policy, ps, pkey, obs = make("cuda")
+    split = [0.0, 0.0]
+    for t in range(10):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        action, ps = policy.forward(None, ps, obs, fold_in(pkey, t))
+        torch.cuda.synchronize()
+        h1 = time.perf_counter()
+        obs = env2.step(action)[0]
+        torch.cuda.synchronize()
+        if t >= 2:
+            split[0] += (h1 - h0) * 1e3 / 8
+            split[1] += (time.perf_counter() - h1) * 1e3 / 8
+    log(f"user Gym step split (host clock, 8 steps after 2): policy forward "
+        f"{split[0]:.4f} ms, env.step {split[1]:.4f} ms")
+    made2 = make("cuda")
+    prof = device_share("user Gym", lambda: run(*made2, 2), 2, dev_ms)
+
+    # reset: the seed's world again, then the stream's next one
+    world = steps[0][0]
+    env.reset(seed=seed)
+    if not (same_words(env.agents, world[0]) and
+            same_words(env.medium, world[1])):
+        raise AssertionError("reset(seed=7) did not reproduce the world")
+    env.reset()
+    if same_words(env.medium, world[1]):
+        raise AssertionError("reset() gave the same world again")
+
+    # render: the three views, or those that need no matplotlib
+    t0 = time.perf_counter()
+    if "matplotlib" in absent:
+        r = EnvRenderer(GYM_FIELD)
+        imgs = [r.img_medium(env.medium), r.img_agents(env.agents)]
+        shapes = [(*GYM_FIELD, 3), (*GYM_FIELD[::-1], 4)]
+    else:
+        imgs = env.render()
+        shapes = [(*GYM_FIELD, 3), (*GYM_FIELD, 4), (*GYM_FIELD[::-1], 4)]
+    render_ms = (time.perf_counter() - t0) * 1e3
+    if [i.shape for i in imgs] != shapes:
+        raise AssertionError(f"render: {[i.shape for i in imgs]}")
+    log(f"user Gym: GymEnv {GYM_FIELD[0]}x{GYM_FIELD[1]}, {GYM_SLOTS} slots, "
+        f"gym_loop's Physarum, {T} steps: {dev_ms:.4f} ms a step (CUDA "
+        f"events), {host_ms:.4f} ms a step on the host clock (a float() of "
+        f"each reward); K5 {k5} = {GYM_K5_A_STEP} F = 1 launches a step; "
+        f"obs, reward and info == the functional core on the card every "
+        f"step, == GymEnv(device='cpu') for {GYM_CPU_STEPS} steps; "
+        f"reset(seed=7) reproduces the world, reset() gives a new one; "
+        f"render {len(imgs)} images in {render_ms:.2f} ms ({smi})")
+    return {"steps": T, "ms_per_step": dev_ms, "host_ms_per_step": host_ms,
+            "k5_per_step": GYM_K5_A_STEP, "launches": counts,
+            "render_ms": render_ms, "render_images": len(imgs),
+            "policy_ms_per_step": split[0], "env_ms_per_step": split[1],
+            "profile": prof}
+
+
+def phase_user_fast(smi: str) -> dict:
+    """minimal_run's lattice loop at its defaults, and one env through the
+    fused kernel and through the learned kernels, each counted and held
+    bitwise to the plain rollout on the card."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.examples.common import key
+    from die_tpu_torch.examples.minimal_run import run_minimal_fast
+    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.learned import (learned_fast_rollout,
+                                            learned_fast_rollout_auto)
+    from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
+
+    dyn = FastDynamics(init_agent_ratio=0.15)
+    t0 = time.perf_counter()
+    (final, total), counts = counted(lambda: run_minimal_fast(
+        iters=FAST_ITERS, device="cuda"))
+    secs = time.perf_counter() - t0
+    expect_counts("minimal_run --engine fast", counts,
+                  {"lattice_step": FAST_ITERS, "tree_sum_2d": FAST_ITERS})
+    st0 = fast_init(key(0, ch.TAG_SESSION_ENV_INIT, device="cuda"),
+                    (256, 256), dyn, device="cuda")
+    ref = fast_rollout(dyn, st0, key(0, ch.TAG_SESSION_ROLLOUT,
+                                     device="cuda"), FAST_ITERS,
+                       device="cuda")
+    ref_total = sum(float(c.sum()) for c in
+                    ref[1].cpu().numpy().reshape(-1, 10))
+    if not all(same_words(a, b) for a, b in zip(final, ref[0])) or \
+            total != ref_total:
+        raise AssertionError(f"minimal_run --engine fast differs from the "
+                             f"plain rollout ({total} vs {ref_total})")
+    log(f"user minimal_run --engine fast (256x256, {FAST_ITERS} steps in "
+        f"chunks of 10): total reward {total:.6f} == the plain rollout's, "
+        f"state bitwise; launches {counts}; {secs / FAST_ITERS * 1e3:.4f} ms "
+        f"a step on the host clock ({smi})")
+
+    rk = key(0, ch.TAG_SESSION_ROLLOUT, device="cuda")
+    prof = device_share("user minimal_run --engine fast, a chunk",
+                        lambda: float(fast_rollout_auto(
+                            dyn, st0, rk, 10, device="cuda")[1].sum()), 10,
+                        secs / FAST_ITERS * 1e3)
+    rec = {"minimal_fast_ms_per_step": secs / FAST_ITERS * 1e3,
+           "minimal_fast_total": total, "launches": dict(counts),
+           "profile": prof}
+    wide = artifact(REPLAY_ARTIFACT)
+    tuned = tuned_dynamics(8, init_agent_ratio=0.15, food_infinite=True)
+    cases = [("fast_rollout_auto 512x512", dyn, None, (512, 512),
+              USER_LARGE_STEPS, {"lattice_steps_fused": USER_LARGE_STEPS,
+                                 "tree_sum_2d": USER_LARGE_STEPS}),
+             ("learned_fast_rollout_auto 256x256 wide", tuned, wide,
+              (256, 256), USER_LEARNED_STEPS,
+              {"lattice_step_learned_wide": USER_LEARNED_STEPS,
+               "tree_sum_2d": USER_LEARNED_STEPS}),
+             ("learned_fast_rollout_auto 512x512 wide", tuned, wide,
+              (512, 512), USER_LEARNED_STEPS,
+              {"lattice_steps_fused_learned_wide": USER_LEARNED_STEPS,
+               "tree_sum_2d": USER_LEARNED_STEPS})]
+    for label, d, params, field, T, want in cases:
+        st = fast_init(key(1, device="cuda"), field, d, device="cuda")
+        rk = key(2, device="cuda")
+        if params is None:
+            out, counts = counted(lambda: fast_rollout_auto(
+                d, st, rk, T, device="cuda"))
+            ref = fast_rollout(d, st, rk, T, device="cuda")
+        else:
+            out, counts = counted(lambda: learned_fast_rollout_auto(
+                d, params, st, rk, T, device="cuda"))
+            ref = learned_fast_rollout(d, params, st, rk, T, device="cuda")
+        expect_counts(label, counts, want)
+        if tuple(out[0].occ.shape) != field or tuple(out[1].shape) != (T,) \
+                or not same_fast(out, ref):
+            raise AssertionError(f"one env, {label}: differs from the plain "
+                                 f"rollout")
+        log(f"user one env, {label}, {T} steps: [W, H] in and out, == the "
+            f"plain rollout bitwise; launches {counts}")
+        for name, n in counts.items():
+            rec["launches"][name] = rec["launches"].get(name, 0) + n
+    return rec
+
+
+def phase_user_replay(smi: str, absent: list) -> dict:
+    """replay_lattice at its defaults: the frames timed without and with
+    the render, each run held to one rollout of all its steps; the GIF
+    where matplotlib and pillow import."""
+    import tempfile
+
+    from die_tpu_torch.examples.replay_lattice import Replay
+    from die_tpu_torch.fast.learned import (learned_fast_rollout,
+                                            learned_fast_rollout_auto)
+    from die_tpu_torch.fast.render_adapter import make_fast_render_fn
+    from die_tpu_torch.render.renderer import EnvRenderer
+
+    path, F = artifact_path(REPLAY_ARTIFACT), REPLAY_FRAMES
+
+    class ViewsWithoutTrace(EnvRenderer):
+        """The medium and agents views: the trace view needs matplotlib."""
+
+        def render(self, medium, agents):
+            return [self.img_medium(medium), self.img_agents(agents)]
+
+    def play(render: bool):
+        r = Replay(path, device="cuda")
+        start = r.state
+        view = None
+        if render:
+            cls = ViewsWithoutTrace if "matplotlib" in absent \
+                else EnvRenderer
+            view = make_fast_render_fn(lambda: r.state, cls(r.size))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(F):
+            r.frame_step(i)
+            if view is not None:
+                view()
+        torch.cuda.synchronize()
+        return r, start, time.perf_counter() - t0
+
+    play(False)  # warm
+    (r, start, secs), counts = counted(lambda: play(False))
+    T = F * r.steps_per_frame
+    expect_counts("replay_lattice", counts,
+                  {"lattice_step_learned_wide": T, "tree_sum_2d": T})
+    r2, _, secs_r = play(True)
+    whole = learned_fast_rollout_auto(r.dyn, r.params, start, r.roll_key, T,
+                                      device="cuda")
+    plain = learned_fast_rollout(r.dyn, r.params, start, r.roll_key, T,
+                                 device="cuda")
+    if not same_fast(whole, plain):
+        raise AssertionError("replay: one auto rollout differs from the "
+                             "plain rollout")
+    frames = whole[1].cpu().numpy().reshape(F, -1)
+    want = sum(float(f.sum()) for f in frames)
+    for label, run in (("without the render", r), ("with the render", r2)):
+        if not all(same_words(a, b) for a, b in zip(run.state, whole[0])) \
+                or run.reward != want:
+            raise AssertionError(f"replay {label}: differs from one "
+                                 f"{T}-step rollout")
+    r3 = Replay(path, device="cuda")
+    prof = device_share("user replay, 4 frames",
+                        lambda: [r3.frame_step(i) for i in range(4)],
+                        4 * r3.steps_per_frame, secs / T * 1e3)
+    rec = {"frames": F, "steps": T, "launches": counts, "profile": prof,
+           "env_steps_per_s": T / secs,
+           "ms_per_frame": secs / F * 1e3,
+           "env_steps_per_s_rendered": T / secs_r,
+           "ms_per_frame_rendered": secs_r / F * 1e3,
+           "views": 2 if "matplotlib" in absent else 3}
+    gif = "not run: " + ", ".join(absent) + " absent" if absent else None
+    if not absent:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from PIL import Image
+
+        from die_tpu_torch.render.plotting import (InteractivePlotter,
+                                                   render_animation)
+
+        g = Replay(path, device="cuda")
+        plotter = InteractivePlotter.get(
+            make_fast_render_fn(lambda: g.state, EnvRenderer(g.size)),
+            ion=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            out = f"{tmp}/replay.gif"
+            t0 = time.perf_counter()
+            render_animation(g.frame_step, plotter, out, num_frames=F)
+            rec["gif_seconds"] = time.perf_counter() - t0
+            with Image.open(out) as im:
+                if im.n_frames != F:
+                    raise AssertionError(f"GIF holds {im.n_frames} frames")
+        gif = f"{F} frames written and read back"
+    rec["gif"] = gif
+    log(f"user replay_lattice {REPLAY_ARTIFACT} (128x128, {F} frames x "
+        f"{r.steps_per_frame} steps): {T / secs:.1f} env-steps/s, "
+        f"{secs / F * 1e3:.4f} ms a frame without the render; "
+        f"{T / secs_r:.1f} env-steps/s, {secs_r / F * 1e3:.4f} ms a frame "
+        f"with the render ({rec['views']} views; host clock); both runs == "
+        f"one {T}-step learned_fast_rollout_auto == the plain rollout, "
+        f"bitwise; launches {counts}; GIF: {gif} ({smi})")
+    return rec
+
+
+def phase_user_eval(scores: dict, smi: str) -> dict:
+    """eval_lattice over the protocol block with the wide artifact; its
+    trained mean is phase 5's, bitwise."""
+    from die_tpu_torch.examples.eval_lattice import evaluate
+
+    out = evaluate(artifact_path(REPLAY_ARTIFACT), device="cuda")
+    want = scores[REPLAY_ARTIFACT]["mean"]
+    if out["trained_wide"] != want:
+        raise AssertionError(f"eval_lattice {out['trained_wide']!r} != "
+                             f"phase 5's {want!r}")
+    log(f"user eval_lattice {REPLAY_ARTIFACT}: {json.dumps(out)}; trained "
+        f"== phase 5's mean bitwise ({smi})")
+    return out
+
+
+def phase_user(smi: str, scores: dict) -> dict:
+    """Phase 12 in order; returns its record and its launch counts."""
+    absent = absent_render_packages()
+    if absent:
+        log(f"user paths: {', '.join(absent)} absent on this machine: the "
+            f"trace view, the plotter and the GIF are not run")
+    rec = {"absent": absent}
+    rec["gym"] = phase_user_gym(smi, absent)
+    rec["fast"] = phase_user_fast(smi)
+    rec["replay"] = phase_user_replay(smi, absent)
+    rec["eval"] = phase_user_eval(scores, smi)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -2956,6 +3405,10 @@ def main():
     ap.add_argument("--only-nca", action="store_true",
                     help="build, then run only the conv-NCA and exact-NCA "
                          "phases (no ok line)")
+    ap.add_argument("--only-user", action="store_true",
+                    help="build, then run only the user paths (phase 12, "
+                         "with phase 5's held-out replay it compares "
+                         "with; no ok line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2997,6 +3450,10 @@ def main():
         return 0
     if args.only_probes:
         log(json.dumps({"kernels": phase_probes(smi)}))
+        log(smi)
+        return 0
+    if args.only_user:
+        log(json.dumps({"user": phase_user(smi, phase_heldout())}))
         log(smi)
         return 0
     if args.only_nca:
@@ -3176,13 +3633,24 @@ def main():
             row["nca_launches"] = nca_counts.get(row["name"], 0)
     kernels.append(nca_record["nca_replay"].pop("k5_row"))
 
+    # ---- 12. the user paths
+    torch.cuda.empty_cache()
+    user_record = phase_user(smi, scores)
+    user_counts = {}
+    for part in (user_record["gym"], user_record["fast"],
+                 user_record["replay"]):
+        for name, n in part["launches"].items():
+            user_counts[name] = user_counts.get(name, 0) + n
+    for row in kernels:
+        row["user_launches"] = user_counts.get(row["name"], 0)
+
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
               "exact": exact_record,
               "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,
               "train_generation_parts": train_parts,
-              "heldout": scores, "nca": nca_record,
+              "heldout": scores, "nca": nca_record, "user": user_record,
               "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -10,12 +10,29 @@ kernels of ``fast/cuda_step.py``.  The learned-rule leg is in
 the searchers of ``learn/es.py`` and ``fast/convert.py::load_turn_params``.
 The exact engine is ``core/init.py::init_env_state``, the policies of
 ``models/`` and ``parallel/rollout.py::rollout``; on CUDA its gathers run
-through the kernel of ``ops/gather.py``.
+through the kernel of ``ops/gather.py``.  ``core/gym_env.py::GymEnv`` is
+its Gymnasium-style env, ``render/`` draws states, and the examples of
+``examples/`` run by ``python3 -m die_tpu_torch.examples.<name>``.
 """
+from die_tpu_torch.core.config import (Boundary, DiffuseMode, Dynamics,
+                                       FlowConfig)
+from die_tpu_torch.core.env import env_step, observe
+from die_tpu_torch.core.init import init_env_state
+from die_tpu_torch.core.operators import (register_cost_operator,
+                                          register_flow_operator)
+from die_tpu_torch.core.state import EnvState, StepInfo
 from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
 from die_tpu_torch.fast.env import FastEnvState, fast_step_full
 from die_tpu_torch.fast.init import fast_init
 from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
 
-__all__ = ["FastDynamics", "tuned_dynamics", "FastEnvState",
-           "fast_step_full", "fast_init", "fast_rollout", "fast_rollout_auto"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "Boundary", "DiffuseMode", "Dynamics", "FlowConfig",
+    "env_step", "observe", "init_env_state", "EnvState", "StepInfo",
+    "register_cost_operator", "register_flow_operator",
+    "FastDynamics", "tuned_dynamics", "FastEnvState", "fast_step_full",
+    "fast_init", "fast_rollout", "fast_rollout_auto",
+    "__version__",
+]

@@ -30,7 +30,7 @@ from die_tpu_torch.core.mathx import (div, f32, hypot2, round3, tree_sum_1d,
 from die_tpu_torch.core.state import EnvState, StepInfo
 from die_tpu_torch.ops.gather import gather_fields
 from die_tpu_torch.ops.gaussian import separable_gaussian
-from die_tpu_torch.ops.waves import flow_time, perlin_flow_field, wave_field
+from die_tpu_torch.ops.waves import flow_field_any
 
 _INT32_LIMIT = 2147483648.0
 
@@ -191,10 +191,7 @@ def _resource_dynamics(dynamics: Dynamics, medium, flow_step):
     W, H = medium.shape[-2], medium.shape[-1]
     food = medium[..., ch.CH_MED_FOOD, :, :]
     if kind in ("wave", "perlin"):
-        if kind == "wave":
-            f = wave_field((W, H), flow_time(dynamics.flow, flow_step))
-        else:
-            f = perlin_flow_field(dynamics.flow, (W, H), flow_step)
+        f = flow_field_any(dynamics.flow, (W, H), flow_step)
         keep = f32(f32(1.0) - f32(dynamics.flow.decay))
         food = f32(dynamics.flow.scale) * f + keep * food
     else:

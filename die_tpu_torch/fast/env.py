@@ -27,7 +27,7 @@ import torch
 from die_tpu_torch.core.mathx import f32, tree_sum
 from die_tpu_torch.fast.config import NUM_DIRS, FastDynamics, dir_offsets
 from die_tpu_torch.ops.gaussian import separable_gaussian_wrap
-from die_tpu_torch.ops.waves import flow_time, perlin_flow_field, wave_field
+from die_tpu_torch.ops.waves import flow_field_any
 
 
 class FastEnvState(NamedTuple):
@@ -109,9 +109,7 @@ def check_supported(dyn: FastDynamics):
 
 def flow_field_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor):
     """F(flow_step) ``[..., W, H]`` of a wave or perlin flow."""
-    if dyn.flow.kind == "wave":
-        return wave_field(shape_wh, flow_time(dyn.flow, flow_step))
-    return perlin_flow_field(dyn.flow, shape_wh, flow_step)
+    return flow_field_any(dyn.flow, shape_wh, flow_step)
 
 
 def flow_stack_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor,
@@ -122,6 +120,15 @@ def flow_stack_for(dyn: FastDynamics, shape_wh, flow_step: torch.Tensor,
     ks = torch.arange(num_inner, dtype=flow_step.dtype,
                       device=flow_step.device)
     return flow_field_for(dyn, shape_wh, flow_step[..., None] + ks)
+
+
+def fast_step(dyn: FastDynamics, state: FastEnvState, bits: FastStepBits,
+              turn_rule=None, flow_field=None):
+    """One full lattice step -> (state, reward, num_agents): the form of
+    :func:`fast_step_full` without the gain field."""
+    new_state, reward, num, _ = fast_step_full(dyn, state, bits, turn_rule,
+                                               flow_field)
+    return new_state, reward, num
 
 
 def fast_step_full(dyn: FastDynamics, state: FastEnvState,

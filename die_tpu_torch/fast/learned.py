@@ -42,10 +42,9 @@ from die_tpu_torch.core.mathx import tree_sum_1d
 from die_tpu_torch.core.rng import (as_key_tensor, fold_in, np_key,
                                     random_bits, uniform01_from_bits)
 from die_tpu_torch.fast.config import FastDynamics, dir_offsets
-from die_tpu_torch.fast.env import FastEnvState, roll_at
-from die_tpu_torch.fast.rollout import (banded_rollout_batch,
-                                        check_num_inner, fast_rollout,
-                                        kernel_rollout, takes_fused_kernel)
+from die_tpu_torch.fast.env import FastEnvState, fast_step, roll_at
+from die_tpu_torch.fast.rollout import (check_num_inner, fast_rollout,
+                                        kernel_route)
 
 NUM_FEATURES = 6
 NUM_ACTIONS = 3  # left, keep, right
@@ -389,6 +388,12 @@ def make_mlp_turn_rule(params, dyn: FastDynamics | None = None):
 
 # ---- rollouts ---------------------------------------------------------------
 
+def learned_fast_step(dyn: FastDynamics, params, state: FastEnvState, bits):
+    """One plain step with the learned rule of ``params`` -> (state,
+    reward, num_agents), on any device."""
+    return fast_step(dyn, state, bits, turn_rule=make_turn_rule(params, dyn))
+
+
 def learned_fast_rollout(dyn: FastDynamics, params, state: FastEnvState,
                          rollout_keys, num_steps: int, t0: int = 0,
                          device="cuda"):
@@ -405,27 +410,22 @@ def learned_fast_rollout_auto(dyn: FastDynamics, params,
                               state: FastEnvState, rollout_keys,
                               num_steps: int, t0: int = 0, device="cuda",
                               num_inner: int = 1):
-    """The learned path.  On CUDA, fields up to 256 x 256 take one
-    ``lattice_step_learned`` launch a step (the whole batch, each env with
-    its own params when ``params`` is ``[B, R, C]``) plus one
-    ``tree_sum_2d`` launch (``fast/rollout.py::kernel_rollout``); larger
+    """The learned path, for a batch ``[B, W, H]`` or one env ``[W, H]``.
+    On CUDA, fields up to 256 x 256 take one ``lattice_step_learned``
+    launch a step (the whole batch, each env with its own params when
+    ``params`` is ``[B, R, C]``) plus one ``tree_sum_2d`` launch; larger
     fields, or any field when ``num_inner > 1`` is asked for, take
     ``num_inner`` steps per launch of the fused tiled kernel, whose margin
-    counts the rule's reach (``banded_rollout_batch``).  A geometry,
-    config, params shape or ``num_inner`` the kernels do not take raises.
-    On the CPU it is :func:`learned_fast_rollout`."""
+    counts the rule's reach (``fast/rollout.py::kernel_route``).  A
+    geometry, config, params shape or ``num_inner`` the kernels do not take
+    raises.  On the CPU it is :func:`learned_fast_rollout`."""
     check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return learned_fast_rollout(dyn, params, state, rollout_keys,
                                     num_steps, t0=t0, device=dev)
-    params = _as_params(params, dev).contiguous()
-    if num_inner > 1 or takes_fused_kernel(state):
-        return banded_rollout_batch(dyn, state, rollout_keys, num_steps,
-                                    num_inner=num_inner, t0=t0,
-                                    params=params, device=dev)
-    return kernel_rollout(dyn, state, rollout_keys, num_steps, t0, dev,
-                          params=params)
+    return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
+                        num_inner, params=_as_params(params, dev).contiguous())
 
 
 # ---- training ---------------------------------------------------------------

@@ -164,6 +164,19 @@ def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
     return state, torch.cat(rewards, -1), torch.cat(nums, -1)
 
 
+def batch_of_one(state: FastEnvState, rollout_key, dev):
+    """One env's state (fields ``[W, H]``, a scalar ``flow_step``) and key
+    ``uint32[2]`` as a batch of one on ``dev``."""
+    return (FastEnvState(*(x.to(dev)[None] for x in state)),
+            as_key_tensor(rollout_key, dev)[None])
+
+
+def first_env(out):
+    """(state, rewards, nums) of a batch of one -> those of its env."""
+    state, rewards, nums = out
+    return FastEnvState(*(x[0] for x in state)), rewards[0], nums[0]
+
+
 def banded_rollout(dyn: FastDynamics, state: FastEnvState, rollout_key,
                    num_steps: int, num_inner: int = 1, t0: int = 0,
                    params=None, device="cuda"):
@@ -171,35 +184,50 @@ def banded_rollout(dyn: FastDynamics, state: FastEnvState, rollout_key,
     scalar ``flow_step``, one key ``uint32[2]`` -> (state, rewards f32[T],
     nums i32[T])."""
     dev = resolve_device(device)
-    batched = FastEnvState(*(x.to(dev)[None] for x in state))
-    out, rewards, nums = banded_rollout_batch(
-        dyn, batched, as_key_tensor(rollout_key, dev)[None], num_steps,
-        num_inner=num_inner, t0=t0, params=params, device=dev)
-    return FastEnvState(*(x[0] for x in out)), rewards[0], nums[0]
+    batched, keys = batch_of_one(state, rollout_key, dev)
+    return first_env(banded_rollout_batch(
+        dyn, batched, keys, num_steps, num_inner=num_inner, t0=t0,
+        params=params, device=dev))
+
+
+def kernel_route(dyn: FastDynamics, state: FastEnvState, rollout_keys,
+                 num_steps: int, t0: int, dev, num_inner: int, params=None):
+    """The CUDA branch of both auto rollouts.  Fields up to 256 x 256 run
+    :func:`kernel_rollout` (one step per launch); larger fields, or any
+    field when ``num_inner > 1`` is asked for, run
+    :func:`banded_rollout_batch` (``num_inner`` steps per launch).  One
+    env's state (fields ``[W, H]``) runs as a batch of one, routed by its
+    field's cells, and comes back without the batch axis."""
+    one = state.occ.dim() == 2
+    if one:
+        state, rollout_keys = batch_of_one(state, rollout_keys, dev)
+    if num_inner > 1 or takes_fused_kernel(state):
+        out = banded_rollout_batch(dyn, state, rollout_keys, num_steps,
+                                   num_inner=num_inner, t0=t0, params=params,
+                                   device=dev)
+    else:
+        out = kernel_rollout(dyn, state, rollout_keys, num_steps, t0, dev,
+                             params=params)
+    return first_env(out) if one else out
 
 
 def fast_rollout_auto(dyn: FastDynamics, state: FastEnvState, rollout_keys,
                       num_steps: int, t0: int = 0, device="cuda",
                       num_inner: int = 1):
-    """The main path.  On CUDA, fields up to 256 x 256 run
-    :func:`kernel_rollout` (one step per launch) and larger fields, or any
-    field when ``num_inner > 1`` is asked for, run
-    :func:`banded_rollout_batch` (``num_inner`` steps per launch); a
-    geometry or config the kernels do not take raises.  On the CPU it is
-    :func:`fast_rollout`."""
+    """The main path, for a batch ``[B, W, H]`` or one env ``[W, H]``.  On
+    CUDA it is :func:`kernel_route`; a geometry or config the kernels do not
+    take raises.  On the CPU it is :func:`fast_rollout`."""
     check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return fast_rollout(dyn, state, rollout_keys, num_steps, t0=t0,
                             device=dev)
-    if num_inner > 1 or takes_fused_kernel(state):
-        return banded_rollout_batch(dyn, state, rollout_keys, num_steps,
-                                    num_inner=num_inner, t0=t0, device=dev)
-    return kernel_rollout(dyn, state, rollout_keys, num_steps, t0, dev)
+    return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
+                        num_inner)
 
 
 def takes_fused_kernel(state: FastEnvState) -> bool:
     """Whether the auto rollouts send this state's field to the fused tiled
-    kernel at ``num_inner = 1``: a batch of fields above 256 x 256."""
+    kernel at ``num_inner = 1``: a field above 256 x 256 cells."""
     shape = state.occ.shape
-    return len(shape) == 3 and shape[-2] * shape[-1] > WHOLE_FIELD_CELLS
+    return shape[-2] * shape[-1] > WHOLE_FIELD_CELLS

@@ -124,11 +124,15 @@ class GradientPolicy(Policy):
         return f32(self._deposit) * sensed_food
 
     def render(self, obs):
-        """The gradient-field debug view of the JAX package; it comes with
-        the render modules."""
-        raise NotImplementedError(
-            "GradientPolicy.render needs the render modules, which this "
-            "package does not have yet")
+        """The gradient-field debug view of the chem channel, recomputed
+        from ``obs``: ``[W, H, 3]`` numpy in [0, 1], one per env of a batch,
+        in a list."""
+        from die_tpu_torch.render.renderer import GradientFieldRenderer
+
+        _agents, medium = obs
+        gx, gy = self._gradient_field(medium[..., ch.CH_MED_CHEM, :, :])
+        rgb = GradientFieldRenderer.render(gx, gy)
+        return list(rgb.reshape((-1,) + rgb.shape[-3:]))
 
     consumes_sensed_food = True
 

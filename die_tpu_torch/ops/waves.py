@@ -68,3 +68,14 @@ def perlin_flow_field(flow_cfg, size_wh, step_index: torch.Tensor):
     p1 = perlin_field(lattice_gradients(fold_in(base, k + 1), o), size_wh, o)
     u = _fade(frac).reshape(frac.shape + (1, 1))
     return p0 + u * (p1 - p0)
+
+
+def flow_field_any(flow_cfg, size_wh, step_index: torch.Tensor):
+    """F(flow_step) ``[..., W, H]`` for any flow kind: the per-step field
+    that ``fast_step_full(flow_field=...)`` takes.  Wave is analytic, perlin
+    is :func:`perlin_flow_field`; any other kind raises ``ValueError``."""
+    if flow_cfg.kind == "wave":
+        return wave_field(size_wh, flow_time(flow_cfg, step_index))
+    if flow_cfg.kind == "perlin":
+        return perlin_flow_field(flow_cfg, size_wh, step_index)
+    raise ValueError(flow_cfg.kind)

@@ -204,7 +204,8 @@ def test_postprocess_callable_policy_and_render():
     assert torch.equal(out, masked) and state is None
     with pytest.raises(ValueError):
         CallableModelPolicy().forward(None, None, obs_t, tkey(0))
-    with pytest.raises(NotImplementedError):
-        GradientPolicy(max_agents=N).render(obs_t)
+    imgs = GradientPolicy(max_agents=N).render(obs_t)
+    assert len(imgs) == 1 and imgs[0].shape == (*SIZE, 3)
+    assert imgs[0].min() >= 0.0 and imgs[0].max() <= 1.0
     with pytest.raises(NotImplementedError):
         Policy().forward(None, None, obs_t, tkey(0))

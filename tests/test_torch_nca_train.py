@@ -40,14 +40,14 @@ from die_tpu_torch.fast import learned as TL
 from die_tpu_torch.fast import nca as TN
 from die_tpu_torch.fast.config import FastDynamics as TD
 from die_tpu_torch.learn import es as tes
-from die_tpu_torch.learn import train as TT
 from die_tpu_torch.models import NCAPolicy
 
 from helpers.torch_exact import assert_bits, port_dynamics
 from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-JT = importlib.import_module("die_tpu.learn.train")  # the package exports
-# a function of the same name
+# the modules: each package exports a function of the same name
+TT = importlib.import_module("die_tpu_torch.learn.train")
+JT = importlib.import_module("die_tpu.learn.train")
 RTOL_TELL, ATOL_TELL = 1e-5, 1e-6
 NCA = dict(scale=0.01, deposit=2.0, kernel_sizes=(3,))
 CFG = dict(field_size=(12, 12), max_agents=64, epochs=1, epoch_iters=4,
