@@ -7,6 +7,7 @@ versions.
     python3 chip_smoke.py --only-probes          # the phase probes alone
     python3 chip_smoke.py --only-nca             # the conv-NCA and NCA alone
     python3 chip_smoke.py --only-user            # the user paths alone
+    python3 chip_smoke.py --only-train           # the training surface alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -170,6 +171,26 @@ Phases (any failure exits non-zero):
      bitwise phase 5's; each path once under ``torch.profiler`` (kernels and
      device time a step).  Where matplotlib or pillow does not import, one
      line says so and the trace view, the plotter and the GIF are not run.
+ 13. the training surface (``--only-train`` runs this phase alone), each
+     run counted: ``examples/train_lattice.py``'s main for every model at its
+     defaults for 2 epochs (wide and ctx with ``--dirs 16 --searcher
+     cmaes``: K3 + K2; conv: no kernel); ``examples/learning_agents.py`` at
+     its defaults for 3 epochs with its checkpoints (K5, F = 3 and 1);
+     ``examples/train_config5.py`` at its full default shape (16 x 512 =
+     8192 envs, 32x32, 10 steps, 5 epochs, checkpoints every 2: K3 linear +
+     K2), then resumed from its epoch-2 checkpoint, the resumed epochs and
+     best bitwise the uninterrupted run's; each record leg of
+     ``tools/train_legs.py`` cut (wide 10, conv 3, flagship 5 generations)
+     with its deterministic start checks (the wide start's select
+     763.146240234375 to rtol 1e-6; the Jones rule and the mimic at 653.6 /
+     669.1; the flagship's first generation against the committed
+     curve's); ``custom_operators`` and ``state_indexing_tour`` at their
+     defaults, each against its CPU run; and the sparse engine
+     (``fast/sparse.py``) on one 256x256 env for 64 steps at
+     init_agent_ratio 0.15, 0.02 and 0.005 and at ``tuned_dynamics(16)``,
+     bitwise against ``fast_rollout_auto`` (K1 + K2 on a batch of one,
+     itself bitwise the plain rollout), each engine's ms a step (CUDA
+     events) and CUDA kernels a step (torch.profiler).
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -2756,46 +2777,28 @@ def phase_conv_train(gens: int, smi: str):
             "rest_of_step_ms": rest}
 
 
-def flagship_keys(n: int):
-    """(env init, policy init, rollout) keys of held-out seed i as
-    ``tools/eval_nca_flagship.py`` makes them: fold_in(fold_in(key(777000),
-    i), tag)."""
-    from die_tpu_torch.core import channels as ch
-    from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
-
-    master = as_key_tensor(np_key(FLAGSHIP_HELDOUT), "cpu")
-    mk = fold_in(master, torch.arange(n, dtype=torch.int64))
-    return tuple(fold_in(mk, tag) for tag in (ch.TAG_SESSION_ENV_INIT,
-                                               ch.TAG_SESSION_POLICY_INIT,
-                                               ch.TAG_SESSION_ROLLOUT))
-
-
 def phase_nca_replay(smi: str):
     """The flagship NCA on its dynamics (st-perlin-wide, 0.10), 96x96,
     9,216 slots, 30 steps, 16 held-out seeds, as
-    ``tools/eval_nca_flagship.py``: trained and untrained means, K5's
-    launches read around the trained run, the first seeds' rewards on the
-    CPU, bitwise."""
-    from die_tpu_torch.core.config import preset
-    from die_tpu_torch.core.init import init_env_state
+    ``tools/eval_nca_flagship.py`` (its port in
+    ``die_tpu_torch/tools/train_legs.py``, shared with the flagship leg):
+    trained and untrained means, K5's launches read around the trained run,
+    the first seeds' rewards on the CPU, bitwise."""
     from die_tpu_torch.core.mathx import tree_sum_1d
     from die_tpu_torch.core.rng import np_key
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.models.nca import NCAPolicy
-    from die_tpu_torch.parallel.rollout import rollout
+    from die_tpu_torch.tools.train_legs import flagship_rollout
 
     name, documented, documented_untrained = FLAGSHIP
-    dyn, size, T, n = preset("st-perlin-wide", 0.10), (96, 96), 30, 16
+    size, T, n = (96, 96), 30, 16
     slots = size[0] * size[1]
     policy, trained = NCAPolicy.load(artifact_path(name), device="cuda")
     untrained = policy.init_model_params(np_key(FLAGSHIP_HELDOUT + 1),
                                          device="cuda")
-    ekeys, _, rkeys = flagship_keys(n)
 
     def run(params, dev, envs=n):
-        st = init_env_state(ekeys[:envs], size, dyn, slots, device=dev)
-        return rollout(dyn, policy, params, st, None, rkeys[:envs].to(dev),
-                       T)
+        return flagship_rollout(policy, params, envs, dev)
 
     cuda_step.reset_launches()
     start = torch.cuda.Event(enable_timing=True)
@@ -3385,6 +3388,309 @@ def phase_user(smi: str, scores: dict) -> dict:
     return rec
 
 
+# ---- 13. the training examples, the record legs, the last examples and the
+# sparse engine ------------------------------------------------------------------
+
+TRAIN_MODELS = ("linear", "mlp", "wide", "ctx", "conv")
+TRAIN_EPOCHS = 2         # train_lattice's epochs a model (the script runs 50)
+NCA_EPOCHS = 3           # learning_agents' epochs (the script runs 100)
+LEG_CUTS = {"wide": 10, "conv": 3, "flagship": 5}  # of 300, 200, 1000
+SPARSE_FIELD = (256, 256)
+SPARSE_STEPS = 64
+SPARSE_RATIOS = (0.15, 0.02, 0.005)  # tools/bench_sparse.py's
+
+
+def add_counts(total: dict, counts: dict):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def expect_launched(what: str, counts: dict, names, exact=None):
+    """Each of ``names`` launched at least once, each of ``exact`` exactly
+    as often as it says."""
+    missing = [n for n in names if counts.get(n, 0) < 1]
+    wrong = {n: counts.get(n, 0) for n, k in (exact or {}).items()
+             if counts.get(n, 0) != k}
+    if missing or wrong:
+        raise AssertionError(f"{what}: {missing} not launched, {wrong} "
+                             f"launched other than {exact} ({counts})")
+
+
+def phase_train_examples(smi: str, workdir: str, launches: dict) -> dict:
+    """train_lattice for every model, learning_agents with its checkpoints,
+    train_config5 at its full default shape and resumed from its epoch-2
+    checkpoint: each main on the card, counted."""
+    import os
+
+    from die_tpu_torch.examples import (learning_agents, train_config5,
+                                        train_lattice)
+
+    rec = {}
+    for model in TRAIN_MODELS:
+        extra = ["--dirs", "16", "--searcher", "cmaes"] \
+            if model in ("wide", "ctx") else []
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: train_lattice.main(
+            ["--model", model, "--epochs", str(TRAIN_EPOCHS), "--outdir",
+             workdir, "--device", "cuda"] + extra))
+        secs = time.perf_counter() - t0
+        if not (math.isfinite(out["first_epoch_best"])
+                and math.isfinite(out["overall_best"])):
+            raise AssertionError(f"train_lattice --model {model}: {out}")
+        if model == "conv":  # the eager plain step: no kernel
+            expect_counts("train_lattice --model conv", counts, {})
+        else:
+            steps = TRAIN_EPOCHS * 50
+            expect_counts(f"train_lattice --model {model}", counts,
+                          {f"lattice_step_learned_{model}": steps,
+                           "tree_sum_2d": steps})
+        add_counts(launches, counts)
+        rec[f"train_lattice_{model}"] = {"overall_best": out["overall_best"],
+                                         "seconds": secs,
+                                         "launches": counts}
+        log(f"train_lattice --model {model} {' '.join(extra)} ({TRAIN_EPOCHS}"
+            f" epochs, 16 x 2 envs, 64x64, 50 steps): best "
+            f"{out['overall_best']:.4f}; launches {counts}; {secs:.2f} s "
+            f"({smi})")
+
+    nca_dir = os.path.join(workdir, "nca")
+    t0 = time.perf_counter()
+    (best, hist), counts = counted(lambda: learning_agents.run_experiment(
+        epochs=NCA_EPOCHS, outdir=nca_dir, device="cuda"))
+    secs = time.perf_counter() - t0
+    run_dir = os.path.join(nca_dir, f"nca_pgpe_epochs{NCA_EPOCHS}x30")
+    names = sorted(os.listdir(run_dir))
+    want = [f"es_{e:06d}.npz" for e in range(NCA_EPOCHS)]
+    if len(hist) != NCA_EPOCHS or not set(want) <= set(names) or \
+            not all(math.isfinite(h["best"]) for h in hist):
+        raise AssertionError(f"learning_agents: {names}, {hist}")
+    expect_launched("learning_agents", counts, ("gather_fields_f1",),
+                    {"gather_fields_f3": NCA_EPOCHS * 30})
+    add_counts(launches, counts)
+    rec["learning_agents"] = {"history": hist, "seconds": secs,
+                              "launches": counts}
+    log(f"learning_agents ({NCA_EPOCHS} epochs, popsize 10 x 96x96 x 30 "
+        f"steps): best {max(h['best'] for h in hist):.4f}; checkpoints "
+        f"{want}; launches {counts}; {secs:.2f} s ({smi})")
+
+    c5 = os.path.join(workdir, "config5")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        (best, _, hist), counts = counted(lambda: train_config5.main(
+            ["--ckpt-dir", c5, "--device", "cuda"]))
+    full_s = time.perf_counter() - t0
+    expect_counts("train_config5", counts,
+                  {"lattice_step_learned_linear": 50, "tree_sum_2d": 50})
+    add_counts(launches, counts)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        (rbest, _, resumed), rcounts = counted(lambda: train_config5.main(
+            ["--ckpt-dir", os.path.join(workdir, "config5_resumed"),
+             "--resume", os.path.join(c5, "es_000001.npz"),
+             "--start-epoch", "2", "--device", "cuda"]))
+    resumed_s = time.perf_counter() - t0
+    expect_counts("train_config5 resumed", rcounts,
+                  {"lattice_step_learned_linear": 30, "tree_sum_2d": 30})
+    add_counts(launches, rcounts)
+    import numpy as np
+
+    if resumed != hist[2:] or not np.array_equal(rbest, best):
+        raise AssertionError(f"train_config5 resumed at epoch 2 differs from "
+                             f"the uninterrupted run: {resumed} vs "
+                             f"{hist[2:]}")
+    rec["train_config5"] = {"history": hist, "seconds": full_s,
+                            "ms_per_generation": full_s / 5 * 1e3,
+                            "resumed_ms_per_generation": resumed_s / 3 * 1e3,
+                            "launches": counts, "resumed_launches": rcounts,
+                            "resume_bitwise": True}
+    log(f"train_config5 (16 x 512 = 8192 envs a generation, 32x32, 10 steps, "
+        f"5 epochs, checkpoints every 2): best "
+        f"{max(h['best'] for h in hist):.4f}; {full_s / 5 * 1e3:.1f} ms a "
+        f"generation on the host clock ({resumed_s / 3 * 1e3:.1f} resumed); "
+        f"resumed from es_000001.npz at epoch 2: epochs 2-4 and the best "
+        f"== the uninterrupted run's bitwise; launches {counts} ({smi})")
+    return rec
+
+
+def phase_train_legs(smi: str, workdir: str, launches: dict) -> dict:
+    """Each record leg of ``tools/train_legs.py`` at a cut length, with its
+    deterministic start checks (wide: the start's select; conv: the Jones
+    rule and the mimic; flagship: the first generation against the
+    committed curve's)."""
+    import os
+
+    from die_tpu_torch.tools import train_legs as L
+
+    rec = {}
+    wants = {"wide": ("lattice_step_learned_wide", "tree_sum_2d"),
+             "conv": ("lattice_step", "tree_sum_2d"),  # the Jones check
+             "flagship": ("gather_fields_f3", "gather_fields_f1")}
+    for leg, gens in LEG_CUTS.items():
+        lines = []
+
+        def emit(r):
+            lines.append(r)
+            log(json.dumps(r))
+
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: L.RUNNERS[leg](
+            gens=gens, out=os.path.join(workdir, "legs"), device="cuda",
+            emit=emit, every=1))
+        secs = time.perf_counter() - t0
+        expect_launched(f"leg {leg}", counts, wants[leg])
+        checks = [r for r in lines if r["item"] == "start_check"]
+        if not checks or not all(r["ok"] for r in checks):
+            raise AssertionError(f"leg {leg}: start checks {checks}")
+        add_counts(launches, counts)
+        res.pop("history")
+        rec[leg] = dict(res, seconds=secs, launches=counts,
+                        start_checks=checks)
+        log(f"leg {leg}, {gens} generations: start checks "
+            f"{[(r['what'], r['got']) for r in checks]} == the records; "
+            f"{res['ms_per_generation']:.1f} ms a generation; launches "
+            f"{counts}; {secs:.2f} s ({smi})")
+    return rec
+
+
+def phase_operator_examples(smi: str, launches: dict) -> dict:
+    """custom_operators and state_indexing_tour at their defaults on the
+    card, each against its CPU run (the state bitwise, the printed lines
+    equal)."""
+    import io
+
+    from die_tpu_torch.examples import custom_operators, state_indexing_tour
+
+    out, counts = counted(lambda: custom_operators.main(["--device", "cuda"]))
+    cpu = custom_operators.main(["--device", "cpu"])
+    if not (same_words(out["state"].medium.cpu(), cpu["state"].medium)
+            and same_words(out["state"].agents.cpu(), cpu["state"].agents)
+            and math.isclose(out["total_reward"], cpu["total_reward"],
+                             rel_tol=1e-6)):
+        raise AssertionError("custom_operators on the card differs from the "
+                             "CPU's")
+    expect_launched("custom_operators", counts, ("gather_fields_f1",))
+    add_counts(launches, counts)
+    printed = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tour, tcounts = counted(lambda: state_indexing_tour.main(
+                ["--device", dev]))
+        printed[dev] = buf.getvalue()
+        if dev == "cuda":
+            add_counts(launches, tcounts)
+            tour_counts = tcounts
+    lines = printed["cuda"].splitlines()
+    if printed["cuda"] != printed["cpu"]:
+        raise AssertionError("state_indexing_tour prints other lines on the "
+                             "card")
+    log(f"custom_operators (48x48, 40 steps): total reward "
+        f"{out['total_reward']:.4f}, food mass {out['food_mass']:.2f}, state "
+        f"== the CPU's bitwise; launches {counts}; state_indexing_tour: "
+        f"{len(lines)} lines == the CPU's; launches {tour_counts} ({smi})")
+    return {"custom_operators": {"total_reward": out["total_reward"],
+                                 "food_mass": out["food_mass"],
+                                 "launches": counts},
+            "state_indexing_tour": {"lines": lines,
+                                    "launches": tour_counts}}
+
+
+def phase_sparse(smi: str, launches: dict) -> dict:
+    """The sparse engine against the field engine on one 256x256 env, 64
+    steps, at the three ratios of ``tools/bench_sparse.py`` and at
+    ``tuned_dynamics(16)``: every field bitwise (dir and food at occupied
+    cells), rewards and counts equal; each engine's ms a step (CUDA
+    events) and CUDA kernels a step (torch.profiler)."""
+    from die_tpu_torch.examples.common import key
+    from die_tpu_torch.fast import sparse as S
+    from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
+
+    T = SPARSE_STEPS
+    cases = [(f"ratio {r}", FastDynamics(init_agent_ratio=r))
+             for r in SPARSE_RATIOS]
+    cases.append(("tuned_dynamics(16)", tuned_dynamics(16)))
+    rec = {}
+    for label, dyn in cases:
+        st = fast_init(key(90, device="cuda"), SPARSE_FIELD, dyn,
+                       device="cuda")
+        rk = key(91, device="cuda")
+        field, counts = counted(lambda: fast_rollout_auto(
+            dyn, st, rk, T, device="cuda"))
+        expect_counts(f"sparse A/B, field engine ({label})", counts,
+                      {"lattice_step": T, "tree_sum_2d": T})
+        add_counts(launches, counts)
+        if not same_fast(field, fast_rollout(dyn, st, rk, T,
+                                             device="cuda")):
+            raise AssertionError(f"{label}: the kernels differ from the "
+                                 f"plain rollout")
+        sp = S.from_fast(st)
+        (s_state, s_rew, s_num), scounts = counted(
+            lambda: S.sparse_rollout(dyn, sp, rk, T))
+        if scounts:
+            raise AssertionError(f"the sparse engine launched {scounts}")
+        occ, dirs, food = S.to_field_views(s_state)
+        f_state = field[0]
+        m = f_state.occ > 0
+        bad = [n for n, ok in (
+            ("occ", same_words(occ, f_state.occ)),
+            ("env_food", same_words(s_state.env_food, f_state.env_food)),
+            ("chem", same_words(s_state.chem, f_state.chem)),
+            ("dir", same_words(dirs[m], f_state.dir[m])),
+            ("food", same_words(food[m], f_state.agent_food[m])),
+            ("rewards", torch.equal(s_rew, field[1])),
+            ("nums", torch.equal(s_num, field[2]))) if not ok]
+        if bad:
+            raise AssertionError(f"sparse engine ({label}) differs from the "
+                                 f"field engine: {bad}")
+        field_ms = time_ms(lambda: fast_rollout_auto(
+            dyn, st, rk, T, device="cuda"), 3, warmup=1) / T
+        sparse_ms = time_ms(lambda: S.sparse_rollout(dyn, sp, rk, T), 3,
+                            warmup=1) / T
+        prof = {"field": device_share(
+                    f"sparse A/B ({label}): field engine", lambda:
+                    fast_rollout_auto(dyn, st, rk, 8, device="cuda"), 8,
+                    field_ms),
+                "sparse": device_share(
+                    f"sparse A/B ({label}): sparse engine", lambda:
+                    S.sparse_rollout(dyn, sp, rk, 8), 8, sparse_ms)}
+        agents = int(s_num[0])
+        rec[label] = {"agents": agents, "field_ms_per_step": field_ms,
+                      "sparse_ms_per_step": sparse_ms, "profile": prof}
+        log(f"sparse A/B ({label}, one {SPARSE_FIELD[0]}x{SPARSE_FIELD[1]} "
+            f"env, {agents} agents, {T} steps): sparse == field engine "
+            f"bitwise (occ, env_food, chem, dir and food at occupied cells, "
+            f"rewards, counts); field (K1 + K2, a batch of one) "
+            f"{field_ms:.4f} ms a step, "
+            f"{prof['field']['kernels_per_step']:.1f} kernels; sparse "
+            f"{sparse_ms:.4f} ms a step, "
+            f"{prof['sparse']['kernels_per_step']:.1f} kernels "
+            f"(CUDA events; torch.profiler) ({smi})")
+    return rec
+
+
+def phase_train_surface(smi: str) -> dict:
+    """Phase 13 in order; returns its record with the launch counts of all
+    its counted runs and its seconds."""
+    import tempfile
+    from pathlib import Path
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        rec = {"examples": phase_train_examples(smi, workdir, launches),
+               "legs": phase_train_legs(smi, workdir, launches)}
+    rec["operators"] = phase_operator_examples(smi, launches)
+    rec["sparse"] = phase_sparse(smi, launches)
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {rec['seconds']:.1f} s; launches {launches} ({smi})")
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -3409,6 +3715,10 @@ def main():
                     help="build, then run only the user paths (phase 12, "
                          "with phase 5's held-out replay it compares "
                          "with; no ok line)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="build, then run only the training examples, the "
+                         "record legs cut, the operator examples and the "
+                         "sparse engine (phase 13; no ok line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3454,6 +3764,10 @@ def main():
         return 0
     if args.only_user:
         log(json.dumps({"user": phase_user(smi, phase_heldout())}))
+        log(smi)
+        return 0
+    if args.only_train:
+        log(json.dumps({"train": phase_train_surface(smi)}))
         log(smi)
         return 0
     if args.only_nca:
@@ -3644,6 +3958,18 @@ def main():
     for row in kernels:
         row["user_launches"] = user_counts.get(row["name"], 0)
 
+    # ---- 13. the training examples, the record legs, the last examples
+    # and the sparse engine
+    torch.cuda.empty_cache()
+    train_record = phase_train_surface(smi)
+    for row in kernels:
+        row["train_launches"] = train_record["launches"].get(row["name"], 0)
+    train_kernels = {"lattice_step", "tree_sum_2d", "gather_fields_f1",
+                     "gather_fields_f3"}
+    for name in train_kernels:
+        if train_record["launches"].get(name, 0) < 1:
+            raise AssertionError(f"phase 13 launched no {name}")
+
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
               "exact": exact_record,
               "large_field": large_rows,
@@ -3651,6 +3977,7 @@ def main():
               "train_seconds_per_generation": per_gen,
               "train_generation_parts": train_parts,
               "heldout": scores, "nca": nca_record, "user": user_record,
+              "train": train_record,
               "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -12,7 +12,12 @@ The exact engine is ``core/init.py::init_env_state``, the policies of
 ``models/`` and ``parallel/rollout.py::rollout``; on CUDA its gathers run
 through the kernel of ``ops/gather.py``.  ``core/gym_env.py::GymEnv`` is
 its Gymnasium-style env, ``render/`` draws states, and the examples of
-``examples/`` run by ``python3 -m die_tpu_torch.examples.<name>``.
+``examples/`` run by ``python3 -m die_tpu_torch.examples.<name>``, among
+them the training examples (``train_lattice``, ``learning_agents``,
+``train_config5``) and ``custom_operators`` and ``state_indexing_tour``.
+``tools/train_legs.py`` runs the repo's three record training legs beside
+their records.  ``fast/sparse.py`` is the lattice step's agent-list twin
+for one env (bitwise the field engine in its scope).
 """
 from die_tpu_torch.core.config import (Boundary, DiffuseMode, Dynamics,
                                        FlowConfig)
