@@ -8,6 +8,7 @@ versions.
     python3 chip_smoke.py --only-nca             # the conv-NCA and NCA alone
     python3 chip_smoke.py --only-user            # the user paths alone
     python3 chip_smoke.py --only-train           # the training surface alone
+    python3 chip_smoke.py --only-mesh            # the sharded paths alone
 
 Phases (any failure exits non-zero):
   1. versions, device name, ``nvidia-smi`` name and power limit;
@@ -190,7 +191,27 @@ Phases (any failure exits non-zero):
      init_agent_ratio 0.15, 0.02 and 0.005 and at ``tuned_dynamics(16)``,
      bitwise against ``fast_rollout_auto`` (K1 + K2 on a batch of one,
      itself bitwise the plain rollout), each engine's ms a step (CUDA
-     events) and CUDA kernels a step (torch.profiler).
+     events) and CUDA kernels a step (torch.profiler);
+ 14. the mesh (``--only-mesh`` runs this phase alone): every kernel built in
+     this process first, every path run once in one process, then each leg
+     as ranks started by ``torch.multiprocessing`` (spawn), one process a
+     rank on cuda:0 over ``parallel/distributed.py``: NCCL at 1 rank (the
+     backend users run; a line says so and the leg fails where NCCL is not
+     available), gloo at 2 and 4 ranks sharing the card (NCCL takes one
+     rank a GPU; the collectives go through the host).  Each rank: the
+     env-sharded lattice rollout at ``bench.py``'s shape (1024 envs x 256²,
+     T = 256: K1 + K2), the env-sharded exact Physarum rollout (256²,
+     65,536 slots, 1024 envs, T cut from 32 to 8: K5), ``train_lattice``
+     population-sharded at phase 5's wide configuration and
+     ``learn/train.py::train`` at the flagship's (2 generations each; the
+     flagship's popsize 10 refused over 4 ranks and run at 12 there), one
+     4096² field's rows over the ranks (8 steps, eager), the large-field
+     rollout on each rank's envs (32 x 512², 32 steps: K4) with the reward
+     summed over envs, a ``save_sharded``/``load_sharded`` round trip of the
+     1024-env state, and the checkpoint loaded in one process: every state,
+     reward, count, history and ES state bitwise the one-process run (the
+     4096² field: ``banded_rollout`` and the eager rollout, themselves
+     bitwise), launches, env-steps/s and peak memory a rank.
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.
 """
@@ -3691,6 +3712,413 @@ def phase_train_surface(smi: str) -> dict:
     return rec
 
 
+
+# ---- 14. the mesh: env, population and spatial sharding over ranks ---------
+
+MESH_LEGS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+MESH_MAIN = (1024, 256)          # envs, steps: bench.py's fast shape
+MESH_EXACT = (1024, 8)           # envs, steps: bench.py's 32 steps cut to 8
+MESH_GENS = 2                    # generations of both trainers
+MESH_NCA_POPSIZE = 10            # the flagship's; 12 where 4 ranks share it
+MESH_SPATIAL = ((4096, 4096), 8)  # one field, steps
+MESH_BANDED = (32, (512, 512), 32)  # envs, field, steps
+MESH_KERNELS = {  # path -> kernels it must launch on every rank
+    "fast": ("lattice_step", "tree_sum_2d"),
+    "exact": ("gather_fields_f1", "gather_fields_f2"),
+    "wide": ("lattice_step_learned_wide", "tree_sum_2d"),
+    "nca": ("gather_fields_f3", "gather_fields_f1"),
+    "spatial": (),
+    "banded": ("lattice_steps_fused", "tree_sum_2d"),
+    "ckpt": (),
+}
+
+
+def mesh_wide(mesh):
+    """train_lattice at phase 5's wide configuration for MESH_GENS
+    generations -> (best, es_state, history); ``mesh`` shards it."""
+    from die_tpu_torch.fast import learned as L
+    from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
+    from die_tpu_torch.learn.es import CMAES
+
+    cfg = L.LatticeTrainConfig(field_size=(64, 128), epochs=MESH_GENS,
+                               epoch_iters=EVAL_PROTOCOL["steps"], popsize=64,
+                               envs_per_eval=16, seed=52)
+    return L.train_lattice(
+        eval_protocol_dynamics(16), cfg, mesh=mesh,
+        params_init=artifact("lattice16_mlp_wide"), common_random_envs=True,
+        searcher_fn=lambda d: CMAES(d, popsize=64, stdev_init=0.1),
+        device="cuda" if mesh is None else mesh.device)
+
+
+def mesh_nca(mesh, popsize: int):
+    """learn/train.py::train at phase 11's flagship configuration for
+    MESH_GENS generations at ``popsize`` -> (best, es_state, history)."""
+    from die_tpu_torch.core.config import preset
+    from die_tpu_torch.learn.train import TrainConfig, train
+    from die_tpu_torch.models.nca import NCAPolicy
+
+    cfg = TrainConfig(field_size=(96, 96), max_agents=96 * 96,
+                      epochs=MESH_GENS, epoch_iters=30, popsize=popsize,
+                      seed=0)
+    return train(preset("st-perlin-wide", 0.10),
+                 NCAPolicy(scale=0.01, deposit=2.0, kernel_sizes=(3, 3)),
+                 cfg, mesh=mesh,
+                 device="cuda" if mesh is None else mesh.device)
+
+
+def mesh_exact_setup():
+    from die_tpu_torch.core.config import Dynamics
+    from die_tpu_torch.models.gradient import PhysarumPolicy
+
+    return (Dynamics(init_agent_ratio=0.15),
+            PhysarumPolicy(max_agents=EXACT_SLOTS, scale=0.007,
+                           turn_angle=30, sense_offset=0.04))
+
+
+def train_leaves(run) -> tuple:
+    """(history without wall times, best and ES state leaves on the CPU)."""
+    from die_tpu_torch.utils.checkpoint import tree_leaves
+
+    best, es_state, hist = run
+    hist = [{k: v for k, v in h.items() if k != "wall_s"} for h in hist]
+    leaves = [torch.as_tensor(x).cpu() for x in
+              tree_leaves(best) + tree_leaves(es_state)]
+    return hist, leaves
+
+
+def mesh_references() -> dict:
+    """Every path of phase 14 in one process on the card: the results each
+    sharded leg must equal bitwise (CUDA tensors, shared with the ranks)."""
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.core.rng import np_key
+    from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import (banded_rollout,
+                                            banded_rollout_batch,
+                                            fast_rollout, fast_rollout_auto)
+    from die_tpu_torch.parallel.rollout import rollout
+
+    refs, secs = {}, {}
+    dyn = FastDynamics()
+    B, T = MESH_MAIN
+    t0 = time.perf_counter()
+    refs["fast_init"] = fast_init(env_keys(0, B), FIELD, dyn, device="cuda")
+    refs["fast"] = fast_rollout_auto(dyn, refs["fast_init"], env_keys(1, B),
+                                     T, device="cuda")
+    torch.cuda.synchronize()
+    secs["fast"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    edyn, policy = mesh_exact_setup()
+    B, T = MESH_EXACT
+    ek, pk, rk = session_keys(B)
+    res = rollout(edyn, policy, None,
+                  init_env_state(ek, EXACT_FIELD, edyn, EXACT_SLOTS,
+                                 device="cuda"),
+                  policy.init_state(pk, device="cuda"), rk.cuda(), T)
+    refs["exact"] = (res.state.medium, res.state.agents, res.rewards,
+                     res.num_agents, res.total_reward)
+    torch.cuda.synchronize()
+    secs["exact"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    refs["wide"] = train_leaves(mesh_wide(None))
+    refs["nca"] = {p: train_leaves(mesh_nca(None, p))
+                   for p in (MESH_NCA_POPSIZE, 12)}
+    secs["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    (W, H), T = MESH_SPATIAL
+    st = fast_init(np_key(7), (W, H), dyn, device="cuda")
+    k4 = banded_rollout(dyn, st, np_key(8), T, device="cuda")
+    eager = fast_rollout(dyn, st, np_key(8), T, device="cuda")
+    if not same_fast(k4, eager):
+        raise AssertionError(f"phase 14: K4 at {W}x{H} differs from the "
+                             f"eager step")
+    refs["spatial"] = k4
+    del st, eager
+    torch.cuda.synchronize()
+    secs["spatial"] = time.perf_counter() - t0
+
+    nb, field, T = MESH_BANDED
+    refs["banded"] = banded_rollout_batch(
+        dyn, fast_init(env_keys(2, nb), field, dyn, device="cuda"),
+        env_keys(3, nb), T, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 14 references (one process): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    return refs
+
+
+def mesh_path(name: str, mesh, refs, ckpt_dir):
+    """One path of phase 14 on this rank -> (global env-steps, mismatches,
+    record)."""
+    from die_tpu_torch.core.init import init_env_state
+    from die_tpu_torch.core.mathx import tree_sum_1d
+    from die_tpu_torch.core.rng import np_key
+    from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.init import fast_init
+    from die_tpu_torch.fast.rollout import (banded_rollout_batch,
+                                            fast_rollout_auto)
+    from die_tpu_torch.parallel.distributed import gather_rows
+    from die_tpu_torch.parallel.mesh import (env_mesh, local_rows,
+                                             shard_env_batch,
+                                             sharded_rollout_fn)
+    from die_tpu_torch.parallel.spatial import (shard_field_state,
+                                                spatial_fast_rollout)
+    from die_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+
+    dev, dyn, bad, rec = mesh.device, FastDynamics(), [], {}
+
+    def check(what, a, b):
+        if not same_words(a, b):
+            bad.append(what)
+
+    def check_state(what, st, ref, rows):
+        for f in st._fields:
+            check(f"{what} {f}", getattr(st, f), getattr(ref, f)[rows])
+
+    if name == "fast":
+        B, T = MESH_MAIN
+        rows = local_rows(mesh, B)
+        ik, rk = shard_env_batch(mesh, (env_keys(0, B), env_keys(1, B)))
+        st = fast_init(ik, FIELD, dyn, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rew, num = fast_rollout_auto(dyn, st, rk, T, device=dev)
+        rew, num = gather_rows(mesh, rew), gather_rows(mesh, num)
+        torch.cuda.synchronize()
+        rec["rollout_s"] = time.perf_counter() - t0
+        ref = refs["fast"]
+        check_state("fast", st, ref[0], rows)
+        check("fast rewards", rew, ref[1])
+        check("fast nums", num, ref[2])
+        return B * T, bad, rec
+    if name == "exact":
+        B, T = MESH_EXACT
+        edyn, policy = mesh_exact_setup()
+        ek, pk, rk = shard_env_batch(mesh, session_keys(B))
+        st = init_env_state(ek, EXACT_FIELD, edyn, EXACT_SLOTS, device=dev)
+        pst = policy.init_state(pk, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded_rollout_fn(edyn, policy, mesh, T)(None, st, pst,
+                                                       rk.to(dev))
+        torch.cuda.synchronize()
+        rec["rollout_s"] = time.perf_counter() - t0
+        rows = local_rows(mesh, B)
+        medium, agents, rewards, nums, total = refs["exact"]
+        check("exact medium", res.state.medium, medium[rows])
+        check("exact agents", res.state.agents, agents[rows])
+        check("exact rewards", res.rewards, rewards)
+        check("exact num_agents", res.num_agents, nums)
+        check("exact total_reward", res.total_reward, total)
+        return B * T, bad, rec
+    if name in ("wide", "nca"):
+        pop = env_mesh(axis="pop", device=dev)
+        if name == "wide":
+            got, want = train_leaves(mesh_wide(pop)), refs["wide"]
+            envs = 64 * 16 * 50
+        else:
+            popsize = MESH_NCA_POPSIZE
+            if popsize % mesh.size:
+                try:
+                    mesh_nca(pop, popsize)
+                    bad.append(f"train at popsize {popsize} over "
+                               f"{mesh.size} ranks did not raise")
+                except ValueError:
+                    rec["refused_popsize"] = popsize
+                popsize = 12
+            got, want = train_leaves(mesh_nca(pop, popsize)), \
+                refs["nca"][popsize]
+            rec["popsize"] = popsize
+            envs = popsize * 30
+        if got[0] != want[0]:
+            bad.append(f"{name} history {got[0]} != {want[0]}")
+        for i, (a, b) in enumerate(zip(got[1], want[1])):
+            check(f"{name} best/ES leaf {i}", a, b)
+        return envs * MESH_GENS, bad, rec
+    if name == "spatial":
+        (W, H), T = MESH_SPATIAL
+        space = env_mesh(axis="space", device=dev)
+        st = shard_field_state(space, fast_init(np_key(7), (W, H), dyn,
+                                                device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rew, num = spatial_fast_rollout(dyn, space, st, np_key(8), T)
+        torch.cuda.synchronize()
+        rec["rollout_s"] = time.perf_counter() - t0
+        ref, rows = refs["spatial"], local_rows(space, W)
+        for f in st._fields:
+            want = getattr(ref[0], f)
+            check(f"spatial {f}", getattr(st, f),
+                  want if f == "flow_step" else want[rows])
+        check("spatial rewards", rew, ref[1])
+        check("spatial nums", num, ref[2])
+        return T, bad, rec
+    if name == "banded":
+        nb, field, T = MESH_BANDED
+        rows = local_rows(mesh, nb)
+        ik, rk = shard_env_batch(mesh, (env_keys(2, nb), env_keys(3, nb)))
+        st = fast_init(ik, field, dyn, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rew, num = banded_rollout_batch(dyn, st, rk, T, device=dev)
+        rew, num = gather_rows(mesh, rew), gather_rows(mesh, num)
+        summed = tree_sum_1d(rew.T)
+        torch.cuda.synchronize()
+        rec["rollout_s"] = time.perf_counter() - t0
+        ref = refs["banded"]
+        check_state("banded", st, ref[0], rows)
+        check("banded rewards", rew, ref[1])
+        check("banded nums", num, ref[2])
+        check("banded summed reward", summed, tree_sum_1d(ref[1].T))
+        return nb * T, bad, rec
+    # ckpt: each rank writes its rows of the main path's initial state
+    B, _ = MESH_MAIN
+    rows = local_rows(mesh, B)
+    st = fast_init(shard_env_batch(mesh, env_keys(0, B)), FIELD, dyn,
+                   device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_sharded(ckpt_dir, st, mesh)
+    torch.distributed.barrier()
+    rec["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_sharded(ckpt_dir, type(st)(*(torch.zeros_like(x)
+                                             for x in st)), mesh)
+    torch.cuda.synchronize()
+    rec["load_s"] = time.perf_counter() - t0
+    check_state("ckpt round trip", back, st, slice(None))
+    check_state("ckpt state", st, refs["fast_init"], rows)
+    return 0, bad, rec
+
+
+def _mesh_rank(rank: int, world: int, init: str, backend: str, refs,
+               out_dir: str):
+    """One rank of a phase-14 leg: every path, counted and timed, held
+    bitwise to the one-process references; its record to ``out_dir``."""
+    import os
+
+    import torch.distributed as dist
+
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.parallel.distributed import initialize
+    from die_tpu_torch.parallel.mesh import env_mesh
+
+    initialize(init, world, rank, backend=backend, device="cuda:0",
+               timeout_s=900)
+    cuda_step.build()  # built by the parent: loads the libraries
+    mesh = env_mesh(device="cuda:0")
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend()}
+    bad = []
+    for name in MESH_KERNELS:
+        dist.barrier()
+        cuda_step.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env_steps, miss, extra = mesh_path(
+            name, mesh, refs, os.path.join(out_dir, f"ckpt_{backend}{world}"))
+        torch.cuda.synchronize()
+        dist.barrier()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in cuda_step.launches.items() if v}
+        missing = [k for k in MESH_KERNELS[name] if counts.get(k, 0) < 1]
+        if missing:
+            miss.append(f"{name}: {missing} not launched ({counts})")
+        bad += miss
+        rec[name] = dict(extra, seconds=secs, launches=counts,
+                         env_steps_per_s=env_steps / extra.get(
+                             "rollout_s", secs) if env_steps else None,
+                         bitwise=not miss)
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, f"{backend}{world}_r{rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if bad:
+        raise AssertionError(f"rank {rank} of {backend} x {world}: {bad}")
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 14: build first (done by the caller), the one-process
+    references, then each leg of MESH_LEGS as ranks started by
+    torch.multiprocessing (spawn), all on cuda:0; the one-process load of
+    each leg's sharded checkpoint.  Returns the record; raises after every
+    leg ran if one failed."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from die_tpu_torch.utils.checkpoint import load_sharded
+
+    t_start = time.perf_counter()
+    refs = mesh_references()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    record, failed = {"legs": {}}, []
+    nccl = dist.is_nccl_available()
+    if not nccl:
+        log("phase 14: torch.distributed.is_nccl_available() is False: "
+            "the NCCL leg fails")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for backend, world in MESH_LEGS:
+            leg = f"{backend} x {world}"
+            if backend == "nccl" and not nccl:
+                failed.append(f"{leg}: NCCL is not available")
+                continue
+            t0 = time.perf_counter()
+            store = "file://" + os.path.join(tmp, f"store_{backend}{world}")
+            try:
+                mp.start_processes(_mesh_rank, args=(
+                    world, store, backend, refs, tmp), nprocs=world,
+                    start_method="spawn")
+            except Exception as e:  # a rank's failure, reported below
+                failed.append(f"{leg}: {e}")
+            ranks = []
+            for r in range(world):
+                path = Path(tmp) / f"{backend}{world}_r{r}.json"
+                if path.exists():
+                    ranks.append(json.loads(path.read_text()))
+            ckpt = Path(tmp) / f"ckpt_{backend}{world}"
+            if ckpt.exists():
+                like = type(refs["fast_init"])(
+                    *(torch.zeros_like(x) for x in refs["fast_init"]))
+                back = load_sharded(ckpt, like)
+                if not all(same_words(a, b) for a, b in
+                           zip(back, refs["fast_init"])):
+                    failed.append(f"{leg}: the sharded checkpoint loaded "
+                                  f"in one process differs")
+                shutil.rmtree(ckpt, ignore_errors=True)
+            secs = time.perf_counter() - t0
+            record["legs"][leg] = {"seconds": secs, "ranks": ranks}
+            if ranks:
+                r0 = ranks[0]
+                log(f"phase 14 {leg} ({secs:.1f} s, {smi}): "
+                    + "; ".join(
+                        f"{p} {r0[p]['env_steps_per_s']:.1f} env-steps/s"
+                        if r0[p]["env_steps_per_s"] else
+                        f"{p} {r0[p]['seconds']:.2f} s"
+                        for p in MESH_KERNELS))
+                for r in ranks:
+                    log(f"  rank {r['rank']}: launches "
+                        + "; ".join(f"{p} {r[p]['launches']}"
+                                    for p in MESH_KERNELS)
+                        + f"; max memory {r['max_memory_gb']:.2f} GB")
+    record["seconds"] = time.perf_counter() - t_start
+    record["failed"] = failed
+    if failed:
+        raise AssertionError(f"phase 14: {failed}")
+    log(f"phase 14: {record['seconds']:.1f} s; every leg bitwise the "
+        f"one-process run")
+    return record
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=1024)
@@ -3719,6 +4147,9 @@ def main():
                     help="build, then run only the training examples, the "
                          "record legs cut, the operator examples and the "
                          "sparse engine (phase 13; no ok line)")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="build, then run only the sharded paths over ranks "
+                         "(phase 14; no ok line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3768,6 +4199,10 @@ def main():
         return 0
     if args.only_train:
         log(json.dumps({"train": phase_train_surface(smi)}))
+        log(smi)
+        return 0
+    if args.only_mesh:
+        log(json.dumps({"mesh": phase_mesh(smi)}))
         log(smi)
         return 0
     if args.only_nca:
@@ -3970,6 +4405,15 @@ def main():
         if train_record["launches"].get(name, 0) < 1:
             raise AssertionError(f"phase 13 launched no {name}")
 
+    # ---- 14. the mesh: env, population and spatial sharding over ranks
+    torch.cuda.empty_cache()
+    mesh_record = phase_mesh(smi)
+    for row in kernels:
+        row["mesh_launches"] = sum(
+            r[p]["launches"].get(row["name"], 0)
+            for leg in mesh_record["legs"].values() for r in leg["ranks"]
+            for p in MESH_KERNELS)
+
     record = {"kernels": kernels, "env_steps_per_s": B * T / roll_s,
               "exact": exact_record,
               "large_field": large_rows,
@@ -3977,7 +4421,7 @@ def main():
               "train_seconds_per_generation": per_gen,
               "train_generation_parts": train_parts,
               "heldout": scores, "nca": nca_record, "user": user_record,
-              "train": train_record,
+              "train": train_record, "mesh": mesh_record,
               "seconds": time.perf_counter() - t_start}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -17,7 +17,11 @@ them the training examples (``train_lattice``, ``learning_agents``,
 ``train_config5``) and ``custom_operators`` and ``state_indexing_tour``.
 ``tools/train_legs.py`` runs the repo's three record training legs beside
 their records.  ``fast/sparse.py`` is the lattice step's agent-list twin
-for one env (bitwise the field engine in its scope).
+for one env (bitwise the field engine in its scope).  ``parallel/`` runs
+over several ranks, one process each (``parallel.initialize``): env and
+population sharding (``parallel/mesh.py``, ``learn/es.py::
+shard_population``, ``mesh=`` of the three trainers), a field's rows over
+ranks (``parallel/spatial.py``) and ``utils/checkpoint.py::save_sharded``.
 """
 from die_tpu_torch.core.config import (Boundary, DiffuseMode, Dynamics,
                                        FlowConfig)

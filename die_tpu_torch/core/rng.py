@@ -94,9 +94,10 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def _counts(shape, device):
+def _counts(shape, device, first: int = 0):
     size = int(np.prod(shape)) if shape else 1
-    return torch.arange(size, dtype=torch.int64, device=device).reshape(shape)
+    return torch.arange(first, first + size, dtype=torch.int64,
+                        device=device).reshape(shape)
 
 
 def _lead(keys: torch.Tensor, ndim: int):
@@ -105,15 +106,17 @@ def _lead(keys: torch.Tensor, ndim: int):
     return keys[..., 0].reshape(view), keys[..., 1].reshape(view)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape, first: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` for each key in ``keys``.
 
     Partitionable threefry: per-element 64-bit counter split into (hi, lo)
     words, block-encrypted, halves xor'd.  Counts stay below 2**32 here, so
-    hi is 0.  Returns int64 ``keys.shape[:-1] + shape``."""
+    hi is 0.  ``first`` starts the counter there: the bits of elements
+    ``first, first + 1, ...`` of a larger draw (a shard of its rows).
+    Returns int64 ``keys.shape[:-1] + shape``."""
     shape = tuple(shape)
     k0, k1 = _lead(keys, len(shape))
-    lo = _counts(shape, keys.device)
+    lo = _counts(shape, keys.device, first)
     b0, b1 = threefry2x32_pair(k0, k1, torch.zeros_like(lo), lo)
     return b0 ^ b1
 
@@ -128,11 +131,12 @@ def murmur_finalize(h):
     return h
 
 
-def murmur_bits(keys: torch.Tensor, shape) -> torch.Tensor:
-    """Counter-mode murmur bits: finalize(finalize(count ^ k0) ^ k1)."""
+def murmur_bits(keys: torch.Tensor, shape, first: int = 0) -> torch.Tensor:
+    """Counter-mode murmur bits: finalize(finalize(count ^ k0) ^ k1), the
+    counter starting at ``first`` (as :func:`random_bits`)."""
     shape = tuple(shape)
     k0, k1 = _lead(keys, len(shape))
-    h = murmur_finalize(_counts(shape, keys.device) ^ k0)
+    h = murmur_finalize(_counts(shape, keys.device, first) ^ k0)
     return murmur_finalize(h ^ k1)
 
 

@@ -6,36 +6,31 @@ periodic checkpoints so that a run resumed with ``--resume`` and
 ``--start-epoch`` replays the uninterrupted one bit for bit.
 
 A generation is one lockstep batch of 8192 envs: on CUDA, one launch of the
-learned step kernel and one of the reward fold kernel a step.  The JAX
-script spreads the population over a device mesh and over hosts (when
-``DIE_COORD``/``DIE_NPROC``/``DIE_PID`` are set); population sharding over
-several GPUs is not ported yet (``ROADMAP.md`` A.5), so with ``DIE_COORD``
-set this script raises rather than run on one device.
+learned step kernel and one of the reward fold kernel a step.  As the JAX
+script does, it spreads the population over ranks, one process each, when
+``DIE_COORD``/``DIE_NPROC``/``DIE_PID`` are set (``parallel.initialize``:
+``host:port`` or an ``init_method`` URL, the process count, this process's
+rank) or when launched by ``torchrun``, and the rank count divides the
+population; every rank prints the same history.
 
 Usage: python3 -m die_tpu_torch.examples.train_config5 [--field 32]
        [--epochs 5] [--iters 10] [--popsize 16] [--envs-per-eval 512]
        [--seed 11] [--ckpt-dir saved_models/config5] [--ckpt-every 2]
        [--resume CKPT --start-epoch E] [--device cuda]
+  DIE_COORD=localhost:29500 DIE_NPROC=2 DIE_PID=<0|1> python3 -m ...
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-import torch
-
 from die_tpu_torch.core.device import resolve_device
 from die_tpu_torch.examples.common import add_device_arg
 from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.learned import LatticeTrainConfig, train_lattice
-
-
-def topology(device) -> dict:
-    """The JAX script's ``process_info()`` for this one process."""
-    dev = resolve_device(device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return {"process_index": 0, "process_count": 1, "local_devices": n,
-            "global_devices": n}
+from die_tpu_torch.parallel.distributed import (initialize, process_info,
+                                                rank_device)
+from die_tpu_torch.parallel.mesh import env_mesh
 
 
 def main(argv=None):
@@ -54,16 +49,23 @@ def main(argv=None):
     add_device_arg(ap)
     args = ap.parse_args(argv)
 
-    if os.environ.get("DIE_COORD"):
-        raise NotImplementedError(
-            "DIE_COORD is set: multi-process population sharding (the JAX "
-            "script's jax.distributed + mesh) is not ported to "
-            "die_tpu_torch yet (ROADMAP.md A.5); unset it to train on one "
-            "device")
-    print("topology:", topology(args.device))
+    named = None if args.device == "cuda" else args.device
+    coord = os.environ.get("DIE_COORD")
+    if coord:
+        initialize(coord, int(os.environ["DIE_NPROC"]),
+                   int(os.environ["DIE_PID"]), device=named)
+    else:
+        initialize(device=named)  # torchrun's environment, else a no-op
+    info = process_info()
+    print("topology:", info)
+    world = info["process_count"]
+    device = rank_device() if world > 1 else resolve_device(args.device)
+    mesh = env_mesh(axis="pop", device=device) \
+        if world > 1 and args.popsize % world == 0 else None
     total = args.popsize * args.envs_per_eval
     print(f"{total} envs/generation ({args.popsize} members x "
-          f"{args.envs_per_eval} envs), mesh: single device")
+          f"{args.envs_per_eval} envs), mesh: "
+          + (f"pop-sharded over {world} ranks" if mesh else "single device"))
 
     dyn = FastDynamics(food_infinite=True)
     cfg = LatticeTrainConfig(field_size=(args.field, args.field),
@@ -72,12 +74,12 @@ def main(argv=None):
                              envs_per_eval=args.envs_per_eval,
                              seed=args.seed)
     best, es, hist = train_lattice(
-        dyn, cfg,
+        dyn, cfg, mesh=mesh,
         log_fn=lambda e, m: print(f"epoch {e}: best {m['best']:.3f} "
                                   f"mean {m['mean']:.3f}", flush=True),
         checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
         resume_from=args.resume, start_epoch=args.start_epoch,
-        device=args.device)
+        device=device)
     print(f"done: best fitness {max(h['best'] for h in hist):.3f}; "
           f"checkpoints in {args.ckpt_dir}")
     return best, es, hist

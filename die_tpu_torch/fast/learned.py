@@ -478,16 +478,19 @@ def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
     epoch (``utils/checkpoint.py``, the JAX package's format);
     ``resume_from`` (an ``es_*.npz`` of either package) continues at
     ``start_epoch`` with that state and its best: epochs are keyed by
-    index, so the resumed run replays the uninterrupted one.  Multi-GPU
-    population sharding is not ported: ``mesh`` raises.
+    index, so the resumed run replays the uninterrupted one.  ``mesh``
+    (``parallel/mesh.py::env_mesh``) shards the population over its ranks:
+    each rank runs its contiguous members' envs under their global keys,
+    the fitnesses are gathered in index order and ``tell`` runs replicated,
+    so every rank's history, best and state are the one-process run's
+    (``learn/es.py::shard_population``); rank 0 writes the checkpoints.
 
     Returns (best center shaped like the init, es_state, history)."""
     from die_tpu_torch.fast.init import fast_init
-    from die_tpu_torch.learn.es import PGPE
+    from die_tpu_torch.learn.es import (PGPE, shard_population,
+                                        unshard_population)
     from die_tpu_torch.learn.train import es_loop
 
-    if mesh is not None:
-        raise NotImplementedError("population sharding is not ported")
     dev = resolve_device(device)
     if params_init is not None:
         params0 = _as_params(params_init, dev)
@@ -507,17 +510,23 @@ def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,
         ask_key, init_keys, roll_keys = generation_keys(
             key, P, E, common_random_envs)
         pop, eps = searcher.ask(es_state, ask_key)
-        params = pop.reshape((P,) + shape).repeat_interleave(E, dim=0)
-        st = fast_init(init_keys, cfg.field_size, dyn, device=dev)
+        members, init_keys, roll_keys = shard_population(
+            mesh, "pop", pop.reshape((P,) + shape),
+            init_keys.reshape(P, E, 2), roll_keys.reshape(P, E, 2))
+        params = members.repeat_interleave(E, dim=0)
+        st = fast_init(init_keys.reshape(-1, 2), cfg.field_size, dyn,
+                       device=dev)
         _, rewards, _ = learned_fast_rollout_auto(
-            dyn, params, st, roll_keys, cfg.epoch_iters, device=dev)
-        per_env = tree_sum_1d(rewards).reshape(P, E)
-        fitnesses = tree_sum_1d(per_env) / float(E)
+            dyn, params, st, roll_keys.reshape(-1, 2), cfg.epoch_iters,
+            device=dev)
+        per_env = tree_sum_1d(rewards).reshape(-1, E)
+        fitnesses = unshard_population(mesh, tree_sum_1d(per_env) / float(E))
         return (searcher.tell(es_state, eps, fitnesses),
                 {"best": fitnesses.max(), "mean": fitnesses.mean()})
 
     best_center, es_state, history = es_loop(
         generation, searcher.init(flat0), cfg, log_fn=log_fn,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        resume_from=resume_from, start_epoch=start_epoch, device=dev)
+        resume_from=resume_from, start_epoch=start_epoch, device=dev,
+        mesh=mesh)
     return best_center.cpu().numpy().reshape(shape), es_state, history

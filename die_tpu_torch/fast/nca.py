@@ -153,16 +153,15 @@ def train_conv_nca(dyn: FastDynamics, cfg, hidden: int = 8, log_fn=None,
     with ``center_learning_rate``, ``radius_init`` and ``max_speed``;
     ``params_init`` (e.g. ``jones_mimic_conv_params()``) sets the start,
     else the xavier init of ``key(cfg.seed)``.  Checkpoints and resume as
-    ``learn/train.py::es_loop``.  ``mesh`` (population sharding) is not
-    ported and raises.
+    ``learn/train.py::es_loop``.  ``mesh`` shards the population over its
+    ranks, as ``fast/learned.py::train_lattice`` does.
 
     Returns (best ConvTurnParams, es_state, history)."""
     from die_tpu_torch.fast.init import fast_init
-    from die_tpu_torch.learn.es import PGPE
+    from die_tpu_torch.learn.es import (PGPE, shard_population,
+                                        unshard_population)
     from die_tpu_torch.learn.train import es_loop, ravel_params
 
-    if mesh is not None:
-        raise NotImplementedError("population sharding is not ported")
     dev = resolve_device(device)
     if params_init is not None:
         params0 = conv_params_on(params_init, dev)
@@ -182,17 +181,23 @@ def train_conv_nca(dyn: FastDynamics, cfg, hidden: int = 8, log_fn=None,
         ask_key, init_keys, roll_keys = generation_keys(
             key, P, E, common_random_envs)
         pop, eps = searcher.ask(es_state, ask_key)
-        params = unravel(pop.repeat_interleave(E, dim=0))
-        st = fast_init(init_keys, cfg.field_size, dyn, device=dev)
-        _, rewards, _ = conv_nca_rollout(dyn, params, st, roll_keys,
+        members, init_keys, roll_keys = shard_population(
+            mesh, "pop", pop, init_keys.reshape(P, E, 2),
+            roll_keys.reshape(P, E, 2))
+        params = unravel(members.repeat_interleave(E, dim=0))
+        st = fast_init(init_keys.reshape(-1, 2), cfg.field_size, dyn,
+                       device=dev)
+        _, rewards, _ = conv_nca_rollout(dyn, params, st,
+                                         roll_keys.reshape(-1, 2),
                                          cfg.epoch_iters, device=dev)
-        per_env = tree_sum_1d(rewards).reshape(P, E)
-        fitnesses = tree_sum_1d(per_env) / float(E)
+        per_env = tree_sum_1d(rewards).reshape(-1, E)
+        fitnesses = unshard_population(mesh, tree_sum_1d(per_env) / float(E))
         return (searcher.tell(es_state, eps, fitnesses),
                 {"best": fitnesses.max(), "mean": fitnesses.mean()})
 
     best_center, es_state, history = es_loop(
         generation, searcher.init(flat0), cfg, log_fn=log_fn,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        resume_from=resume_from, start_epoch=start_epoch, device=dev)
+        resume_from=resume_from, start_epoch=start_epoch, device=dev,
+        mesh=mesh)
     return unravel(best_center), es_state, history

@@ -43,12 +43,14 @@ def step_keys(rollout_keys: torch.Tensor, t0: int, num_steps: int):
     return fold_in(rollout_keys.unsqueeze(0), ts)
 
 
-def step_bits(dyn: FastDynamics, keys_t: torch.Tensor, shape) -> FastStepBits:
-    """Bits of one step for step keys ``[..., 2]`` over a ``(W, H)`` field."""
+def step_bits(dyn: FastDynamics, keys_t: torch.Tensor, shape,
+              first: int = 0) -> FastStepBits:
+    """Bits of one step for step keys ``[..., 2]`` over a ``(W, H)`` field;
+    ``first`` > 0 gives the rows of a larger field from the cell of global
+    index ``first`` on (a spatial shard, ``parallel/spatial.py``)."""
     rot = None if dyn.per_cell_priority else prio_rot(keys_t)
-    if dyn.rng_kind == "murmur":
-        return FastStepBits(rand=murmur_bits(keys_t, shape), prio_rot=rot)
-    return FastStepBits(rand=random_bits(keys_t, shape), prio_rot=rot)
+    bits = murmur_bits if dyn.rng_kind == "murmur" else random_bits
+    return FastStepBits(rand=bits(keys_t, shape, first), prio_rot=rot)
 
 
 def to_device(state: FastEnvState, dev) -> FastEnvState:

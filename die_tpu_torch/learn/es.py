@@ -13,7 +13,8 @@ and ``tell(state, noise, fitnesses) -> state``.  Normals come from the
 contract bits (``random_bits`` -> uniform -> ``normal_from_uniform``), so
 ``ask`` draws the JAX package's numbers bit for bit; ``tell`` reduces in
 torch's order, which the JAX package does not pin.  Sorts are stable, as
-``jnp.argsort`` is.  Population sharding across GPUs is not ported.
+``jnp.argsort`` is.  ``shard_population`` / ``unshard_population`` split
+the members over a mesh's ranks and gather their fitnesses back.
 """
 from __future__ import annotations
 
@@ -348,3 +349,32 @@ def es_spread(state) -> torch.Tensor:
     if hasattr(state, "cov"):
         return state.sigma * torch.sqrt(torch.diagonal(state.cov))
     return state.sigma * torch.sqrt(state.c_diag)
+
+
+def shard_population(mesh, axis, *arrays):
+    """This rank's contiguous members of each array's leading (population)
+    axis: ES members then evaluate data-parallel over the mesh's ranks.
+    Every rank asks with the same key, so the population is replicated and
+    each rank slices its own; raises when the mesh's size does not divide
+    the population.  Identity when ``mesh`` is None.  ``axis`` names the
+    mesh axis, as in the JAX package."""
+    if mesh is None:
+        return arrays if len(arrays) > 1 else arrays[0]
+    from die_tpu_torch.parallel.mesh import local_rows
+
+    out = tuple(a[local_rows(mesh, a.shape[0], "population")]
+                for a in arrays)
+    return out if len(out) > 1 else out[0]
+
+
+def unshard_population(mesh, *arrays):
+    """Every rank's members gathered in index order, on every rank, before
+    the ES update: ``tell`` then runs replicated in the unsharded order, so
+    the sharded run is bitwise the one-process run.  Identity when ``mesh``
+    is None."""
+    if mesh is None:
+        return arrays if len(arrays) > 1 else arrays[0]
+    from die_tpu_torch.parallel.distributed import gather_rows
+
+    out = tuple(gather_rows(mesh, a) for a in arrays)
+    return out if len(out) > 1 else out[0]

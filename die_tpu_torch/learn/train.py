@@ -37,7 +37,8 @@ from die_tpu_torch.core.init import init_env_state
 from die_tpu_torch.core.mathx import tree_sum_1d
 from die_tpu_torch.core.rng import as_key_tensor, fold_in, np_key
 from die_tpu_torch.learn.es import (CMAES, PGPE, OpenAIES, SepCMAES,
-                                    es_center, es_spread)
+                                    es_center, es_spread, shard_population,
+                                    unshard_population)
 from die_tpu_torch.parallel.rollout import rollout
 
 
@@ -119,24 +120,28 @@ def build_generation_step(dynamics: Dynamics, policy, cfg: TrainConfig,
                           searcher, unravel, mesh=None, device="cuda"):
     """(es_state, epoch_key) -> (es_state, metrics of device scalars).
 
-    ``mesh`` (population sharding over devices) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("population sharding is not ported")
+    ``mesh`` shards the population over its ranks: each rank evaluates its
+    contiguous members under their global keys, the fitnesses are gathered
+    in index order and ``tell`` runs replicated (``learn/es.py::
+    shard_population``)."""
     dev = resolve_device(device)
     P, E = searcher.popsize, cfg.envs_per_eval
 
     def generation(es_state, epoch_key):
         epoch_key = as_key_tensor(epoch_key, dev)
         pop, eps = searcher.ask(es_state, fold_in(epoch_key, 0))
-        params = unravel(pop.repeat_interleave(E, dim=0))
-        ekeys, pkeys, rkeys = member_env_keys(epoch_key, P, E)
+        members, *keys = shard_population(
+            mesh, "pop", pop, *(k.reshape(P, E, 2) for k in
+                                member_env_keys(epoch_key, P, E)))
+        params = unravel(members.repeat_interleave(E, dim=0))
+        ekeys, pkeys, rkeys = (k.reshape(-1, 2) for k in keys)
         state = init_env_state(ekeys, cfg.field_size, dynamics,
                                cfg.max_agents, device=dev)
         pstate = policy.init_state(pkeys, device=dev)
         res = rollout(dynamics, policy, params, state, pstate, rkeys,
                       cfg.epoch_iters)
-        per_env = tree_sum_1d(res.rewards).reshape(P, E)
-        fitnesses = tree_sum_1d(per_env) / float(E)
+        per_env = tree_sum_1d(res.rewards).reshape(-1, E)
+        fitnesses = unshard_population(mesh, tree_sum_1d(per_env) / float(E))
         es_state = searcher.tell(es_state, eps, fitnesses)
         metrics = {"best": fitnesses.max(), "mean": fitnesses.mean(),
                    "worst": fitnesses.min(),
@@ -149,7 +154,7 @@ def build_generation_step(dynamics: Dynamics, policy, cfg: TrainConfig,
 def es_loop(generation, es_state, cfg, log_fn: Optional[Callable] = None,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume_from: Optional[str] = None, start_epoch: int = 0,
-            timed: bool = False, device="cuda"):
+            timed: bool = False, device="cuda", mesh=None):
     """The epoch loop every ES entry point shares -> (best center f32
     ``[D]``, es_state, history).
 
@@ -162,7 +167,7 @@ def es_loop(generation, es_state, cfg, log_fn: Optional[Callable] = None,
     ``utils/checkpoint.py::save_training_state`` after every
     ``checkpoint_every``-th epoch; ``resume_from`` (an ``es_*.npz`` of either
     package) replaces ``es_state`` by the saved one and starts from its
-    recorded best."""
+    recorded best.  Under a mesh, rank 0 alone writes the checkpoints."""
     from die_tpu_torch.utils.checkpoint import (load_training_best,
                                                 load_training_state,
                                                 save_training_state)
@@ -192,7 +197,8 @@ def es_loop(generation, es_state, cfg, log_fn: Optional[Callable] = None,
         if log_fn is not None:
             log_fn(epoch, m)
         if checkpoint_dir and checkpoint_every and \
-                (epoch + 1) % checkpoint_every == 0:
+                (epoch + 1) % checkpoint_every == 0 and \
+                (mesh is None or mesh.rank == 0):
             save_training_state(checkpoint_dir, epoch, es_state, cfg,
                                 best_fit=best_fit, best_center=best_center)
     return best_center, es_state, history
@@ -222,5 +228,5 @@ def train(dynamics: Dynamics, policy, cfg: TrainConfig,
         gen_step, searcher.init(flat0), cfg, log_fn=log_fn,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         resume_from=resume_from, start_epoch=start_epoch, timed=True,
-        device=dev)
+        device=dev, mesh=mesh)
     return unravel(best_center), es_state, history

@@ -11,8 +11,13 @@ by either package loads in the other.
 
 The training checkpoint is ``es_NNNNNN.npz`` (the searcher state) beside
 ``es_NNNNNN.json`` (epoch and config) and, when the loop tracks its best,
-the ``best_NNNNNN.npz`` sidecar (``fit``, ``center``).  The JAX package's
-orbax ``save_sharded``/``load_sharded`` (multi-host) are not ported.
+the ``best_NNNNNN.npz`` sidecar (``fit``, ``center``).
+
+``save_sharded``/``load_sharded`` are the multi-process pair, on
+``torch.distributed.checkpoint``: each rank writes its own env shard, no
+gather to one host.  The JAX package's pair is orbax, whose files DCP does
+not read, so this pair has no cross-package form; the npz checkpoints keep
+crossing.
 """
 from __future__ import annotations
 
@@ -130,3 +135,59 @@ def load_training_best(path: str):
         return None
     with np.load(best_path) as data:
         return float(data["fit"]), np.asarray(data["center"])
+
+
+def _dcp_state_dict(tree, mesh):
+    """``{"leaf_i": tensor}`` of ``tree``'s leaves: under a mesh of several
+    ranks each leaf is this rank's ``Shard(0)`` of a DTensor on a 1-D
+    ``DeviceMesh`` (a 0-d leaf is replicated), else the leaf itself."""
+    leaves = [x if isinstance(x, torch.Tensor)
+              else torch.from_numpy(np.array(x)) for x in tree_leaves(tree)]
+    if mesh is None or mesh.size == 1:
+        return {f"leaf_{i}": x for i, x in enumerate(leaves)}
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    host = dist.get_backend(mesh.group) == "gloo"
+    dmesh = DeviceMesh.from_group(mesh.group or dist.group.WORLD,
+                                  "cpu" if host else mesh.device.type)
+    out = {}
+    for i, x in enumerate(leaves):
+        x = (x.cpu() if host else x.to(mesh.device)).contiguous()
+        if x.dim() == 0:
+            out[f"leaf_{i}"] = DTensor.from_local(x, dmesh, [Replicate()])
+            continue
+        shape = (x.shape[0] * mesh.size,) + tuple(x.shape[1:])
+        out[f"leaf_{i}"] = DTensor.from_local(
+            x, dmesh, [Shard(0)], shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
+def save_sharded(path: str | os.PathLike, tree: Any, mesh=None) -> None:
+    """Write a tree of env-batched tensors to the directory ``path`` with
+    ``torch.distributed.checkpoint``.  Under ``mesh`` (``parallel/mesh.py``)
+    every rank calls it with its own rows of each leaf (the leading axis)
+    and writes them itself; without one, one process writes whole tensors."""
+    import torch.distributed.checkpoint as dcp
+
+    one = mesh is None or mesh.size == 1
+    dcp.save(_dcp_state_dict(tree, mesh),
+             checkpoint_id=os.path.abspath(str(path)), no_dist=one)
+
+
+def load_sharded(path: str | os.PathLike, like: Any, mesh=None) -> Any:
+    """Read a ``save_sharded`` checkpoint in ``like``'s layout (values
+    ignored): under ``mesh``, ``like`` holds this rank's rows and each rank
+    reads its own; without one, ``like`` holds the whole tensors, which one
+    process reads from every rank's files.  Leaves come back as in
+    :func:`load_pytree`."""
+    import torch.distributed.checkpoint as dcp
+
+    one = mesh is None or mesh.size == 1
+    sd = _dcp_state_dict(like, mesh)
+    dcp.load(sd, checkpoint_id=os.path.abspath(str(path)), no_dist=one)
+    loaded = [_numpy(x.to_local() if hasattr(x, "to_local") else x)
+              for x in (sd[f"leaf_{i}"] for i in range(len(sd)))]
+    return _rebuild(like, iter(loaded))

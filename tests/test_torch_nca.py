@@ -281,8 +281,14 @@ def test_first_generation_matches_jax(name, monkeypatch):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError):
-        TN.train_conv_nca(TD(), TCfg(**CFG), mesh=object(), device="cpu")
+    """``mesh=`` shards the population (tests/test_torch_sharded_train.py);
+    a mesh whose rank count does not divide the population raises."""
+    from die_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="population"):
+        TN.train_conv_nca(TD(), TCfg(**CFG),
+                          mesh=Mesh(None, "pop", 3, 0, torch.device("cpu")),
+                          device="cpu")
 
 
 # ---- device rules -----------------------------------------------------------------

@@ -42,6 +42,7 @@ from die_tpu_torch.fast.config import FastDynamics as TD
 from die_tpu_torch.learn import es as tes
 from die_tpu_torch.models import NCAPolicy
 
+from die_tpu_torch.parallel.mesh import Mesh
 from helpers.torch_exact import assert_bits, port_dynamics
 from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -172,8 +173,11 @@ def test_train_lattice_resume_replays_the_uninterrupted_run(tmp_path):
     for a, b in zip(rstate, state):
         assert_bits(a, b)
     assert_bits(rbest, best)
-    with pytest.raises(NotImplementedError):
-        TL.train_lattice(dyn, TL.LatticeTrainConfig(**LCFG), mesh=object(),
+    # mesh= shards the population (tests/test_torch_sharded_train.py); a
+    # rank count that does not divide it raises
+    with pytest.raises(ValueError, match="population"):
+        TL.train_lattice(dyn, TL.LatticeTrainConfig(**LCFG),
+                         mesh=Mesh(None, "pop", 3, 0, torch.device("cpu")),
                          device="cpu")
 
 
@@ -259,7 +263,14 @@ def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TT.train(port_dynamics(JDYN), NCAPolicy(**NCA),
                  TT.TrainConfig(**CFG))
-    with pytest.raises(NotImplementedError):
-        TT.build_generation_step(port_dynamics(JDYN), NCAPolicy(**NCA),
-                                 TT.TrainConfig(**CFG), None, None,
-                                 mesh=object(), device="cpu")
+    # mesh= shards the population; a rank count that does not divide it
+    # raises at the generation
+    policy, cfg = NCAPolicy(**NCA), TT.TrainConfig(**CFG)
+    flat0, unravel = TT.ravel_params(policy.init_model_params(
+        np_key(0), device="cpu"))
+    searcher = TT.make_searcher(cfg, flat0.shape[0])
+    gen = TT.build_generation_step(
+        port_dynamics(JDYN), policy, cfg, searcher, unravel,
+        mesh=Mesh(None, "pop", 3, 0, torch.device("cpu")), device="cpu")
+    with pytest.raises(ValueError, match="population"):
+        gen(searcher.init(flat0), np_key(0))

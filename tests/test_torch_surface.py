@@ -169,10 +169,6 @@ NO_TWIN = {
                           "port's gather entry is ops/gather.py::"
                           "gather_fields",
     "use_mxu_gather": "one gather route per device (ROADMAP C)",
-    "aggregate_stats": "the device mesh: ROADMAP A.5",
-    "env_mesh": "the device mesh: ROADMAP A.5",
-    "shard_env_batch": "the device mesh: ROADMAP A.5",
-    "sharded_rollout_fn": "the device mesh: ROADMAP A.5",
 }
 PACKAGES = [(die_tpu, die_tpu_torch), (die_tpu.fast, die_tpu_torch.fast),
             (die_tpu.learn, die_tpu_torch.learn),

@@ -5,8 +5,8 @@ JAX package sums member fitnesses in XLA's order, the port with the pinned
 folds), the same files, the same last line; the exact-engine trainer
 resumed from each JAX generation's state against the JAX run's next
 generation; ``train_config5``'s resume bitwise the port's uninterrupted
-run, and its refusal to run one device when ``DIE_COORD`` asks for
-several processes."""
+run, and its run over 2 ranks when ``DIE_COORD`` asks for several
+processes."""
 import glob
 import json
 import os
@@ -180,7 +180,43 @@ def train_config5_best(hist, ckpt_dir):
         return d["center"].reshape(3, 7)
 
 
-def test_train_config5_refuses_several_processes(monkeypatch):
-    monkeypatch.setenv("DIE_COORD", "localhost:12345")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        train_config5.main(C5 + ["--device", "cpu"])
+def test_train_config5_refuses_several_processes(tmp_path, capsys):
+    """With ``DIE_COORD``/``DIE_NPROC``/``DIE_PID`` set the script no
+    longer refuses several processes: over 2 gloo ranks (a file store) it
+    shards the population, every rank prints the one-process run's epochs,
+    and rank 0 writes its checkpoints, bitwise."""
+    import subprocess
+
+    _, _, hist = train_config5.main(C5 + ["--ckpt-dir", str(tmp_path / "one"),
+                                          "--device", "cpu"])
+    one_epochs = EPOCH_LINE.findall(capsys.readouterr().out)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(DIE_COORD=f"file://{tmp_path / 'store'}", DIE_NPROC="2",
+               OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), os.pardir))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "die_tpu_torch.examples.train_config5", *C5,
+         "--ckpt-dir", str(tmp_path / "mesh"), "--device", "cpu"],
+        env=dict(env, DIE_PID=str(pid)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert "mesh: pop-sharded over 2 ranks" in out
+        assert EPOCH_LINE.findall(out) == one_epochs
+    assert sorted(os.listdir(tmp_path / "mesh")) == \
+        sorted(os.listdir(tmp_path / "one"))
+    for name in os.listdir(tmp_path / "one"):
+        if name.endswith(".npz"):
+            with np.load(tmp_path / "one" / name) as a, \
+                    np.load(tmp_path / "mesh" / name) as b:
+                assert sorted(a) == sorted(b)
+                for k in a:
+                    np.testing.assert_array_equal(a[k], b[k])
+    assert len(hist) == 4
