@@ -1,0 +1,4 @@
+"""fold_roofline.rollout: the reward fold's share of its roofline, in the
+rollout cells
+(``portbench.readers.fold_roofline``)."""
+from portbench.readers import fold_roofline as read  # noqa: F401

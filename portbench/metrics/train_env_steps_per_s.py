@@ -1,0 +1,6 @@
+"""train_env_steps_per_s: every env-step of every generation of the window
+over its seconds, the generation in flight at the close included."""
+
+
+def read(rec):
+    return rec.work / rec.elapsed_s if rec.elapsed_s > 0 else None
