@@ -43,10 +43,10 @@ Phases (any failure exits non-zero):
      ``learned_fast_rollout_auto`` (bitwise against the plain rollout on
      the card, mean score beside the JAX package's documented one);
      ``train_lattice`` at the wide record's configuration (popsize 64 x 16
-     envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed, each
-     generation taken apart by CUDA events (keys, ask, ``fast_init``, K3,
-     folds, tell and its ``eigh``, the device waiting on the host); and the
-     perlin path (Jones at the main path's size, wide at 64x128);
+     envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed, every
+     step through K3 and K2 (its breakdown is ``portbench``'s traced train
+     cell); and the perlin path (Jones at the main path's size, wide at
+     64x128);
   6. the fused tiled kernel (K4) against its plain version
      (``tiled_steps_plain``) and against the plain whole-field steps on the
      card, bitwise, every launch: the Jones rule over the 8 configs with
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero):
      grid); the step kernel's time taken apart (``tools/step_split.py``: the
      region loads and tile stores alone, with phase 1, with phases 1-3,
      whole; K1 at ``FastDynamics()`` and ``tuned_dynamics(16)``, K3 wide,
-     K4 at K = 1); the training generation taken apart by part (phase 5);
+     K4 at K = 1);
   9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
      kernel (K5) against ``gather_fields_plain`` bitwise on both of its
      routes (F in 1..3, M in {256, 2304, 65536}, N in {1, 777, 65536}, B in
@@ -898,75 +898,11 @@ def phase_heldout():
     return scores
 
 
-class GenerationParts:
-    """CUDA events around each call of the parts of a ``train_lattice``
-    generation, the functions patched in place for the run (``train_lattice``
-    itself is not changed): ``generation_keys``; the searcher's ``ask``;
-    ``fast_init``; the K3 launches; the folds (``tree_sum_2d`` of each
-    step's gain, ``tree_sum_1d`` of the fitnesses); the searcher's ``tell``,
-    of which the CMA-ES ``torch.linalg.eigh`` (``_eig``).  A generation's
-    span runs from the event before its ``generation_keys`` to one recorded
-    after ``train_lattice`` has read its fitnesses to the host (its
-    ``log_fn``); what the parts leave of it is the device waiting on the
-    host: the host syncs and the host's own work between launches."""
-
-    PARTS = ("generation_keys", "ask", "fast_init", "k3", "folds", "tell",
-             "eigh")
-
-    def __init__(self):
-        self.calls = []    # [(part, start event, end event, host s)]
-        self.marks = []    # [(first call index, end event)] a generation
-        self.first = 0
-
-    def timed(self, part: str, fn):
-        def call(*a, **k):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            h0 = time.perf_counter()
-            ev0.record()
-            out = fn(*a, **k)
-            ev1.record()
-            self.calls.append((part, ev0, ev1, time.perf_counter() - h0))
-            return out
-        return call
-
-    def end_generation(self):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.marks.append((self.first, ev))
-        self.first = len(self.calls)
-
-    def table(self):
-        """[{part: device ms, ...}] a generation, with ``span_ms``,
-        ``host_wait_ms`` (span less the parts) and ``host_ms`` (host clock
-        a part)."""
-        torch.cuda.synchronize()
-        out = []
-        for i, (first, end) in enumerate(self.marks):
-            last = self.marks[i + 1][0] if i + 1 < len(self.marks) else \
-                len(self.calls)
-            rows = self.calls[first:last]
-            rec = {part: 0.0 for part in self.PARTS}
-            host = {part: 0.0 for part in self.PARTS}
-            for part, ev0, ev1, h in rows:
-                rec[part] += ev0.elapsed_time(ev1)
-                host[part] += h * 1e3
-            rec["span_ms"] = rows[0][1].elapsed_time(end)
-            # eigh lies inside tell
-            rec["host_wait_ms"] = rec["span_ms"] - sum(
-                rec[p] for p in self.PARTS if p != "eigh")
-            rec["k3_launches"] = sum(1 for r in rows if r[0] == "k3")
-            rec["host_ms"] = host
-            out.append(rec)
-        return out
-
-
 def phase_train(gens: int):
     """train_lattice at the wide record's configuration (warm CMAES s0.1,
-    64 x 16 envs per generation, CRN, seed 52), timed per generation and
-    taken apart (``GenerationParts``)."""
+    64 x 16 envs per generation, CRN, seed 52), timed per generation; its
+    breakdown is the train cell's traced run (``portbench``)."""
     from die_tpu_torch.fast import cuda_step
-    from die_tpu_torch.fast import init as fast_init_mod
     from die_tpu_torch.fast import learned as L
     from die_tpu_torch.fast.config import EVAL_PROTOCOL, eval_protocol_dynamics
     from die_tpu_torch.learn.es import CMAES
@@ -977,45 +913,27 @@ def phase_train(gens: int):
                                envs_per_eval=16, seed=52)
     warm = artifact("lattice16_mlp_wide")
     stamps = []
-    parts = GenerationParts()
 
     def log_fn(epoch, m):
-        parts.end_generation()
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         log(f"  generation {epoch}: best {m['best']:.4f} mean "
             f"{m['mean']:.4f}")
 
-    def searcher_fn(d):
-        s = CMAES(d, popsize=64, stdev_init=0.1)
-        s.ask = parts.timed("ask", s.ask)
-        s.tell = parts.timed("tell", s.tell)
-        s._eig = parts.timed("eigh", s._eig)
-        return s
-
-    patches = [(L, "generation_keys", "generation_keys"),
-               (fast_init_mod, "fast_init", "fast_init"),
-               (cuda_step, "learned_lattice_step", "k3"),
-               (cuda_step, "tree_sum_2d", "folds"),
-               (L, "tree_sum_1d", "folds")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     cuda_step.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        for mod, name, part in patches:
-            setattr(mod, name, parts.timed(part, getattr(mod, name)))
-        best, es_state, history = L.train_lattice(
-            dyn, cfg, log_fn=log_fn, params_init=warm,
-            common_random_envs=True, searcher_fn=searcher_fn, device="cuda")
-        torch.cuda.synchronize()
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    best, es_state, history = L.train_lattice(
+        dyn, cfg, log_fn=log_fn, params_init=warm, common_random_envs=True,
+        searcher_fn=lambda d: CMAES(d, popsize=64, stdev_init=0.1),
+        device="cuda")
+    torch.cuda.synchronize()
     counts = dict(cuda_step.launches)
     log(f"learned path (train_lattice) launches: {counts}")
-    if counts["lattice_step_learned_wide"] < 1 or counts["tree_sum_2d"] < 1:
-        raise AssertionError("train_lattice did not run through K3 and K2")
+    if counts["lattice_step_learned_wide"] != gens * cfg.epoch_iters or \
+            counts["tree_sum_2d"] < gens * cfg.epoch_iters:
+        raise AssertionError("train_lattice did not run every step through "
+                             "K3 and K2")
     if tuple(best.shape) != tuple(warm.shape) or len(history) != gens:
         raise AssertionError("train_lattice result has the wrong shape")
     if not all(math.isfinite(h["best"]) and math.isfinite(h["mean"])
@@ -1029,18 +947,7 @@ def phase_train(gens: int):
         f"steps at {cfg.field_size}; seconds per generation "
         f"{[round(x, 4) for x in per_gen]}; {rate:.1f} train env-steps/s "
         f"after the first generation")
-    breakdown = parts.table()
-    if len(breakdown) != gens or any(
-            r["k3_launches"] != cfg.epoch_iters for r in breakdown):
-        raise AssertionError("the generation breakdown missed a generation "
-                             "or a K3 launch")
-    for i, rec in enumerate(breakdown):
-        log(f"  generation {i} taken apart (device ms, CUDA events): "
-            + ", ".join(f"{p} {rec[p]:.4f}" for p in GenerationParts.PARTS)
-            + f"; span {rec['span_ms']:.4f}, device waiting on the host "
-            f"{rec['host_wait_ms']:.4f}; host ms "
-            + ", ".join(f"{p} {v:.4f}" for p, v in rec["host_ms"].items()))
-    return rate, counts, per_gen, breakdown
+    return rate, counts, per_gen
 
 
 def phase_perlin_path(B: int, steps: int):
@@ -4271,8 +4178,7 @@ def main():
         if serve_counts[f"lattice_step_learned_{fam}"] < 1:
             raise AssertionError(f"K3 ({fam}) was not launched in the "
                                  f"held-out replay")
-    train_rate, train_counts, per_gen, train_parts = phase_train(
-        args.train_gens)
+    train_rate, train_counts, per_gen = phase_train(args.train_gens)
     perlin_counts, pstate = phase_perlin_path(B, args.perlin_steps)
 
     # ---- 6-7. the fused tiled kernel and the large-field path
@@ -4419,7 +4325,6 @@ def main():
               "large_field": large_rows,
               "envs": B, "steps": T, "train_env_steps_per_s": train_rate,
               "train_seconds_per_generation": per_gen,
-              "train_generation_parts": train_parts,
               "heldout": scores, "nca": nca_record, "user": user_record,
               "train": train_record, "mesh": mesh_record,
               "seconds": time.perf_counter() - t_start}

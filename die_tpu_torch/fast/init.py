@@ -14,6 +14,7 @@ from die_tpu_torch.core.rng import (as_key_tensor, fold_in, random_bits,
 from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.env import FastEnvState
 from die_tpu_torch.ops.perlin import lattice_gradients, perlin_field
+from die_tpu_torch.utils.profiling import INIT, annotate
 
 
 def fast_init(keys, field_size, dyn: FastDynamics,
@@ -25,23 +26,26 @@ def fast_init(keys, field_size, dyn: FastDynamics,
     ``device="cpu"`` to run on the CPU."""
     dev = resolve_device(device)
     W, H = field_size
-    keys = as_key_tensor(keys, dev)
-    grads = lattice_gradients(fold_in(keys, ch.TAG_INIT_PERLIN),
-                              dyn.init_food_octaves)
-    perlin = perlin_field(grads, (W, H), dyn.init_food_octaves)
-    u_occ = round3(uniform01_from_bits(random_bits(
-        fold_in(keys, ch.TAG_INIT_OCCUPANCY), (W, H))))
-    u_food = round3(uniform01_from_bits(random_bits(
-        fold_in(keys, ch.TAG_INIT_FOOD_GRID), (W, H))))
-    dir_bits = random_bits(fold_in(keys, ch.TAG_INIT_DIR), (W, H))
+    with annotate(INIT):        # every draw and field of the batch
+        keys = as_key_tensor(keys, dev)
+        grads = lattice_gradients(fold_in(keys, ch.TAG_INIT_PERLIN),
+                                  dyn.init_food_octaves)
+        perlin = perlin_field(grads, (W, H), dyn.init_food_octaves)
+        u_occ = round3(uniform01_from_bits(random_bits(
+            fold_in(keys, ch.TAG_INIT_OCCUPANCY), (W, H))))
+        u_food = round3(uniform01_from_bits(random_bits(
+            fold_in(keys, ch.TAG_INIT_FOOD_GRID), (W, H))))
+        dir_bits = random_bits(fold_in(keys, ch.TAG_INIT_DIR), (W, H))
 
-    thr = f32(dyn.init_food_threshold)
-    env_food = perlin * ((perlin >= 0.0) & (perlin <= thr)).to(torch.float32)
-    ratio = f32(dyn.init_agent_ratio)
-    occ = ((u_occ > 0.0) & (u_occ <= ratio)).to(torch.float32)
-    dirf = (dir_bits & (dyn.num_dirs - 1)).to(torch.float32) * occ
-    agent_food = (f32(0.9) * u_food + f32(0.1)) * occ
-    return FastEnvState(occ=occ, dir=dirf, agent_food=agent_food,
-                        env_food=env_food, chem=torch.zeros_like(env_food),
-                        flow_step=torch.zeros(keys.shape[:-1],
-                                              dtype=torch.int32, device=dev))
+        thr = f32(dyn.init_food_threshold)
+        env_food = perlin * ((perlin >= 0.0)
+                             & (perlin <= thr)).to(torch.float32)
+        ratio = f32(dyn.init_agent_ratio)
+        occ = ((u_occ > 0.0) & (u_occ <= ratio)).to(torch.float32)
+        dirf = (dir_bits & (dyn.num_dirs - 1)).to(torch.float32) * occ
+        agent_food = (f32(0.9) * u_food + f32(0.1)) * occ
+        return FastEnvState(
+            occ=occ, dir=dirf, agent_food=agent_food, env_food=env_food,
+            chem=torch.zeros_like(env_food),
+            flow_step=torch.zeros(keys.shape[:-1], dtype=torch.int32,
+                                  device=dev))

@@ -45,6 +45,7 @@ from die_tpu_torch.fast.config import FastDynamics, dir_offsets
 from die_tpu_torch.fast.env import FastEnvState, fast_step, roll_at
 from die_tpu_torch.fast.rollout import (check_num_inner, fast_rollout,
                                         kernel_route)
+from die_tpu_torch.utils.profiling import ES_KEYS, ROLLOUT, annotate
 
 NUM_FEATURES = 6
 NUM_ACTIONS = 3  # left, keep, right
@@ -421,11 +422,13 @@ def learned_fast_rollout_auto(dyn: FastDynamics, params,
     raises.  On the CPU it is :func:`learned_fast_rollout`."""
     check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
-    if dev.type != "cuda":
-        return learned_fast_rollout(dyn, params, state, rollout_keys,
-                                    num_steps, t0=t0, device=dev)
-    return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
-                        num_inner, params=_as_params(params, dev).contiguous())
+    with annotate(ROLLOUT):
+        if dev.type != "cuda":
+            return learned_fast_rollout(dyn, params, state, rollout_keys,
+                                        num_steps, t0=t0, device=dev)
+        return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
+                            num_inner,
+                            params=_as_params(params, dev).contiguous())
 
 
 # ---- training ---------------------------------------------------------------
@@ -447,15 +450,16 @@ def generation_keys(key: torch.Tensor, popsize: int, envs_per_eval: int,
     envs); its env k starts from ``fold_in(member_key, k)`` and rolls out
     under ``fold_in(member_key, 1000 + k)``.  Returns (ask_key, init keys
     [popsize * envs, 2], rollout keys [popsize * envs, 2]), member-major."""
-    k1 = fold_in(key, 1)
-    if common_random_envs:
-        member = k1.expand(popsize, 2)
-    else:
-        member = fold_in(k1, torch.arange(popsize, device=key.device))
-    ks = torch.arange(envs_per_eval, device=key.device)
-    init = fold_in(member[:, None, :], ks[None, :])
-    roll = fold_in(member[:, None, :], 1000 + ks[None, :])
-    return fold_in(key, 0), init.reshape(-1, 2), roll.reshape(-1, 2)
+    with annotate(ES_KEYS):
+        k1 = fold_in(key, 1)
+        if common_random_envs:
+            member = k1.expand(popsize, 2)
+        else:
+            member = fold_in(k1, torch.arange(popsize, device=key.device))
+        ks = torch.arange(envs_per_eval, device=key.device)
+        init = fold_in(member[:, None, :], ks[None, :])
+        roll = fold_in(member[:, None, :], 1000 + ks[None, :])
+        return fold_in(key, 0), init.reshape(-1, 2), roll.reshape(-1, 2)
 
 
 def train_lattice(dyn: FastDynamics, cfg: LatticeTrainConfig, log_fn=None,

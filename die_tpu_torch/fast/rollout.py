@@ -23,6 +23,7 @@ from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.env import (FastEnvState, FastStepBits,
                                     fast_step_full, flow_field_for,
                                     flow_stack_for)
+from die_tpu_torch.utils.profiling import KEYS, ROLLOUT, STEP, annotate
 
 _PRIO_SALT = 0x9E3779B9
 # fields above this many cells take the fused tiled kernel, as the JAX
@@ -96,21 +97,23 @@ def kernel_rollout(dyn: FastDynamics, state: FastEnvState, rollout_keys,
     from die_tpu_torch.fast import cuda_step
 
     state = to_device(state, dev)
-    keys = step_keys(as_key_tensor(rollout_keys, dev), t0, num_steps)
+    with annotate(KEYS):
+        keys = step_keys(as_key_tensor(rollout_keys, dev), t0, num_steps)
     flow = shared_flow_step(dyn, state)
     W, H = state.occ.shape[-2:]
     rewards, nums = [], []
     for i in range(num_steps):
-        field = None if flow is None else \
-            flow_field_for(dyn, (W, H), flow + i)
-        if params is None:
-            state, num, gained = cuda_step.lattice_step(
-                dyn, state, keys[i], flow_field=field)
-        else:
-            state, num, gained = cuda_step.learned_lattice_step(
-                dyn, state, keys[i], params, flow_field=field)
-        rewards.append(cuda_step.tree_sum_2d(gained))
-        nums.append(num)
+        with annotate(STEP):    # the step's host enqueue
+            field = None if flow is None else \
+                flow_field_for(dyn, (W, H), flow + i)
+            if params is None:
+                state, num, gained = cuda_step.lattice_step(
+                    dyn, state, keys[i], flow_field=field)
+            else:
+                state, num, gained = cuda_step.learned_lattice_step(
+                    dyn, state, keys[i], params, flow_field=field)
+            rewards.append(cuda_step.tree_sum_2d(gained))
+            nums.append(num)
     return state, torch.stack(rewards, -1), torch.stack(nums, -1)
 
 
@@ -145,24 +148,26 @@ def banded_rollout_batch(dyn: FastDynamics, state: FastEnvState,
     if params is not None:
         params = torch.as_tensor(params, dtype=torch.float32).to(
             dev).contiguous()
-    keys = step_keys(as_key_tensor(rollout_keys, dev), t0, num_steps)
+    with annotate(KEYS):
+        keys = step_keys(as_key_tensor(rollout_keys, dev), t0, num_steps)
     flow = shared_flow_step(dyn, state)
     B, W, H = state.occ.shape
     K = num_inner
     rewards, nums = [], []
     for i in range(0, num_steps, K):
-        chunk = keys[i:i + K].transpose(0, 1).contiguous()
-        stack = None if flow is None else \
-            flow_stack_for(dyn, (W, H), flow + i, K)
-        if params is None:
-            state, num, gained = cuda_step.lattice_steps(
-                dyn, state, chunk, flow_stack=stack)
-        else:
-            state, num, gained = cuda_step.learned_lattice_steps(
-                dyn, state, chunk, params, flow_stack=stack)
-        fold = cuda_step.tree_sum_2d(gained.reshape(K * B, W, H))
-        rewards.append(fold.reshape(K, B).transpose(0, 1))
-        nums.append(num)
+        with annotate(STEP):    # one launch's host enqueue
+            chunk = keys[i:i + K].transpose(0, 1).contiguous()
+            stack = None if flow is None else \
+                flow_stack_for(dyn, (W, H), flow + i, K)
+            if params is None:
+                state, num, gained = cuda_step.lattice_steps(
+                    dyn, state, chunk, flow_stack=stack)
+            else:
+                state, num, gained = cuda_step.learned_lattice_steps(
+                    dyn, state, chunk, params, flow_stack=stack)
+            fold = cuda_step.tree_sum_2d(gained.reshape(K * B, W, H))
+            rewards.append(fold.reshape(K, B).transpose(0, 1))
+            nums.append(num)
     return state, torch.cat(rewards, -1), torch.cat(nums, -1)
 
 
@@ -221,11 +226,12 @@ def fast_rollout_auto(dyn: FastDynamics, state: FastEnvState, rollout_keys,
     take raises.  On the CPU it is :func:`fast_rollout`."""
     check_num_inner(num_steps, num_inner)
     dev = resolve_device(device)
-    if dev.type != "cuda":
-        return fast_rollout(dyn, state, rollout_keys, num_steps, t0=t0,
-                            device=dev)
-    return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
-                        num_inner)
+    with annotate(ROLLOUT):
+        if dev.type != "cuda":
+            return fast_rollout(dyn, state, rollout_keys, num_steps, t0=t0,
+                                device=dev)
+        return kernel_route(dyn, state, rollout_keys, num_steps, t0, dev,
+                            num_inner)
 
 
 def takes_fused_kernel(state: FastEnvState) -> bool:

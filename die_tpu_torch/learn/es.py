@@ -26,6 +26,7 @@ import torch
 from die_tpu_torch.core.mathx import f32, normal_from_uniform
 from die_tpu_torch.core.rng import as_key_tensor, random_bits, \
     uniform01_from_bits
+from die_tpu_torch.utils.profiling import ES_ASK, ES_EIGH, ES_TELL, annotate
 
 
 class EsState(NamedTuple):
@@ -115,41 +116,44 @@ class PGPE:
                                         device=c.device))
 
     def ask(self, state: EsState, key):
-        half = self.popsize // 2
-        eps = _normal(key, (half, self.d), state.center.device) \
-            * state.stdev[None, :]
-        pop = torch.cat([state.center[None, :] + eps,
-                         state.center[None, :] - eps], dim=0)
-        return pop, eps
+        with annotate(ES_ASK):
+            half = self.popsize // 2
+            eps = _normal(key, (half, self.d), state.center.device) \
+                * state.stdev[None, :]
+            pop = torch.cat([state.center[None, :] + eps,
+                             state.center[None, :] - eps], dim=0)
+            return pop, eps
 
     def tell(self, state: EsState, eps, fitnesses) -> EsState:
-        half = self.popsize // 2
-        f_plus, f_minus = fitnesses[:half], fitnesses[half:]
-        baseline = fitnesses.mean()
-        f_scale = torch.clamp(fitnesses.max() - fitnesses.min(),
-                              min=f32(1e-8))
-        d_center = ((f_plus - f_minus)[:, None] * 0.5 * eps
-                    ).mean(dim=0) / f_scale
-        gnorm = torch.sqrt(torch.sum(d_center * d_center)) + f32(1e-12)
-        step_v = d_center / gnorm * f32(self.lr_center)
-        velocity = f32(self.momentum) * state.velocity + step_v
-        if self.max_speed is not None:
-            vnorm = torch.sqrt(torch.sum(velocity * velocity)) + f32(1e-12)
-            velocity = torch.where(
-                vnorm > f32(self.max_speed),
-                velocity * (f32(self.max_speed) / vnorm), velocity)
-        center = state.center + velocity
-        f_avg = (f_plus + f_minus) * 0.5
-        adv = (f_avg - baseline) / f_scale
-        s2 = state.stdev[None, :] * state.stdev[None, :]
-        d_stdev = (adv[:, None] * (eps * eps - s2) / state.stdev[None, :]
-                   ).mean(dim=0)
-        stdev_step = f32(self.lr_stdev) * d_stdev
-        max_delta = state.stdev * f32(self.stdev_max_change)
-        stdev = state.stdev + torch.clamp(stdev_step, -max_delta, max_delta)
-        stdev = torch.clamp(stdev, min=f32(1e-6))
-        return EsState(center=center, stdev=stdev, velocity=velocity,
-                       step=state.step + 1)
+        with annotate(ES_TELL):
+            half = self.popsize // 2
+            f_plus, f_minus = fitnesses[:half], fitnesses[half:]
+            baseline = fitnesses.mean()
+            f_scale = torch.clamp(fitnesses.max() - fitnesses.min(),
+                                  min=f32(1e-8))
+            d_center = ((f_plus - f_minus)[:, None] * 0.5 * eps
+                        ).mean(dim=0) / f_scale
+            gnorm = torch.sqrt(torch.sum(d_center * d_center)) + f32(1e-12)
+            step_v = d_center / gnorm * f32(self.lr_center)
+            velocity = f32(self.momentum) * state.velocity + step_v
+            if self.max_speed is not None:
+                vnorm = torch.sqrt(torch.sum(velocity * velocity)) + f32(1e-12)
+                velocity = torch.where(
+                    vnorm > f32(self.max_speed),
+                    velocity * (f32(self.max_speed) / vnorm), velocity)
+            center = state.center + velocity
+            f_avg = (f_plus + f_minus) * 0.5
+            adv = (f_avg - baseline) / f_scale
+            s2 = state.stdev[None, :] * state.stdev[None, :]
+            d_stdev = (adv[:, None] * (eps * eps - s2) / state.stdev[None, :]
+                       ).mean(dim=0)
+            stdev_step = f32(self.lr_stdev) * d_stdev
+            max_delta = state.stdev * f32(self.stdev_max_change)
+            stdev = state.stdev + torch.clamp(stdev_step, -max_delta,
+                                              max_delta)
+            stdev = torch.clamp(stdev, min=f32(1e-6))
+            return EsState(center=center, stdev=stdev, velocity=velocity,
+                           step=state.step + 1)
 
 
 class _CmaConstants:
@@ -200,33 +204,35 @@ class SepCMAES(_CmaConstants):
                         step=torch.zeros((), dtype=torch.int32, device=dev))
 
     def ask(self, state: CmaState, key):
-        z = _normal(key, (self.popsize, self.d), state.mean.device)
-        y = z * torch.sqrt(state.c_diag)[None, :]
-        return state.mean[None, :] + state.sigma * y, z
+        with annotate(ES_ASK):
+            z = _normal(key, (self.popsize, self.d), state.mean.device)
+            y = z * torch.sqrt(state.c_diag)[None, :]
+            return state.mean[None, :] + state.sigma * y, z
 
     def tell(self, state: CmaState, z, fitnesses) -> CmaState:
-        w = self.weights(z.device)
-        order = torch.argsort(-fitnesses, stable=True)  # maximize
-        z_sel = z[order[:self.mu]]
-        y_sel = z_sel * torch.sqrt(state.c_diag)[None, :]
-        z_w = torch.sum(w[:, None] * z_sel, dim=0)
-        y_w = torch.sum(w[:, None] * y_sel, dim=0)
-        mean = state.mean + state.sigma * y_w
-        cs, ds, cc = f32(self.cs), f32(self.ds), f32(self.cc)
-        mueff = f32(self.mueff)
-        p_sigma = f32(1.0 - cs) * state.p_sigma \
-            + f32(np.sqrt(np.float32(cs * (2.0 - cs) * mueff))) * z_w
-        sigma = state.sigma * torch.exp(
-            f32(cs / ds) * (torch.linalg.norm(p_sigma) / f32(self.chi_d)
-                            - 1.0))
-        p_c = f32(1.0 - cc) * state.p_c \
-            + f32(np.sqrt(np.float32(cc * (2.0 - cc) * mueff))) * y_w
-        rank_mu = torch.sum(w[:, None] * (y_sel * y_sel), dim=0)
-        c_diag = (f32(1.0 - self.c1 - self.cmu) * state.c_diag
-                  + f32(self.c1) * (p_c * p_c) + f32(self.cmu) * rank_mu)
-        c_diag = torch.clamp(c_diag, min=f32(1e-12))
-        return CmaState(mean=mean, sigma=sigma, c_diag=c_diag,
-                        p_sigma=p_sigma, p_c=p_c, step=state.step + 1)
+        with annotate(ES_TELL):
+            w = self.weights(z.device)
+            order = torch.argsort(-fitnesses, stable=True)  # maximize
+            z_sel = z[order[:self.mu]]
+            y_sel = z_sel * torch.sqrt(state.c_diag)[None, :]
+            z_w = torch.sum(w[:, None] * z_sel, dim=0)
+            y_w = torch.sum(w[:, None] * y_sel, dim=0)
+            mean = state.mean + state.sigma * y_w
+            cs, ds, cc = f32(self.cs), f32(self.ds), f32(self.cc)
+            mueff = f32(self.mueff)
+            p_sigma = f32(1.0 - cs) * state.p_sigma \
+                + f32(np.sqrt(np.float32(cs * (2.0 - cs) * mueff))) * z_w
+            sigma = state.sigma * torch.exp(
+                f32(cs / ds) * (torch.linalg.norm(p_sigma) / f32(self.chi_d)
+                                - 1.0))
+            p_c = f32(1.0 - cc) * state.p_c \
+                + f32(np.sqrt(np.float32(cc * (2.0 - cc) * mueff))) * y_w
+            rank_mu = torch.sum(w[:, None] * (y_sel * y_sel), dim=0)
+            c_diag = (f32(1.0 - self.c1 - self.cmu) * state.c_diag
+                      + f32(self.c1) * (p_c * p_c) + f32(self.cmu) * rank_mu)
+            c_diag = torch.clamp(c_diag, min=f32(1e-12))
+            return CmaState(mean=mean, sigma=sigma, c_diag=c_diag,
+                            p_sigma=p_sigma, p_c=p_c, step=state.step + 1)
 
 
 class CMAES(_CmaConstants):
@@ -239,9 +245,10 @@ class CMAES(_CmaConstants):
 
     @staticmethod
     def _eig(cov):
-        c = (cov + cov.T) * 0.5
-        evals, evecs = torch.linalg.eigh(c)
-        return torch.clamp(evals, min=f32(1e-12)), evecs
+        with annotate(ES_EIGH):
+            c = (cov + cov.T) * 0.5
+            evals, evecs = torch.linalg.eigh(c)
+            return torch.clamp(evals, min=f32(1e-12)), evecs
 
     def init(self, center0) -> FullCmaState:
         m = _center0(center0)
@@ -257,43 +264,47 @@ class CMAES(_CmaConstants):
 
     def ask(self, state: FullCmaState, key):
         """pop f32[popsize, D] and y = B diag(sqrt(evals)) z."""
-        z = _normal(key, (self.popsize, self.d), state.mean.device)
-        y = (z * torch.sqrt(state.evals)[None, :]) @ state.evecs.T
-        return state.mean[None, :] + state.sigma * y, y
+        with annotate(ES_ASK):
+            z = _normal(key, (self.popsize, self.d), state.mean.device)
+            y = (z * torch.sqrt(state.evals)[None, :]) @ state.evecs.T
+            return state.mean[None, :] + state.sigma * y, y
 
     def tell(self, state: FullCmaState, y, fitnesses) -> FullCmaState:
-        w = self.weights(y.device)
-        order = torch.argsort(-fitnesses, stable=True)  # maximize
-        y_sel = y[order[:self.mu]]
-        y_w = torch.sum(w[:, None] * y_sel, dim=0)
-        mean = state.mean + state.sigma * y_w
-        cs, ds, cc = f32(self.cs), f32(self.ds), f32(self.cc)
-        mueff = f32(self.mueff)
-        inv_sqrt = (state.evecs * (1.0 / torch.sqrt(state.evals))[None, :]) \
-            @ state.evecs.T
-        p_sigma = f32(1.0 - cs) * state.p_sigma \
-            + f32(np.sqrt(np.float32(cs * (2.0 - cs) * mueff))) \
-            * (inv_sqrt @ y_w)
-        t1 = state.step.to(torch.float32) + 1.0
-        ps_norm = torch.linalg.norm(p_sigma)
-        denom = torch.sqrt(1.0 - torch.pow(_f32(1.0 - cs, y.device),
-                                           2.0 * t1))
-        hsig = (ps_norm / denom / f32(self.chi_d)
-                < f32(1.4 + 2.0 / (self.d + 1.0))).to(torch.float32)
-        p_c = f32(1.0 - cc) * state.p_c \
-            + hsig * f32(np.sqrt(np.float32(cc * (2.0 - cc) * mueff))) * y_w
-        rank_mu = torch.einsum("i,ij,ik->jk", w, y_sel, y_sel)
-        c1, cmu = f32(self.c1), f32(self.cmu)
-        cov = (f32(1.0 - c1 - cmu) * state.cov
-               + c1 * (torch.outer(p_c, p_c)
-                       + (1.0 - hsig) * f32(cc * (2.0 - cc)) * state.cov)
-               + cmu * rank_mu)
-        sigma = state.sigma * torch.exp(
-            f32(cs / ds) * (ps_norm / f32(self.chi_d) - 1.0))
-        evals, evecs = self._eig(cov)  # the generation's one eigh
-        return FullCmaState(mean=mean, sigma=sigma, cov=cov, evals=evals,
-                            evecs=evecs, p_sigma=p_sigma, p_c=p_c,
-                            step=state.step + 1)
+        with annotate(ES_TELL):
+            w = self.weights(y.device)
+            order = torch.argsort(-fitnesses, stable=True)  # maximize
+            y_sel = y[order[:self.mu]]
+            y_w = torch.sum(w[:, None] * y_sel, dim=0)
+            mean = state.mean + state.sigma * y_w
+            cs, ds, cc = f32(self.cs), f32(self.ds), f32(self.cc)
+            mueff = f32(self.mueff)
+            inv_sqrt = (state.evecs
+                        * (1.0 / torch.sqrt(state.evals))[None, :]) \
+                @ state.evecs.T
+            p_sigma = f32(1.0 - cs) * state.p_sigma \
+                + f32(np.sqrt(np.float32(cs * (2.0 - cs) * mueff))) \
+                * (inv_sqrt @ y_w)
+            t1 = state.step.to(torch.float32) + 1.0
+            ps_norm = torch.linalg.norm(p_sigma)
+            denom = torch.sqrt(1.0 - torch.pow(_f32(1.0 - cs, y.device),
+                                               2.0 * t1))
+            hsig = (ps_norm / denom / f32(self.chi_d)
+                    < f32(1.4 + 2.0 / (self.d + 1.0))).to(torch.float32)
+            p_c = f32(1.0 - cc) * state.p_c \
+                + hsig * f32(np.sqrt(np.float32(cc * (2.0 - cc) * mueff))) \
+                * y_w
+            rank_mu = torch.einsum("i,ij,ik->jk", w, y_sel, y_sel)
+            c1, cmu = f32(self.c1), f32(self.cmu)
+            cov = (f32(1.0 - c1 - cmu) * state.cov
+                   + c1 * (torch.outer(p_c, p_c)
+                           + (1.0 - hsig) * f32(cc * (2.0 - cc)) * state.cov)
+                   + cmu * rank_mu)
+            sigma = state.sigma * torch.exp(
+                f32(cs / ds) * (ps_norm / f32(self.chi_d) - 1.0))
+            evals, evecs = self._eig(cov)  # the generation's one eigh
+            return FullCmaState(mean=mean, sigma=sigma, cov=cov, evals=evals,
+                                evecs=evecs, p_sigma=p_sigma, p_c=p_c,
+                                step=state.step + 1)
 
 
 class OpenAIES:
@@ -320,21 +331,24 @@ class OpenAIES:
                                         device=c.device))
 
     def ask(self, state: EsState, key):
-        half = self.popsize // 2
-        eps = _normal(key, (half, self.d), state.center.device) \
-            * f32(self.sigma)
-        pop = torch.cat([state.center[None, :] + eps,
-                         state.center[None, :] - eps], dim=0)
-        return pop, eps
+        with annotate(ES_ASK):
+            half = self.popsize // 2
+            eps = _normal(key, (half, self.d), state.center.device) \
+                * f32(self.sigma)
+            pop = torch.cat([state.center[None, :] + eps,
+                             state.center[None, :] - eps], dim=0)
+            return pop, eps
 
     def tell(self, state: EsState, eps, fitnesses) -> EsState:
-        shaped = centered_ranks(fitnesses)
-        half = self.popsize // 2
-        w = shaped[:half] - shaped[half:]
-        grad = (w[:, None] * eps).mean(dim=0) / f32(self.sigma ** 2)
-        velocity = f32(self.momentum) * state.velocity + f32(self.lr) * grad
-        return EsState(center=state.center + velocity, stdev=state.stdev,
-                       velocity=velocity, step=state.step + 1)
+        with annotate(ES_TELL):
+            shaped = centered_ranks(fitnesses)
+            half = self.popsize // 2
+            w = shaped[:half] - shaped[half:]
+            grad = (w[:, None] * eps).mean(dim=0) / f32(self.sigma ** 2)
+            velocity = f32(self.momentum) * state.velocity \
+                + f32(self.lr) * grad
+            return EsState(center=state.center + velocity, stdev=state.stdev,
+                           velocity=velocity, step=state.step + 1)
 
 
 def es_center(state) -> torch.Tensor:

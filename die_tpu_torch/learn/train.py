@@ -40,6 +40,7 @@ from die_tpu_torch.learn.es import (CMAES, PGPE, OpenAIES, SepCMAES,
                                     es_center, es_spread, shard_population,
                                     unshard_population)
 from die_tpu_torch.parallel.rollout import rollout
+from die_tpu_torch.utils.profiling import ES_KEYS, GENERATION, annotate
 
 
 @dataclass
@@ -106,14 +107,15 @@ def member_env_keys(epoch_key: torch.Tensor, popsize: int,
                     envs_per_eval: int):
     """(env init, policy init, rollout) keys ``[popsize * envs, 2]``,
     member-major, of the generation keyed ``epoch_key``."""
-    dev = epoch_key.device
-    member = fold_in(fold_in(epoch_key, 1),
-                     torch.arange(popsize, device=dev))
-    ks = torch.arange(envs_per_eval, device=dev)[None, :]
-    return tuple(fold_in(fold_in(member, tag)[:, None, :], ks).reshape(-1, 2)
-                 for tag in (ch.TAG_SESSION_ENV_INIT,
-                             ch.TAG_SESSION_POLICY_INIT,
-                             ch.TAG_SESSION_ROLLOUT))
+    with annotate(ES_KEYS):     # the generation's key schedule
+        dev = epoch_key.device
+        member = fold_in(fold_in(epoch_key, 1),
+                         torch.arange(popsize, device=dev))
+        ks = torch.arange(envs_per_eval, device=dev)[None, :]
+        return tuple(
+            fold_in(fold_in(member, tag)[:, None, :], ks).reshape(-1, 2)
+            for tag in (ch.TAG_SESSION_ENV_INIT, ch.TAG_SESSION_POLICY_INIT,
+                        ch.TAG_SESSION_ROLLOUT))
 
 
 def build_generation_step(dynamics: Dynamics, policy, cfg: TrainConfig,
@@ -185,8 +187,11 @@ def es_loop(generation, es_state, cfg, log_fn: Optional[Callable] = None,
     history = []
     t_start = time.time()
     for epoch in range(start_epoch, cfg.epochs):
-        es_state, metrics = generation(es_state, fold_in(master, epoch))
-        m = {k: float(v) for k, v in metrics.items()}
+        # the generation and its metrics' read to the host; the log_fn is
+        # outside, so a profiler started or stopped there sees whole spans
+        with annotate(GENERATION):
+            es_state, metrics = generation(es_state, fold_in(master, epoch))
+            m = {k: float(v) for k, v in metrics.items()}
         m["epoch"] = epoch
         if timed:
             m["wall_s"] = time.time() - t_start

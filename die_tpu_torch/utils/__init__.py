@@ -7,12 +7,11 @@ from die_tpu_torch.utils.dedup import index_select, mask_duplicates
 from die_tpu_torch.utils.metrics import (ChannelLogger, JsonlSink,
                                          MlflowSink, MultiSink, StdoutSink,
                                          setup_logging)
-from die_tpu_torch.utils.profiling import (StepTimer, annotate, named_scope,
-                                           trace)
+from die_tpu_torch.utils.profiling import annotate, trace
 
 __all__ = ["save_pytree", "load_pytree", "save_sharded", "load_sharded",
            "save_training_state",
            "load_training_state", "load_training_best", "index_select",
            "mask_duplicates", "JsonlSink", "StdoutSink", "MlflowSink",
-           "MultiSink", "setup_logging", "ChannelLogger", "StepTimer",
-           "trace", "annotate", "named_scope"]
+           "MultiSink", "setup_logging", "ChannelLogger", "trace",
+           "annotate"]

@@ -1,33 +1,72 @@
-"""Tracing and profiling hooks (twin of the JAX package's
-``utils/profiling.py``, on ``torch.profiler``).
+"""Tracing hooks (twin of the JAX package's ``utils/profiling.py``, on
+``torch.profiler``).
 
 * ``trace(logdir)``: a context manager profiling the CPU and, where there
   is one, the CUDA device; on exit it writes a Chrome trace
   (``trace_<pid>_<n>.json``, loadable in Perfetto or chrome://tracing)
   into ``logdir``.
-* ``annotate(name)`` and ``named_scope(name)``: a named region
-  (``torch.profiler.record_function``) that shows in the trace.  Eager
-  torch has no compiled program to attach a scope to, so the two are the
-  same here.
-* ``StepTimer``: a host-side env-steps/s counter with exponential
-  smoothing.
+* ``annotate(name)``: a named host region (``torch.profiler.
+  record_function``) while a torch profiler records, else a shared no-op
+  context that costs one flag read.  The hot path carries the spans below
+  at each layer boundary, so they are live exactly when someone profiles
+  (``trace``, or any ``torch.profiler.profile``) and free otherwise.  They
+  are profiler events: they share the profiler's clock with the device's
+  kernels, so each idle stretch of the device falls inside the span the
+  host was in.
+
+The span names, the contract between the program and whoever reads its
+traces:
+
+``die.generation``
+    one ES generation in ``learn/train.py::es_loop``: the generation's
+    work and the read of its metrics to host floats, not the ``log_fn``.
+``die.es.keys``
+    the generation's key schedule (``fast/learned.py::generation_keys``,
+    ``learn/train.py::member_env_keys``).
+``die.es.ask``, ``die.es.tell``
+    every searcher's ``ask`` and ``tell`` (``learn/es.py``).
+``die.es.eigh``
+    the full-covariance CMA-ES decomposition, inside ``die.es.tell``.
+``die.init``
+    the state init of every env (``fast/init.py::fast_init``).
+``die.rollout``
+    a rollout entry (``fast_rollout_auto``, ``learned_fast_rollout_auto``),
+    on either device.
+``die.keys``
+    a chunk's per-step keys in ``kernel_rollout`` and
+    ``banded_rollout_batch``.
+``die.step``
+    one step's host enqueue in ``kernel_rollout`` (one launch of
+    ``banded_rollout_batch``): the flow field, the wrapper's allocations
+    and parameter words, the C entry and the fold's launch.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 import os
-import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+GENERATION = "die.generation"
+ES_KEYS = "die.es.keys"
+ES_ASK = "die.es.ask"
+ES_TELL = "die.es.tell"
+ES_EIGH = "die.es.eigh"
+INIT = "die.init"
+ROLLOUT = "die.rollout"
+KEYS = "die.keys"
+STEP = "die.step"
 
 _TRACES = itertools.count()
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
 def trace(logdir: str, python_tracer: bool = False):
     """Profile the block; ``python_tracer`` records Python call stacks
     too (large traces)."""
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -40,36 +79,7 @@ def trace(logdir: str, python_tracer: bool = False):
 
 
 def annotate(name: str):
-    import torch
-
-    return torch.profiler.record_function(name)
-
-
-def named_scope(name: str):
-    return annotate(name)
-
-
-class StepTimer:
-    """Tracks env-steps/s across rollout chunks (host wall clock)."""
-
-    def __init__(self, smoothing: float = 0.9):
-        self._smoothing = smoothing
-        self._rate = None
-        self._last = None
-        self.total_steps = 0
-
-    def update(self, env_steps: int) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = max(now - self._last, 1e-9)
-            rate = env_steps / dt
-            self._rate = (rate if self._rate is None
-                          else self._smoothing * self._rate
-                          + (1 - self._smoothing) * rate)
-        self._last = now
-        self.total_steps += env_steps
-        return self._rate or 0.0
-
-    @property
-    def rate(self) -> float:
-        return self._rate or 0.0
+    """A named region while a torch profiler records, else a no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF

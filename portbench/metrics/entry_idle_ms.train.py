@@ -1,0 +1,8 @@
+"""entry_idle_ms.train: device-idle ms a generation inside the program's
+``die.rollout`` spans, the rollout entry of the training loop
+(``portbench.spans.idle_ms_per_unit``)."""
+from portbench.spans import idle_ms_per_unit
+
+
+def read(rec):
+    return idle_ms_per_unit(rec, "ROLLOUT")

@@ -1,0 +1,8 @@
+"""search_idle_ms.train: device-idle ms a generation inside the program's
+``die.es.keys``, ``die.es.ask`` and ``die.es.tell`` spans
+(``portbench.spans.idle_ms_per_unit``)."""
+from portbench.spans import idle_ms_per_unit
+
+
+def read(rec):
+    return idle_ms_per_unit(rec, "ES_KEYS", "ES_ASK", "ES_TELL")

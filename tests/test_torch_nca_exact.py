@@ -8,7 +8,7 @@ rollout (rewards bitwise; ``total_reward`` to rtol 1e-6, its order is the
 library's in both packages).  Then the utilities that came with the
 trainer: the checkpoint tree format both ways, ``load_training_best``'s
 guard, the metric sinks, ``mask_duplicates``/``index_select``,
-``StepTimer`` and ``trace``."""
+``trace`` and ``annotate``."""
 import io
 import json
 import os
@@ -41,10 +41,10 @@ from die_tpu_torch.learn.es import CmaState, EsState
 from die_tpu_torch.models import NCAPolicy, Policy, nca_layer_plan
 from die_tpu_torch.parallel.rollout import rollout
 from die_tpu_torch.utils import (ChannelLogger, JsonlSink, MultiSink,
-                                 StdoutSink, StepTimer, annotate,
-                                 index_select, load_pytree,
-                                 load_training_best, mask_duplicates,
-                                 save_pytree, save_training_state, trace)
+                                 StdoutSink, annotate, index_select,
+                                 load_pytree, load_training_best,
+                                 mask_duplicates, save_pytree,
+                                 save_training_state, trace)
 
 from helpers.torch_exact import assert_bits, assert_state, port_dynamics, t32
 from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -272,10 +272,7 @@ def test_dedup_matches_jax():
     assert np.array_equal(index_select(x, idx), np.take(x, idx, axis=0))
 
 
-def test_step_timer_and_trace(tmp_path):
-    timer = StepTimer(smoothing=0.5)
-    assert timer.update(10) == 0.0 and timer.rate == 0.0
-    assert timer.update(10) > 0.0 and timer.total_steps == 20
+def test_trace_and_annotate(tmp_path):
     with trace(str(tmp_path / "tr")):
         with annotate("die/step"):
             torch.ones(8).sum()
