@@ -36,15 +36,16 @@ Phases (any failure exits non-zero):
      under the plan's own input buffers, one, two (where they fit) and
      4-byte copies; and the rule on NaN and +-0.0 food;
   4. the main path: ``fast_init`` + ``fast_rollout_auto`` with
-     ``FastDynamics()`` at 256x256, with launch counts read around it,
-     finite rewards and a conserved agent count;
+     ``FastDynamics()`` at 256x256, with launch counts read around both
+     (``lattice_init`` once), finite rewards and a conserved agent count;
   5. the learned path, each part with the counts read around it: every
      committed artifact replayed over the full EVAL_PROTOCOL block through
      ``learned_fast_rollout_auto`` (bitwise against the plain rollout on
      the card, mean score beside the JAX package's documented one);
      ``train_lattice`` at the wide record's configuration (popsize 64 x 16
      envs, 64x128, 50 steps, warm CMAES) for 3 generations, timed, every
-     step through K3 and K2 (its breakdown is ``portbench``'s traced train
+     step through K3 and K2 and every generation's init through one
+     ``lattice_init`` (its breakdown is ``portbench``'s traced train
      cell); and the perlin path (Jones at the main path's size, wide at
      64x128);
   6. the fused tiled kernel (K4) against its plain version
@@ -73,7 +74,10 @@ Phases (any failure exits non-zero):
      grid); the step kernel's time taken apart (``tools/step_split.py``: the
      region loads and tile stores alone, with phase 1, with phases 1-3,
      whole; K1 at ``FastDynamics()`` and ``tuned_dynamics(16)``, K3 wide,
-     K4 at K = 1);
+     K4 at K = 1); the init kernel (``lattice_init``) at the train cell's
+     1024 x 64x128 and the main path's 1024 x 256x256, bitwise against its
+     plain version on the card, one launch a call, timed beside its byte
+     bound and the plain version;
   9. the exact (flat-agent) engine.  Early, beside phase 3: the gather
      kernel (K5) against ``gather_fields_plain`` bitwise on both of its
      routes (F in 1..3, M in {256, 2304, 65536}, N in {1, 777, 65536}, B in
@@ -934,6 +938,10 @@ def phase_train(gens: int):
             counts["tree_sum_2d"] < gens * cfg.epoch_iters:
         raise AssertionError("train_lattice did not run every step through "
                              "K3 and K2")
+    if counts["lattice_init"] != gens:
+        raise AssertionError(f"train_lattice launched lattice_init "
+                             f"{counts['lattice_init']} times in {gens} "
+                             f"generations, not once a generation")
     if tuple(best.shape) != tuple(warm.shape) or len(history) != gens:
         raise AssertionError("train_lattice result has the wrong shape")
     if not all(math.isfinite(h["best"]) and math.isfinite(h["mean"])
@@ -1204,17 +1212,6 @@ def phase_fused_resume(B: int):
             f"to 8 plain steps")
 
 
-def chunked_init(seed: int, B: int, field, dyn, chunk: int = 8):
-    """fast_init in chunks of envs, so that its temporaries stay small at
-    2048x2048."""
-    from die_tpu_torch.fast.init import fast_init
-
-    keys = env_keys(seed, B)
-    parts = [fast_init(keys[i:i + chunk], field, dyn, device="cuda")
-             for i in range(0, B, chunk)]
-    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
-
-
 FUSED_STEPS = 6  # steps of a fused parity case: a multiple of K = 1, 2, 3
 LARGE_PREFIX = 8  # steps of every env held against the plain rollout
 LARGE_FIELDS = [((512, 512), 32, 256), ((1024, 1024), 8, 256),
@@ -1233,13 +1230,14 @@ def phase_large_field(smi: str):
     largest)."""
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.fast.config import FastDynamics
+    from die_tpu_torch.fast.init import fast_init
     from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
 
     dyn = FastDynamics()
     rows, counts = [], {k: 0 for k in cuda_step.KERNELS}
     for field, B, T in LARGE_FIELDS:
         t0 = time.perf_counter()
-        state = chunked_init(40, B, field, dyn)
+        state = fast_init(env_keys(40, B), field, dyn, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n0 = (state.occ > 0).sum(dim=(1, 2), dtype=torch.int32)
@@ -3125,7 +3123,8 @@ def phase_user_fast(smi: str) -> dict:
         iters=FAST_ITERS, device="cuda"))
     secs = time.perf_counter() - t0
     expect_counts("minimal_run --engine fast", counts,
-                  {"lattice_step": FAST_ITERS, "tree_sum_2d": FAST_ITERS})
+                  {"lattice_step": FAST_ITERS, "tree_sum_2d": FAST_ITERS,
+                   "lattice_init": 1})
     st0 = fast_init(key(0, ch.TAG_SESSION_ENV_INIT, device="cuda"),
                     (256, 256), dyn, device="cuda")
     ref = fast_rollout(dyn, st0, key(0, ch.TAG_SESSION_ROLLOUT,
@@ -3227,7 +3226,8 @@ def phase_user_replay(smi: str, absent: list) -> dict:
     (r, start, secs), counts = counted(lambda: play(False))
     T = F * r.steps_per_frame
     expect_counts("replay_lattice", counts,
-                  {"lattice_step_learned_wide": T, "tree_sum_2d": T})
+                  {"lattice_step_learned_wide": T, "tree_sum_2d": T,
+                   "lattice_init": 1})
     r2, _, secs_r = play(True)
     whole = learned_fast_rollout_auto(r.dyn, r.params, start, r.roll_key, T,
                                       device="cuda")
@@ -3365,13 +3365,15 @@ def phase_train_examples(smi: str, workdir: str, launches: dict) -> dict:
         if not (math.isfinite(out["first_epoch_best"])
                 and math.isfinite(out["overall_best"])):
             raise AssertionError(f"train_lattice --model {model}: {out}")
-        if model == "conv":  # the eager plain step: no kernel
-            expect_counts("train_lattice --model conv", counts, {})
+        if model == "conv":  # the eager plain step: no step kernel
+            expect_counts("train_lattice --model conv", counts,
+                          {"lattice_init": TRAIN_EPOCHS})
         else:
             steps = TRAIN_EPOCHS * 50
             expect_counts(f"train_lattice --model {model}", counts,
                           {f"lattice_step_learned_{model}": steps,
-                           "tree_sum_2d": steps})
+                           "tree_sum_2d": steps,
+                           "lattice_init": TRAIN_EPOCHS})
         add_counts(launches, counts)
         rec[f"train_lattice_{model}"] = {"overall_best": out["overall_best"],
                                          "seconds": secs,
@@ -3408,7 +3410,8 @@ def phase_train_examples(smi: str, workdir: str, launches: dict) -> dict:
             ["--ckpt-dir", c5, "--device", "cuda"]))
     full_s = time.perf_counter() - t0
     expect_counts("train_config5", counts,
-                  {"lattice_step_learned_linear": 50, "tree_sum_2d": 50})
+                  {"lattice_step_learned_linear": 50, "tree_sum_2d": 50,
+                   "lattice_init": 5})
     add_counts(launches, counts)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
@@ -3418,7 +3421,8 @@ def phase_train_examples(smi: str, workdir: str, launches: dict) -> dict:
              "--start-epoch", "2", "--device", "cuda"]))
     resumed_s = time.perf_counter() - t0
     expect_counts("train_config5 resumed", rcounts,
-                  {"lattice_step_learned_linear": 30, "tree_sum_2d": 30})
+                  {"lattice_step_learned_linear": 30, "tree_sum_2d": 30,
+                   "lattice_init": 3})
     add_counts(launches, rcounts)
     import numpy as np
 
@@ -4142,6 +4146,7 @@ def main():
     B, T = args.envs, args.steps
     if (B, T) != (1024, 256):
         log(f"main path cut: {B} envs x {T} steps (full: 1024 x 256)")
+    cuda_step.reset_launches()
     t0 = time.perf_counter()
     state = fast_init(env_keys(0, B), FIELD, dyn, device="cuda")
     rkeys = env_keys(1, B)
@@ -4149,7 +4154,6 @@ def main():
     log(f"fast_init {B} envs at {FIELD}: {time.perf_counter() - t0:.2f} s")
     n0 = (state.occ > 0).sum(dim=(1, 2), dtype=torch.int32)
 
-    cuda_step.reset_launches()
     final, rewards, nums = fast_rollout_auto(dyn, state, rkeys, T,
                                              device="cuda")
     torch.cuda.synchronize()
@@ -4158,6 +4162,9 @@ def main():
     for name in ("lattice_step", "tree_sum_2d"):
         if counts[name] < 1:
             raise AssertionError(f"{name} was not launched on the main path")
+    if counts["lattice_init"] != 1:
+        raise AssertionError("the main path's fast_init did not launch "
+                             "lattice_init once")
     if tuple(rewards.shape) != (B, T) or not bool(torch.isfinite(rewards).all()):
         raise AssertionError("rewards are not finite [B, T]")
     if not bool((nums == n0[:, None]).all()):
@@ -4178,6 +4185,9 @@ def main():
         if serve_counts[f"lattice_step_learned_{fam}"] < 1:
             raise AssertionError(f"K3 ({fam}) was not launched in the "
                                  f"held-out replay")
+    if serve_counts["lattice_init"] != len(ARTIFACTS):
+        raise AssertionError("the held-out replay did not launch "
+                             "lattice_init once an artifact")
     train_rate, train_counts, per_gen = phase_train(args.train_gens)
     perlin_counts, pstate = phase_perlin_path(B, args.perlin_steps)
 
@@ -4235,6 +4245,7 @@ def main():
         f"{k1_plain_ms:.3f} ms")
     log(f"tree_sum_2d: {k2_ms:.4f} ms/launch (bound {k2_bound:.4f} ms); "
         f"plain {k2_plain_ms:.4f} ms; torch.sum {k2_lib_ms:.4f} ms")
+    init_rows = phase_init(rate)
     # the step kernel's time taken apart (K1 at both configs, K3 wide, K4
     # at K = 1): loads and stores alone, with phase 1, with phases 1-3,
     # whole
@@ -4263,6 +4274,11 @@ def main():
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": k2_lib_ms, "shapes": fold_rows},
+        dict(init_rows[0], name="lattice_init", route="cuda",
+             source="die_tpu_torch/csrc/lattice_init.cu", replaces=None,
+             launches=counts["lattice_init"] + serve_counts["lattice_init"]
+             + train_counts["lattice_init"],
+             match=True, max_abs_err=0.0, library_ms=None, shapes=init_rows),
     ]
     kernels += time_learned(B, rate, serve_counts, train_counts, k3_err)
     kernels += time_perlin(rate, pstate, perlin_counts, k1_err)
@@ -4334,6 +4350,46 @@ def main():
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+INIT_SHAPES = ((1024, (64, 128)), (1024, (256, 256)))  # train cell, main path
+INIT_BYTES = 5 * F32_BYTES  # the five fields a cell, written once
+
+
+def phase_init(rate: float) -> list:
+    """``lattice_init`` at ``INIT_SHAPES`` under the wide record's
+    dynamics: one launch a call, bitwise against its plain version on the
+    card, then timed (CUDA events over 50 calls) beside its byte bound and
+    the plain version's time."""
+    from die_tpu_torch.core.rng import as_key_tensor
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.init import fast_init, fast_init_plain
+
+    dyn = eval_protocol_dynamics(16)
+    rows = []
+    for B, field in INIT_SHAPES:
+        keys = as_key_tensor(env_keys(60, B), "cuda")
+        before = cuda_step.launches["lattice_init"]
+        st = fast_init(keys, field, dyn, device="cuda")
+        launched = cuda_step.launches["lattice_init"] - before
+        ref = fast_init_plain(keys, field, dyn, "cuda")
+        if launched != 1 or not all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(st, ref)):
+            raise AssertionError(f"lattice_init {B} x {field}: {launched} "
+                                 f"launches, or differs from the plain init")
+        ms = time_ms(lambda: fast_init(keys, field, dyn, device="cuda"), 50)
+        plain_ms = time_ms(lambda: fast_init_plain(keys, field, dyn, "cuda"),
+                           3, warmup=1)
+        bound = B * field[0] * field[1] * INIT_BYTES / rate * 1e3
+        rows.append({"envs": B, "field": list(field), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "launches": launched})
+        log(f"lattice_init {B} x {field[0]}x{field[1]}: {ms:.4f} ms/launch "
+            f"(bound {bound:.4f} ms, {INIT_BYTES} bytes a cell at "
+            f"{rate / 1e12:.2f} TB/s); plain {plain_ms:.3f} ms; bitwise")
+    return rows
 
 
 LEARNED_TIMING = {  # family -> artifact timed at the training shape

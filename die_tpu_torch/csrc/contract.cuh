@@ -1,8 +1,9 @@
 // The bit contract on the device: counter-based RNG (threefry2x32, murmur3
-// fmix32) and the fp32 math kernels (Newton rsqrt/sqrt, Cody-Waite sincos),
-// in the operation order of the NumPy oracle (die_tpu_torch/core/rng.py and
-// core/mathx.py are the host twins).  Every constant is given by its fp32
-// bit pattern, so no decimal literal is rounded differently from numpy.
+// fmix32, uniforms from bits) and the fp32 math kernels (Newton rsqrt/sqrt,
+// Cody-Waite sincos, round3), in the operation order of the NumPy oracle
+// (die_tpu_torch/core/rng.py and core/mathx.py are the host twins).  Every
+// constant is given by its fp32 bit pattern, so no decimal literal is
+// rounded differently from numpy.
 // Build with --fmad=false: a contracted a*b+c rounds once, not twice, and
 // would leave the contract.
 #pragma once
@@ -40,6 +41,38 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
     x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
   }
   return x0 ^ x1;
+}
+
+// The same block of the counter pair (0, data) with both output words kept:
+// jax.random.fold_in(key, data) = (y0, y1).  threefry_bits keeps its own
+// body: written through this one, the step kernels compile to other SASS
+// and run 3-4% slower (K3 wide, K1 at 16 directions; H100).
+__device__ __forceinline__ void threefry_fold_in(uint32_t k0, uint32_t k1,
+                                                 uint32_t data, uint32_t* y0,
+                                                 uint32_t* y1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = 0u + ks[0];
+  uint32_t x1 = data + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  *y0 = x0;
+  *y1 = x1;
+}
+
+// u32 bits -> fp32 uniform in (0, 1): the top 23 bits times 2**-23, plus
+// 2**-24.
+__device__ __forceinline__ float uniform01(uint32_t bits) {
+  return (float)(bits >> 9) * f32_bits(0x34000000u) + f32_bits(0x33800000u);
 }
 
 __device__ __forceinline__ uint32_t murmur_finalize(uint32_t h) {
@@ -91,6 +124,11 @@ __device__ __forceinline__ void c_sincos(float theta, float* sin_v,
   const bool q0 = q == 0.0f, q1 = q == 1.0f, q2 = q == 2.0f;
   *sin_v = q0 ? s : (q1 ? c : (q2 ? -s : -c));
   *cos_v = q0 ? c : (q1 ? -s : (q2 ? -c : s));
+}
+
+// Round to 3 decimals, half-up: floor(u * 1000 + 0.5) * fp32(0.001).
+__device__ __forceinline__ float round3(float u) {
+  return floorf(u * 1000.0f + 0.5f) * f32_bits(0x3a83126fu);
 }
 
 }  // namespace die

@@ -26,6 +26,11 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
 - ``tree_sum_2d`` (``tree_sum_2d.cu``, K2): the order-pinned reward fold,
   streamed through registers in one launch (two where the columns split
   over blocks); :func:`fold_plans` is its launch.
+- ``lattice_init`` (``lattice_init.cu``): the initial state of a batch of
+  envs (``fast/init.py::fast_init`` on CUDA) in one launch, keys folded
+  and Perlin gradients drawn on the card; replaces no TPU kernel (XLA
+  fused the JAX package's init).  :func:`check_init_supported` is its
+  refusals; its plain version is ``fast/init.py::fast_init_plain``.
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
   too (by field count and by route); its wrapper and launch plan are
   ``ops/gather.py``.
@@ -43,7 +48,8 @@ loaded with ``ctypes``.  Flags: ``-gencode arch=compute_90a,code=sm_90a
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``fast/env.py``, ``fast/learned.py``, ``fast/tiled.py``); given CUDA
-tensors it launches the kernel or raises.  Each launch adds one to ``launches[name]`` of what it
+tensors it launches the kernel or raises (``lattice_init`` takes CUDA
+alone: ``fast/init.py::fast_init`` routes the CPU to its plain version).  Each launch adds one to ``launches[name]`` of what it
 launched (``*_perlin`` when the step read a flow field), and nothing else
 does.
 """
@@ -63,7 +69,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from die_tpu_torch.core import channels as ch
 from die_tpu_torch.core.mathx import f32
+from die_tpu_torch.core.rng import as_key_tensor
 from die_tpu_torch.fast.config import FastDynamics
 from die_tpu_torch.fast.env import (FastEnvState, check_supported,
                                     fast_step_full, flow_field_for,
@@ -85,6 +93,7 @@ SOURCES = {"lattice_step": "lattice_step.cu",
            "lattice_step_fused": "lattice_step_fused.cu",
            "lattice_step_fused_learned": "lattice_step_fused_learned.cu",
            "tree_sum_2d": "tree_sum_2d.cu",
+           "lattice_init": "lattice_init.cu",
            "gather_fields": "gather_fields.cu",
            "probe_alu": "probe_alu.cu",
            "probe_shift": "probe_shift.cu",
@@ -119,6 +128,7 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_steps_fused_learned_wide",
            "lattice_steps_fused_learned_ctx",
            "lattice_steps_fused_learned_perlin", "tree_sum_2d",
+           "lattice_init",
            "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
            "gather_fields_f4", "gather_fields_staged", "gather_fields_l2",
            *PROBE_KERNELS, *PROBE2_KERNELS)
@@ -191,7 +201,7 @@ def build() -> float:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
         for name in SOURCES:
-            if name in ("tree_sum_2d", "gather_fields") or \
+            if name in ("tree_sum_2d", "gather_fields", "lattice_init") or \
                     name.startswith("probe_"):
                 continue
             step = getattr(_libs[name], "die_" + name)
@@ -202,7 +212,12 @@ def build() -> float:
         fold = _libs["tree_sum_2d"].die_tree_sum_2d
         fold.argtypes = [vp, vp, vp, ip, ip, ip, vp, vp]
         fold.restype = ip
-        fp, lp = ctypes.c_float, ctypes.c_longlong
+        fp, lp, up = ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
+        # keys, the five fields, B, W, H, octaves, the axes' steps, the
+        # threshold and ratio, the heading mask, the four tags, the stream
+        init = _libs["lattice_init"].die_lattice_init
+        init.argtypes = [vp] * 6 + [ip] * 4 + [fp] * 4 + [up] * 5 + [vp]
+        init.restype = ip
         # four field pointers and batch strides, idx, out, the plan's
         # words (ops/gather.py::GatherPlan.words), the stream
         gather = _libs["gather_fields"].die_gather_fields
@@ -806,3 +821,63 @@ def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
     check_launch(rc, "tree_sum_2d")
     launches["tree_sum_2d"] += 1
     return out
+
+
+INIT_VEC = 4          # cells a thread stores at once (csrc kVec): H % 4 == 0
+INIT_MAX_OCTAVES = 15  # (o + 1)^2 gradients a block (csrc kMaxOctaves)
+
+
+def check_init_supported(field_size, dyn: FastDynamics):
+    """Raise ``ValueError`` for a field or ``FastDynamics`` that
+    ``lattice_init.cu`` does not take: a side below 2, ``H`` not a multiple
+    of 4, more than 2**31 - 1 cells, ``init_food_octaves`` outside 1..15."""
+    W, H = (int(s) for s in field_size)
+    if W < 2 or H < 2 or H % INIT_VEC or W * H > MAX_CELLS:
+        raise ValueError(f"lattice_init kernel takes W, H >= 2, H a multiple "
+                         f"of {INIT_VEC} and at most {MAX_CELLS} cells, got "
+                         f"{W}x{H}")
+    if not 1 <= dyn.init_food_octaves <= INIT_MAX_OCTAVES:
+        raise ValueError(f"lattice_init kernel takes init_food_octaves 1.."
+                         f"{INIT_MAX_OCTAVES}, got {dyn.init_food_octaves}")
+
+
+def lattice_init(keys, field_size, dyn: FastDynamics,
+                 device) -> FastEnvState:
+    """The initial state of one env per key pair of ``keys`` (uint32
+    ``[..., 2]``, numpy or torch) on the CUDA ``device``: one launch, with
+    no host sync where the keys are already there, none for an empty batch.
+    Fields f32 ``[..., W, H]``, flow_step int32 ``[...]``; a device other
+    than CUDA, or a shape :func:`check_init_supported` refuses, raises
+    before any launch (the entry point refuses a grid above 2**31 - 1
+    blocks).  Its plain version is ``fast/init.py::fast_init_plain``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"lattice_init kernel takes a CUDA device, got "
+                         f"{dev}")
+    check_init_supported(field_size, dyn)
+    keys = keys.to(device=dev, dtype=torch.int64) \
+        if isinstance(keys, torch.Tensor) else as_key_tensor(keys, dev)
+    if keys.dim() == 0 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be [..., 2], got {tuple(keys.shape)}")
+    W, H = (int(s) for s in field_size)
+    lead = tuple(keys.shape[:-1])
+    B = int(np.prod(lead, dtype=np.int64))
+    fields = [torch.empty(lead + (W, H), dtype=torch.float32, device=dev)
+              for _ in range(5)]
+    flow_step = torch.zeros(lead, dtype=torch.int32, device=dev)
+    if B == 0:
+        return FastEnvState(*fields, flow_step=flow_step)
+    build()
+    flat = keys.reshape(B, 2).contiguous()
+    o = int(dyn.init_food_octaves)
+    rc = _libs["lattice_init"].die_lattice_init(
+        flat.data_ptr(), *(f.data_ptr() for f in fields), B, W, H, o,
+        f32(o / (W - 1)), f32(o / (H - 1)), f32(dyn.init_food_threshold),
+        f32(dyn.init_agent_ratio), dyn.num_dirs - 1, ch.TAG_INIT_PERLIN,
+        ch.TAG_INIT_OCCUPANCY, ch.TAG_INIT_FOOD_GRID, ch.TAG_INIT_DIR,
+        _stream_ptr())
+    check_launch(rc, "lattice_init")
+    launches["lattice_init"] += 1
+    occ, dirf, agent_food, env_food, chem = fields
+    return FastEnvState(occ=occ, dir=dirf, agent_food=agent_food,
+                        env_food=env_food, chem=chem, flow_step=flow_step)

@@ -545,10 +545,7 @@ def large_rates() -> dict:
     for W, H, B, T in LARGE:
         seeds = fold_in(as_key_tensor(np_key(40), "cpu"),
                         torch.arange(B, dtype=torch.int64)).numpy()
-        parts = [fast_init(seeds[i:i + 8], (W, H), dyn, device="cuda")
-                 for i in range(0, B, 8)]
-        state = type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
-        del parts
+        state = fast_init(seeds, (W, H), dyn, device="cuda")
         for K in (1, 2):
             fast_rollout_auto(dyn, state, seeds, 2 * K, device="cuda",
                               num_inner=K)

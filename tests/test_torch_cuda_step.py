@@ -398,3 +398,92 @@ def test_fused_kernel_walks_several_items_on_card(cuda_device, family,
         assert torch.equal(out[1][:, k], rnum)
         assert torch.equal(out[2][k], rgained)
     assert all(torch.equal(a, b) for a, b in zip(out[0], ref))
+
+
+# ---- the init kernel ---------------------------------------------------------------
+
+INIT_FIELDS = [(64, 128), (256, 256), (16, 128), (32, 32), (64, 64),
+               (96, 96), (512, 512), (2048, 2048)]
+
+
+def _same_words(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("octaves,num_dirs", [(1, 8), (2, 16), (3, 8),
+                                              (4, 16), (5, 8), (6, 16),
+                                              (7, 8), (8, 16)])
+@pytest.mark.parametrize("field", INIT_FIELDS)
+def test_init_kernel_matches_plain_on_card(cuda_device, field, octaves,
+                                           num_dirs):
+    from die_tpu_torch.fast.init import fast_init_plain
+
+    dyn = FastDynamics(num_dirs=num_dirs, init_food_octaves=octaves,
+                       init_agent_ratio=0.15)
+    B = 2 if field[0] >= 512 else 6
+    keys = as_key_tensor(_keys(40 + octaves, B), "cuda")
+    lead = (B,) if octaves % 2 else (2, B // 2)
+    keys = keys.reshape(lead + (2,))
+    cuda_step.reset_launches()
+    st = fast_init(keys, field, dyn, device=cuda_device)
+    assert {k: v for k, v in cuda_step.launches.items() if v} == {
+        "lattice_init": 1}
+    ref = fast_init_plain(keys, field, dyn, cuda_device)
+    assert all(_same_words(a, b) for a, b in zip(st, ref))
+    assert st.occ.shape == lead + field and float(st.occ.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_init_kernel_matches_plain_at_the_train_cell_on_card(cuda_device):
+    """1024 envs of 64x128 under the wide record's dynamics, keyed as one
+    generation of its CMA-ES run with common random envs (64 members x 16
+    envs), the numpy keys copied once; and against the plain init on the
+    CPU for the first 16 envs."""
+    from die_tpu_torch.core.rng import fold_in
+    from die_tpu_torch.fast.config import eval_protocol_dynamics
+    from die_tpu_torch.fast.init import fast_init_plain
+    from die_tpu_torch.fast.learned import generation_keys
+
+    dyn = eval_protocol_dynamics(16)
+    master = as_key_tensor(np_key(2024), cuda_device)
+    _, init_keys, _ = generation_keys(fold_in(master, 3), 64, 16,
+                                      common_random_envs=True)
+    cuda_step.reset_launches()
+    st = fast_init(init_keys, (64, 128), dyn, device=cuda_device)
+    assert cuda_step.launches["lattice_init"] == 1
+    ref = fast_init_plain(init_keys, (64, 128), dyn, cuda_device)
+    assert all(_same_words(a, b) for a, b in zip(st, ref))
+    cpu = fast_init(init_keys[:16].cpu().numpy().astype(np.uint32),
+                    (64, 128), dyn, device="cpu")
+    assert all(_same_words(a[:16].cpu(), b) for a, b in zip(st, cpu))
+    from_numpy = fast_init(init_keys.cpu().numpy().astype(np.uint32),
+                           (64, 128), dyn, device=cuda_device)
+    assert all(_same_words(a, b) for a, b in zip(st, from_numpy))
+
+
+@pytest.mark.cuda
+def test_init_kernel_runs_without_a_host_sync_on_card(cuda_device):
+    dyn = tuned_dynamics(16)
+    keys = as_key_tensor(_keys(50, 64), "cuda")
+    fast_init(keys, (64, 128), dyn, device=cuda_device)  # built, warm
+    torch.cuda.synchronize()
+    cuda_step.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = fast_init(keys, (64, 128), dyn, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_step.launches["lattice_init"] == 1
+    assert st.flow_step.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_init_kernel_takes_an_empty_batch_without_a_launch(cuda_device):
+    cuda_step.reset_launches()
+    st = fast_init(torch.zeros((0, 2), dtype=torch.int64, device="cuda"),
+                   (64, 128), tuned_dynamics(16), device=cuda_device)
+    assert sum(cuda_step.launches.values()) == 0
+    assert st.occ.shape == (0, 64, 128) and st.flow_step.shape == (0,)
+    assert st.chem.device.type == "cuda"
