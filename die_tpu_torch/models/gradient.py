@@ -35,6 +35,7 @@ from die_tpu_torch.core.rng import (as_key_tensor, fold_in, random_bits,
                                     sign_from_bits, uniform01_from_bits)
 from die_tpu_torch.models.base import Policy, register
 from die_tpu_torch.ops.gaussian import central_gradient
+from die_tpu_torch.utils.profiling import EXACT_DRAWS, annotate
 
 
 class GradientState(NamedTuple):
@@ -163,7 +164,8 @@ class GradientPolicy(Policy):
         lead = f32(f32(1.0) - inertia)
         gpx = lead * gpx + inertia * pstate.prev_grad[..., 0, :]
         gpy = lead * gpy + inertia * pstate.prev_grad[..., 1, :]
-        noise = _noise_2n(fold_in(key, ch.TAG_DRAW_1), agents.shape[-1])
+        with annotate(EXACT_DRAWS):
+            noise = _noise_2n(fold_in(key, ch.TAG_DRAW_1), agents.shape[-1])
         gpx = gpx + f32(self._noise_scale) * noise[..., 0, :]
         gpy = gpy + f32(self._noise_scale) * noise[..., 1, :]
         prev_grad = torch.stack([gpx, gpy], dim=-2)
@@ -247,8 +249,9 @@ class PhysarumPolicy(GradientPolicy):
         unseen_grad = abs_delta > self._sense_radians
         undetermined = undetermined_grad | undetermined_turn | unseen_grad
 
-        bits = random_bits(fold_in(key, ch.TAG_DRAW_0), drads.shape[-1:])
-        rand_choice = sign_from_bits(bits)
+        with annotate(EXACT_DRAWS):
+            bits = random_bits(fold_in(key, ch.TAG_DRAW_0), drads.shape[-1:])
+            rand_choice = sign_from_bits(bits)
 
         dd = dir_delta * (~undetermined).to(torch.float32)
         turn = torch.where(dd > self._atol, torch.full_like(dd, -1.0),

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from die_tpu_torch.utils.profiling import GATHER, annotate
+
 MAX_FIELDS = 4  # csrc kMaxFields
 L2_INDICES = 1024  # indices a block of the l2 route (csrc kThreads x kPerThread)
 STAGED_THREADS = 1024  # threads of a staged block (csrc kSThreads)
@@ -223,6 +225,11 @@ def gather_fields(fields, idx: torch.Tensor, route=None) -> torch.Tensor:
     last axis must be dense, its batch stride is passed to the kernel.
     Indices outside ``[0, M)`` are the caller's error and are not checked
     on the device (the word returned for one is unspecified)."""
+    with annotate(GATHER):
+        return _gather_fields(fields, idx, route)
+
+
+def _gather_fields(fields, idx: torch.Tensor, route) -> torch.Tensor:
     if idx.is_cpu:
         return gather_fields_plain(fields, idx)
     fields, idx, single = _as_rows(fields, idx)

@@ -22,6 +22,8 @@ from die_tpu_torch.core.env import (agent_cells, env_step, env_step_carry,
                                     fused_sense_ok, gather_field, observe)
 from die_tpu_torch.core.rng import as_key_tensor, fold_in
 from die_tpu_torch.core.state import EnvState
+from die_tpu_torch.utils.profiling import (EXACT_ENV, EXACT_POLICY, ROLLOUT,
+                                           annotate)
 
 
 class RolloutResult(NamedTuple):
@@ -36,8 +38,10 @@ def policy_env_step(dynamics: Dynamics, policy, params, state, pstate, key_t):
     """One fused (observe -> policy -> env) step."""
     obs = observe(dynamics, state)
     k_policy = fold_in(key_t, ch.TAG_POLICY)
-    action, pstate = policy.forward(params, pstate, obs, k_policy)
-    state, info = env_step(dynamics, state, action)
+    with annotate(EXACT_POLICY):
+        action, pstate = policy.forward(params, pstate, obs, k_policy)
+    with annotate(EXACT_ENV):
+        state, info = env_step(dynamics, state, action)
     return state, pstate, info
 
 
@@ -54,6 +58,13 @@ def rollout(dynamics: Dynamics, policy, params, state: EnvState, pstate, key,
 
     ``total_reward`` is ``rewards.sum(-1)``, whose order is the library's;
     every other output is pinned bit for bit."""
+    with annotate(ROLLOUT):
+        return _rollout(dynamics, policy, params, state, pstate, key,
+                        num_steps, t0)
+
+
+def _rollout(dynamics: Dynamics, policy, params, state: EnvState, pstate,
+             key, num_steps: int, t0: int) -> RolloutResult:
     key = as_key_tensor(key, state.medium.device)
     rewards, num_agents = [], []
     fused = fused_sense_ok(dynamics) and getattr(
@@ -66,9 +77,11 @@ def rollout(dynamics: Dynamics, policy, params, state: EnvState, pstate, key,
         if fused:
             obs = observe(dynamics, state)
             k_policy = fold_in(key_t, ch.TAG_POLICY)
-            action, pstate = policy.forward(params, pstate, obs, k_policy,
-                                            sensed_food=sensed)
-            state, info, sensed = env_step_carry(dynamics, state, action)
+            with annotate(EXACT_POLICY):
+                action, pstate = policy.forward(params, pstate, obs,
+                                                k_policy, sensed_food=sensed)
+            with annotate(EXACT_ENV):
+                state, info, sensed = env_step_carry(dynamics, state, action)
         else:
             state, pstate, info = policy_env_step(
                 dynamics, policy, params, state, pstate, key_t)

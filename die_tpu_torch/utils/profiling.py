@@ -30,8 +30,9 @@ traces:
 ``die.init``
     the state init of every env (``fast/init.py::fast_init``).
 ``die.rollout``
-    a rollout entry (``fast_rollout_auto``, ``learned_fast_rollout_auto``),
-    on either device.
+    a rollout entry (``fast_rollout_auto``, ``learned_fast_rollout_auto``,
+    and the exact engine's ``parallel/rollout.py::rollout``), on either
+    device.
 ``die.keys``
     a chunk's per-step keys in ``kernel_rollout`` and
     ``banded_rollout_batch``.
@@ -39,6 +40,19 @@ traces:
     one step's host enqueue in ``kernel_rollout`` (one launch of
     ``banded_rollout_batch``): the flow field, the wrapper's allocations
     and parameter words, the C entry and the fold's launch.
+``die.exact.policy``
+    one step's ``policy.forward`` in the exact ``rollout``.
+``die.exact.draws``
+    a draw site of the gradient policies' ``forward``
+    (``models/gradient.py``): Physarum's turn bits (``TAG_DRAW_0``) and
+    the momentum noise (``TAG_DRAW_1``), each with its key's ``fold_in``;
+    two a step under Physarum, inside ``die.exact.policy``.
+``die.exact.env``
+    one step's ``env_step_carry`` or ``env_step`` in the exact
+    ``rollout``.
+``die.gather``
+    one ``ops/gather.py::gather_fields`` call: on CUDA tensors K5's host
+    enqueue (plan, arguments, launch), on CPU tensors its plain version.
 """
 from __future__ import annotations
 
@@ -58,6 +72,10 @@ INIT = "die.init"
 ROLLOUT = "die.rollout"
 KEYS = "die.keys"
 STEP = "die.step"
+EXACT_POLICY = "die.exact.policy"
+EXACT_DRAWS = "die.exact.draws"
+EXACT_ENV = "die.exact.env"
+GATHER = "die.gather"
 
 _TRACES = itertools.count()
 _OFF = contextlib.nullcontext()

@@ -207,5 +207,6 @@ def test_benchmark_entry_has_its_reader_and_cells(name):
     assert set(entry["workloads"]) <= cells
     assert set(entry["workloads"]) <= set(moves.get("workloads", cells))
     assert (ROOT / "portbench" / "metrics" / f"{name}.py").exists()
-    assert bench["per_layer"][-len(METRICS):] == [
-        m for m in bench["per_layer"] if m["name"] in METRICS]
+    # appended together, in one block
+    at = [i for i, m in enumerate(bench["per_layer"]) if m["name"] in METRICS]
+    assert at == list(range(at[0], at[0] + len(METRICS)))
