@@ -90,12 +90,17 @@ Phases (any failure exits non-zero):
      Brownian with perlin flow) on the card against ``device="cpu"``,
      bitwise.  Last: ``init_env_state`` + ``PhysarumPolicy.init_state`` +
      ``parallel.rollout.rollout`` at the JAX benchmark's exact defaults
-     (256x256, 65,536 slots, 1024 envs, T = 32), counts read around it,
-     bitwise against the same rollout with the plain gather,
-     ``check_env_state``, env-steps/s, each piece of a step alone, and K5
-     at F = 1 and F = 2 (events, and device time by route) beside its
-     bound, its plain version and ``torch.gather`` (``--only-exact`` runs
-     this phase alone);
+     (256x256, 65,536 slots, 1024 envs, T = 32), counts read around it
+     (K5's and the draws' launches), bitwise against the same rollout with
+     the plain gather and the plain draws, ``check_env_state``,
+     env-steps/s, each piece of a step alone, and K5 at F = 1 and F = 2
+     (events, and device time by route) beside its bound, its plain
+     version and ``torch.gather``; then the policy draws' kernel
+     (``policy_draws``): both entries word for word against their plain
+     versions at 1024 x 65,536 and at ragged shapes, one launch a call,
+     each timed beside its bound (the ALU and FMA pipes' operations) and
+     the plain version
+     (``--only-exact`` runs this phase alone);
  10. the probes (``die_tpu_torch/tools/probes.py``, the counterparts of the
      TPU probes of ``tools/tpu_measure.py`` and ``tools/tpu_mxu_offload.py``;
      ``tools/probes2.py``, of ``tools/tpu_measure2.py``): every probe kernel
@@ -1698,20 +1703,27 @@ def phase_exact_cpu():
             f"{size[0]}x{size[1]}, {N} slots, {T} steps)")
 
 
-class plain_gather:
+class plain_kernels:
     """Within the block the exact engine's gathers run ``gather_fields_plain``
-    on the card: the rollout the kernel's rollout is held against."""
+    and the policies' draws ``draw_signs_plain`` and ``draw_normals_plain``
+    on the card: the rollout the kernels' rollout is held against."""
 
     def __enter__(self):
         from die_tpu_torch.core import env as env_mod
+        from die_tpu_torch.ops import draws
         from die_tpu_torch.ops.gather import gather_fields_plain
 
-        self._mod, self._kept = env_mod, env_mod.gather_fields
+        self._kept = [(env_mod, "gather_fields", env_mod.gather_fields),
+                      (draws, "draw_signs", draws.draw_signs),
+                      (draws, "draw_normals", draws.draw_normals)]
         env_mod.gather_fields = \
             lambda fields, idx, route=None: gather_fields_plain(fields, idx)
+        draws.draw_signs = draws.draw_signs_plain
+        draws.draw_normals = draws.draw_normals_plain
 
     def __exit__(self, *exc):
-        self._mod.gather_fields = self._kept
+        for mod, name, fn in self._kept:
+            setattr(mod, name, fn)
 
 
 def exact_breakdown(dyn, policy, state, pstate, rkeys):
@@ -1720,8 +1732,9 @@ def exact_breakdown(dyn, policy, state, pstate, rkeys):
     from die_tpu_torch.core import channels as ch
     from die_tpu_torch.core import env as E
     from die_tpu_torch.core.mathx import atan2
-    from die_tpu_torch.core.rng import fold_in, random_bits
-    from die_tpu_torch.models import gradient as G
+    from die_tpu_torch.core.rng import fold_in
+    from die_tpu_torch.models.gradient import NOISE_SCALE
+    from die_tpu_torch.ops import draws
 
     N = state.agents.shape[-1]
     k_pol = fold_in(fold_in(rkeys, 0), ch.TAG_POLICY)
@@ -1738,10 +1751,10 @@ def exact_breakdown(dyn, policy, state, pstate, rkeys):
             None, pstate, obs, k_pol, sensed_food=sensed),
         "env_step_carry (whole)": lambda: E.env_step_carry(dyn, state,
                                                            action),
-        "rng: noise normal(2, N) (threefry + erfinv)": lambda: G._noise_2n(
-            fold_in(k_pol, ch.TAG_DRAW_1), N),
-        "rng: turn bits (N)": lambda: random_bits(
-            fold_in(k_pol, ch.TAG_DRAW_0), (N,)),
+        "draws: noise normals (2, N) (policy_draws)":
+            lambda: draws.draw_normals(k_pol, ch.TAG_DRAW_1, N, NOISE_SCALE),
+        "draws: turn signs (N) (policy_draws)":
+            lambda: draws.draw_signs(k_pol, ch.TAG_DRAW_0, N),
         "gradient field (central diff, norm, clip)":
             lambda: policy._gradient_field(chem),
         "atan2 on the field": lambda: atan2(gy, gx),
@@ -1817,7 +1830,8 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     log(f"exact main path launches: "
         f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
         f"{peak_gb:.2f} GB")
-    want = {"gather_fields_f1": 2 * T + 1, "gather_fields_f2": T}
+    want = {"gather_fields_f1": 2 * T + 1, "gather_fields_f2": T,
+            "policy_draws_signs": T, "policy_draws_normals": T}
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{name}: {counts[name]} launches on the "
@@ -1825,18 +1839,18 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with plain_gather():
+    with plain_kernels():
         start.record()
         ref = rollout(dyn, policy, None, state, pstate, rkeys, T)
         end.record()
     torch.cuda.synchronize()
     plain_secs = start.elapsed_time(end) / 1e3
     if dict(cuda_step.launches) != counts:
-        raise AssertionError("the plain-gather rollout launched a kernel")
+        raise AssertionError("the plain rollout launched a kernel")
     diff = rollout_differences(res, ref)
     if diff:
-        raise AssertionError(f"exact main path differs from the plain-gather "
-                             f"rollout: {diff}")
+        raise AssertionError(f"exact main path differs from the plain "
+                             f"rollout (plain gather and draws): {diff}")
     tot_err = float((res.total_reward - ref.total_reward).abs().max())
     del ref
     if tuple(res.rewards.shape) != (B, T) or \
@@ -1847,7 +1861,7 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     violations = check_env_state(res.state, dyn)
     if violations:
         raise AssertionError(f"check_env_state: {violations}")
-    log(f"exact main path ok: bitwise == plain-gather rollout (state, policy "
+    log(f"exact main path ok: bitwise == plain rollout (state, policy "
         f"state, rewards, counts; total_reward max abs diff {tot_err:g}), "
         f"check_env_state clean, mean reward/step "
         f"{float(res.rewards.mean()):.6f}, agents/env "
@@ -1861,8 +1875,8 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     log(f"exact rollout: {B} envs x {T} steps in {secs:.4f} s = "
         f"{B * T / secs:.1f} env-steps/s, {secs / T * 1e3:.3f} ms a step "
         f"({kind}, {smi}); the rollout it was held against, with the plain "
-        f"gather: {plain_secs:.4f} s = {B * T / plain_secs:.1f} env-steps/s "
-        f"(record only)")
+        f"gather and draws: {plain_secs:.4f} s = "
+        f"{B * T / plain_secs:.1f} env-steps/s (record only)")
 
     pieces = exact_breakdown(dyn, policy, res.state, res.pstate, rkeys)
     if profile:
@@ -1911,9 +1925,96 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
                      "library_ms": lib})
     record = {"envs": B, "steps": T, "slots": N, "field": list(EXACT_FIELD),
               "env_steps_per_s": B * T / secs, "ms_per_step": secs / T * 1e3,
-              "plain_gather_env_steps_per_s": B * T / plain_secs,
+              "plain_env_steps_per_s": B * T / plain_secs,
+              "launches": {k: v for k, v in counts.items() if v},
               "peak_memory_gb": peak_gb, "pieces_ms": pieces}
     return rows, record
+
+
+# the policy draws' kernel at ragged shapes (leading shape of the keys, n)
+DRAW_RAGGED = (((), 4097), ((3,), 1000), ((16,), 1), ((2, 5), 1023))
+# A word's least work: its threefry2x32 block's 20 rotates (funnel shifts)
+# and 21 xors, which only the ALU pipe executes, and its 26 adds (the
+# rounds' and the key injections'), which the ALU or the FMA pipe (as IMAD)
+# executes;
+# a noise word's fp32 operations besides (portbench/work_exact.py's 107 less
+# the 31 of the tail's branch, which the kernel computes only where a lane
+# takes it; a sign word's 2).
+DRAW_ALU_OPS = 41
+DRAW_ADD_OPS = 26
+DRAW_FP32_OPS = {"signs": 2, "normals": 76}
+INT32_RATE = 16.7e12  # H100 SXM: 64 ALU lanes an SM, 132 SMs, 1.98 GHz
+FP32_LANE_RATE = FP32_RATE / 2  # 128 FMA-pipe lanes: a multiply or an add
+
+
+def draw_least_s(words: int, what: str, rate: float) -> dict:
+    """The least seconds of ``words`` words of a draw by what bounds them:
+    the ALU pipe's own operations; every operation over the ALU and FMA
+    pipes together; the float32 words written at the memory rate."""
+    ops = DRAW_ALU_OPS + DRAW_ADD_OPS + DRAW_FP32_OPS[what]
+    return {"alu": words * DRAW_ALU_OPS / INT32_RATE,
+            "pipes": words * ops / (INT32_RATE + FP32_LANE_RATE),
+            "bytes": words * F32_BYTES / rate}
+
+
+def phase_draws(rate: float, exact_launches: dict) -> dict:
+    """``policy_draws`` (``ops/draws.py``): both entries against their plain
+    versions on the card, word for word, at the exact path's 1024 keys x
+    65,536 slots and at ragged shapes, one launch a call; then each timed
+    (CUDA events over 50 calls) beside its bound (:func:`draw_least_s`)
+    and the plain version's time.  Returns the kernel's row."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.models.gradient import NOISE_SCALE
+    from die_tpu_torch.ops import draws
+
+    B, N = 1024, EXACT_SLOTS
+    entries = {
+        "signs": (lambda k, n: draws.draw_signs(k, ch.TAG_DRAW_0, n),
+                  lambda k, n: draws.draw_signs_plain(k, ch.TAG_DRAW_0, n),
+                  "policy_draws_signs", 1),
+        "normals": (lambda k, n: draws.draw_normals(k, ch.TAG_DRAW_1, n,
+                                                     NOISE_SCALE),
+                    lambda k, n: draws.draw_normals_plain(
+                        k, ch.TAG_DRAW_1, n, NOISE_SCALE),
+                    "policy_draws_normals", 2)}
+    keys = session_keys(B, seed=25)[1].cuda()
+    shapes, ms, plain_ms, bound = {}, 0.0, 0.0, 0.0
+    for what, (kernel, plain, counter, rows) in entries.items():
+        for lead, n in ((keys.shape[:-1], N),) + DRAW_RAGGED:
+            k = keys.reshape(-1, 2)[:math.prod(lead)].reshape(
+                tuple(lead) + (2,))
+            before = cuda_step.launches[counter]
+            got = kernel(k, n)
+            launched = cuda_step.launches[counter] - before
+            if launched != 1 or not same_words(got, plain(k, n)):
+                raise AssertionError(f"policy_draws ({what}) at "
+                                     f"{tuple(lead)} x {n}: {launched} "
+                                     f"launches, or differs from its plain "
+                                     f"version")
+        k_ms = time_ms(lambda: kernel(keys, N), 50)
+        p_ms = time_ms(lambda: plain(keys, N), 3, warmup=1)
+        by = draw_least_s(B * N * rows, what, rate)
+        b_ms = max(by.values()) * 1e3
+        shapes[what] = {"keys": B, "slots": N, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": max(by, key=by.get),
+                        "bounds_ms": {k_: v * 1e3 for k_, v in by.items()}}
+        log(f"policy_draws ({what}) {B} x {N}: {k_ms:.4f} ms/launch (bound "
+            f"{b_ms:.4f} ms by {shapes[what]['bound_by']}: ALU "
+            f"{by['alu'] * 1e3:.4f}, pipes {by['pipes'] * 1e3:.4f}, bytes "
+            f"{by['bytes'] * 1e3:.4f}); plain {p_ms:.3f} ms; bitwise here "
+            f"and at {len(DRAW_RAGGED)} ragged shapes")
+        ms, plain_ms, bound = ms + k_ms, plain_ms + p_ms, bound + b_ms
+    log(f"policy_draws, a step's two draws: {ms:.4f} ms (bound "
+        f"{bound:.4f} ms, operations); plain {plain_ms:.3f} ms")
+    return {"name": "policy_draws", "route": "cuda",
+            "source": "die_tpu_torch/csrc/policy_draws.cu", "replaces": None,
+            "launches": sum(exact_launches.get(c, 0) for c in (
+                "policy_draws_signs", "policy_draws_normals")),
+            "match": True, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations",
+            "library_ms": None, "shapes": shapes}
 
 
 # ---- the probes of the step's phases -------------------------------------------
@@ -4097,6 +4198,7 @@ def main():
         phase_exact_cpu()
         rows, rec = phase_exact_main(args.exact_envs, args.exact_steps, kind,
                                      smi, mem_rate(kind), args.profile)
+        rows.append(phase_draws(mem_rate(kind), rec["launches"]))
         log(json.dumps({"kernels": rows, "exact": rec}))
         log(smi)
         return 0
@@ -4291,6 +4393,7 @@ def main():
     exact_rows, exact_record = phase_exact_main(
         args.exact_envs, args.exact_steps, kind, smi, rate, args.profile)
     kernels += exact_rows
+    kernels.append(phase_draws(rate, exact_record["launches"]))
 
     # ---- 10. the probes of the step's phases
     kernels += phase_probes(smi)

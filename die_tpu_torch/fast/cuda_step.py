@@ -34,6 +34,12 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
 - ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
   too (by field count and by route); its wrapper and launch plan are
   ``ops/gather.py``.
+- ``policy_draws`` (``policy_draws.cu``): the gradient policies' turn
+  signs and momentum noise, one launch a draw, the key folded with the
+  draw's tag on the card; replaces no TPU kernel (XLA fused the JAX
+  package's draws).  Built and counted here (``policy_draws_signs``,
+  ``policy_draws_normals``); its wrapper and plain versions are
+  ``ops/draws.py``.
 - The on-card probes of the step's phases (``probe_alu.cu``,
   ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) and of
   gathers and bit-plane words (``probe_gather.cu``, ``probe_bits.cu``;
@@ -95,6 +101,7 @@ SOURCES = {"lattice_step": "lattice_step.cu",
            "tree_sum_2d": "tree_sum_2d.cu",
            "lattice_init": "lattice_init.cu",
            "gather_fields": "gather_fields.cu",
+           "policy_draws": "policy_draws.cu",
            "probe_alu": "probe_alu.cu",
            "probe_shift": "probe_shift.cu",
            "probe_diffuse": "probe_diffuse.cu",
@@ -131,6 +138,7 @@ KERNELS = ("lattice_step", "lattice_step_perlin",
            "lattice_init",
            "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
            "gather_fields_f4", "gather_fields_staged", "gather_fields_l2",
+           "policy_draws_signs", "policy_draws_normals",
            *PROBE_KERNELS, *PROBE2_KERNELS)
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
@@ -201,7 +209,8 @@ def build() -> float:
             _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
         vp, ip = ctypes.c_void_p, ctypes.c_int
         for name in SOURCES:
-            if name in ("tree_sum_2d", "gather_fields", "lattice_init") or \
+            if name in ("tree_sum_2d", "gather_fields", "lattice_init",
+                        "policy_draws") or \
                     name.startswith("probe_"):
                 continue
             step = getattr(_libs[name], "die_" + name)
@@ -223,6 +232,10 @@ def build() -> float:
         gather = _libs["gather_fields"].die_gather_fields
         gather.argtypes = [vp] * 4 + [lp] * 4 + [vp, vp, vp, vp]
         gather.restype = ip
+        # keys, out, B, n, the tag, normals (0 or 1), the scale, the stream
+        draws = _libs["policy_draws"].die_policy_draws
+        draws.argtypes = [vp, vp, ip, ip, up, ip, fp, vp]
+        draws.restype = ip
         for lib, fn, args in (
                 ("probe_alu", "die_probe_alu",
                  [vp, vp, lp, ip, ip, ip, vp]),

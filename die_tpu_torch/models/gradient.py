@@ -16,6 +16,9 @@ Draw sites fold from the step's policy key:
               it, and adding the zero product is part of the pinned
               arithmetic)
 ``init_state`` uses TAG_DRAW_0 for the initial ``prev_grad`` noise.
+Both draws go through ``ops/draws.py``: on CUDA one kernel launch each
+(the key folded with the tag on the card), on the CPU the eager
+composition.
 """
 from __future__ import annotations
 
@@ -29,11 +32,10 @@ from die_tpu_torch.core.device import resolve_device
 from die_tpu_torch.core.env import (agent_cells, coords_to_cells,
                                     gather_cells, gather_field)
 from die_tpu_torch.core.mathx import (atan2, discretize, f32, hypot2,
-                                      normal_from_uniform, polar2xy, recip,
-                                      renormalize_radians)
-from die_tpu_torch.core.rng import (as_key_tensor, fold_in, random_bits,
-                                    sign_from_bits, uniform01_from_bits)
+                                      polar2xy, recip, renormalize_radians)
+from die_tpu_torch.core.rng import as_key_tensor
 from die_tpu_torch.models.base import Policy, register
+from die_tpu_torch.ops import draws
 from die_tpu_torch.ops.gaussian import central_gradient
 from die_tpu_torch.utils.profiling import EXACT_DRAWS, annotate
 
@@ -43,11 +45,7 @@ class GradientState(NamedTuple):
     direction_rads: torch.Tensor  # f32[..., N]
 
 
-def _noise_2n(keys, n: int):
-    """0.4-scaled Gaussian ``[..., 2, n]`` through the contract's normal
-    transform."""
-    u = uniform01_from_bits(random_bits(keys, (2, n)))
-    return f32(0.4) * normal_from_uniform(u)
+NOISE_SCALE = f32(0.4)  # the noise's standard deviation
 
 
 @register
@@ -83,7 +81,7 @@ class GradientPolicy(Policy):
         """State for the policy-init keys ``[..., 2]`` (uint32 numpy or
         int64 tensor), one env per key, on ``device``."""
         keys = as_key_tensor(key, resolve_device(device))
-        noise = _noise_2n(fold_in(keys, ch.TAG_DRAW_0), self.n)
+        noise = draws.draw_normals(keys, ch.TAG_DRAW_0, self.n, NOISE_SCALE)
         direction = atan2(noise[..., 1, :], noise[..., 0, :])
         return GradientState(prev_grad=noise,
                              direction_rads=self._init_direction(direction))
@@ -165,7 +163,8 @@ class GradientPolicy(Policy):
         gpx = lead * gpx + inertia * pstate.prev_grad[..., 0, :]
         gpy = lead * gpy + inertia * pstate.prev_grad[..., 1, :]
         with annotate(EXACT_DRAWS):
-            noise = _noise_2n(fold_in(key, ch.TAG_DRAW_1), agents.shape[-1])
+            noise = draws.draw_normals(key, ch.TAG_DRAW_1, agents.shape[-1],
+                                       NOISE_SCALE)
         gpx = gpx + f32(self._noise_scale) * noise[..., 0, :]
         gpy = gpy + f32(self._noise_scale) * noise[..., 1, :]
         prev_grad = torch.stack([gpx, gpy], dim=-2)
@@ -250,8 +249,8 @@ class PhysarumPolicy(GradientPolicy):
         undetermined = undetermined_grad | undetermined_turn | unseen_grad
 
         with annotate(EXACT_DRAWS):
-            bits = random_bits(fold_in(key, ch.TAG_DRAW_0), drads.shape[-1:])
-            rand_choice = sign_from_bits(bits)
+            rand_choice = draws.draw_signs(key, ch.TAG_DRAW_0,
+                                           drads.shape[-1])
 
         dd = dir_delta * (~undetermined).to(torch.float32)
         turn = torch.where(dd > self._atol, torch.full_like(dd, -1.0),

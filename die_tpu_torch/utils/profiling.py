@@ -44,9 +44,10 @@ traces:
     one step's ``policy.forward`` in the exact ``rollout``.
 ``die.exact.draws``
     a draw site of the gradient policies' ``forward``
-    (``models/gradient.py``): Physarum's turn bits (``TAG_DRAW_0``) and
-    the momentum noise (``TAG_DRAW_1``), each with its key's ``fold_in``;
-    two a step under Physarum, inside ``die.exact.policy``.
+    (``models/gradient.py``): Physarum's turn signs (``TAG_DRAW_0``) and
+    the momentum noise (``TAG_DRAW_1``), each ``ops/draws.py``'s (on CUDA
+    one ``policy_draws`` launch, the key's fold on the card); two a step
+    under Physarum, inside ``die.exact.policy``.
 ``die.exact.env``
     one step's ``env_step_carry`` or ``env_step`` in the exact
     ``rollout``.

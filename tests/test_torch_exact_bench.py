@@ -4,7 +4,7 @@ CPU: the port's exact rollout bitwise against the plain reference
 policy, over two chunks carried with ``t0``; the ``exact_rollout`` driver
 end to end at a tiny size, correct with every number 0; its control (the
 reference in bfloat16) and three faults planted in the program, each not
-correct; the driver's count of the window's gather launches; the five
+correct; the cell's count of the window's gather launches; the six
 per-layer readers on a hand-built trace, each None without its spans or
 kernels; and the spans of one profiled chunk, nested."""
 import inspect
@@ -76,7 +76,7 @@ def turn_sign_flipped(mp, steps):
 
 def turn_bits_from_the_noise_key(mp, steps):
     _mutated(mp, G.PhysarumPolicy, "_turn_from_rads",
-             "fold_in(key, ch.TAG_DRAW_0)", "fold_in(key, ch.TAG_DRAW_1)")
+             "draw_signs(key, ch.TAG_DRAW_0", "draw_signs(key, ch.TAG_DRAW_1")
 
 
 def one_diffusion_skipped(mp, steps):
@@ -149,7 +149,7 @@ def test_the_cell_runs_correct_at_a_tiny_size(tmp_path, trace):
         assert out["metrics"]["host_syncs.exact"]["value"] == 0
         assert out["metrics"]["step_idle_ms.exact"]["value"] > 0
         assert not {"eager_rng_ms.exact", "gather_roofline.exact",
-                    "step_mfu.exact"} & set(out["metrics"])
+                    "step_mfu.exact", "draws_ms.exact"} & set(out["metrics"])
     else:
         assert set(out["metrics"]) == {"env_steps_per_s", "setup_s"}
 
@@ -221,6 +221,8 @@ WIDEN = ("void at::native::unrolled_elementwise_kernel<at::native::"
 MUL32 = ("void at::native::vectorized_elementwise_kernel<4, at::native::"
          "BinaryFunctor<float, float, float, at::native::binary_internal::"
          "MulFunctor<float> >, std::array<char*, 3ul> >(...)")
+DRAWS = ("void (anonymous namespace)::k_policy_draws<true, true>(long long "
+         "const*, float*, int, int, unsigned int, float)")
 
 
 def hand_built(spans: bool = True, kernels: bool = True) -> TraceRecord:
@@ -235,7 +237,8 @@ def hand_built(spans: bool = True, kernels: bool = True) -> TraceRecord:
         host = [h for h in host if not h[0].startswith("die.")]
     device = [(K5, 200, 300), (L2, 400, 450), (ADD64, 500, 2500),
               (XOR64, 2500, 3000), (WIDEN, 3000, 3100), (MUL32, 3100, 4000),
-              (SHR64, 5000, 8000), (MUL32, 8000, 8500)]
+              (SHR64, 5000, 8000), (MUL32, 8000, 8500),
+              (DRAWS, 9200, 9300)]                  # outside the spans
     if not kernels:
         device = [d for d in device if d[0] == MUL32]
     return TraceRecord((0.0, 10000.0), device, host, 2, {}, dict(MODEL),
@@ -252,13 +255,14 @@ def expected(name: str) -> float:
         "gather_roofline.exact": 100 * work_exact.gathers_least_s(
             m["envs"], m["gathers"], rate) / 150e-6,
         "eager_rng_ms.exact": 5.5 / 16,    # the add, xor and shift; no copy
+        "draws_ms.exact": 0.1 / 16,        # the kernel's 100 us
         "host_syncs.exact": 2 / 16,
         # idle inside the spans: 350 us in the first, 500 in the second
         "step_idle_ms.exact": 0.85 / 16}[name]
 
 
 NEW = ("step_mfu.exact", "gather_roofline.exact", "eager_rng_ms.exact",
-       "host_syncs.exact", "step_idle_ms.exact")
+       "host_syncs.exact", "step_idle_ms.exact", "draws_ms.exact")
 
 
 @pytest.mark.parametrize("name", NEW)
