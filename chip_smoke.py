@@ -237,6 +237,8 @@ import time
 
 import torch
 
+from die_tpu_torch.utils.kernels import num_sms
+
 FIELD = (256, 256)
 F32_BYTES = 4
 # published device-memory rates (NVIDIA data sheets), bytes/s
@@ -297,8 +299,7 @@ def k5_plan(B: int, F: int, M: int, N: int) -> str:
     """K5's route at a shape on this card (``ops/gather.py::gather_plan``)."""
     from die_tpu_torch.ops.gather import gather_plan
 
-    p = gather_plan(B, F, M, N,
-                    torch.cuda.get_device_properties(0).multi_processor_count)
+    p = gather_plan(B, F, M, N, num_sms(0))
     if p.route == "l2":
         return "l2"
     return f"staged, clusters of {p.cluster}, {p.per_env} an env"
@@ -348,7 +349,7 @@ def phase_parity(B: int, steps: int, names=None):
 
     k1_err = 0.0
     k2_err = 0.0
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     for name, dyn in parity_configs().items():
         if names is not None and name not in names:
             continue
@@ -409,7 +410,7 @@ def phase_fold_alone(rate: float):
                                                  fold_inputs, l2_bytes)
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     err = 0.0
     rows = []
     for shape in FOLD_SHAPES:
@@ -725,7 +726,7 @@ def walk_plan(dyn, shape, params, K, stages, cw1, tile=None, fused=False):
     ``forced_stages`` does); raises ``Unfit``."""
     from die_tpu_torch.fast import cuda_step
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     pshape = None if params is None else tuple(params.shape[-2:])
     with forced_stages(stages):
         plan, turn = cuda_step.launch_plans(dyn, shape, sms, pshape, K,
@@ -1143,7 +1144,7 @@ def phase_fused_parity(B: int, steps: int):
     walks at least ``WALK_ITEMS`` items, under every walk of ``WALKS``."""
     from die_tpu_torch.fast import cuda_step
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     err = 0.0
     for name, dyn, field, params, inner, offsets in fused_cases():
         pshape = None if params is None else tuple(params.shape[-2:])
@@ -1239,7 +1240,7 @@ def phase_large_field(smi: str):
     from die_tpu_torch.fast.rollout import fast_rollout, fast_rollout_auto
 
     dyn = FastDynamics()
-    rows, counts = [], {k: 0 for k in cuda_step.KERNELS}
+    rows, counts = [], dict.fromkeys(cuda_step.launches, 0)
     for field, B, T in LARGE_FIELDS:
         t0 = time.perf_counter()
         state = fast_init(env_keys(40, B), field, dyn, device="cuda")
@@ -1304,9 +1305,8 @@ def phase_large_field(smi: str):
                          "num_inner": K, "env_steps_per_s": B * T / ms * 1e3,
                          "ms_per_launch": ms / (T // K),
                          "fold_ms_one_field": fold_ms})
-            plan, _ = cuda_step.launch_plans(
-                dyn, (B, *field), torch.cuda.get_device_properties(
-                    0).multi_processor_count, None, K, fused=True)
+            plan, _ = cuda_step.launch_plans(dyn, (B, *field), num_sms(0),
+                                             None, K, fused=True)
             rows[-1]["plan"] = plan._asdict()
             log(f"large field {field[0]}x{field[1]} x {B} envs, T={T}, "
                 f"num_inner={K}: {B * T / ms * 1e3:.1f} env-steps/s, "
@@ -1432,9 +1432,8 @@ def time_fused(rate, counts, err):
             else:
                 ms = time_ms(lambda: cuda_step.learned_lattice_steps(
                     dyn, st, chunk, params, flow_stack=stack), 10)
-            plan = cuda_step.step_plan(
-                dyn, (B, *field), torch.cuda.get_device_properties(
-                    0).multi_processor_count, pshape, K)
+            plan = cuda_step.step_plan(dyn, (B, *field), num_sms(0), pshape,
+                                       K)
             tile, margin = plan.tile, plan.h
             plain = time_ms(lambda: tiled_steps_plain(
                 dyn, st, chunk, tile, margin, params=params,
@@ -1455,8 +1454,7 @@ def time_fused(rate, counts, err):
         learned = params is not None
         out.append({
             "name": key, "route": "cuda",
-            "source": "die_tpu_torch/csrc/lattice_step_fused" + (
-                "_learned.cu" if learned else ".cu"),
+            "source": "die_tpu_torch/csrc/lattice_step.cu",
             "replaces": "die_tpu/fast/pallas_step.py:567",
             "launches": counts[key], "match": True, "max_abs_err": err,
             "ms": first["ms"], "plain_ms": first["plain_ms"],
@@ -1519,7 +1517,7 @@ def phase_gather_parity():
     from die_tpu_torch.ops.gather import (gather_fields, gather_fields_plain,
                                           gather_plan)
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     g = torch.Generator(device="cuda").manual_seed(5)
     routes = {}
 
@@ -2292,7 +2290,7 @@ def probe2_parity(check):
             check("probe_pack", P2.pack(x, reps), P2.pack_plain(x, reps))
     bits = P2.seeded_words((2, P2.SIDE, P2.SIDE), 18, bits=True)
     check("probe_pack", P2.pack(bits, 1), P2.pack_plain(bits, 1))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     parts = {P2.pack_plan(B, sms)["parts"] for B in PACK_BATCHES}
     if parts != set(P2.PACK_PARTS):
         raise AssertionError(f"P9's parity ran parts {parts}, not every "
@@ -2305,9 +2303,7 @@ def probe2_parity(check):
         for reps in (0, 1, 2, 3, P2.PACKREPS):
             check("probe_unpack", P2.unpack(words, reps),
                   P2.unpack_plain(words, reps))
-    parts = {P2.unpack_plan(B, torch.cuda.get_device_properties(0)
-                            .multi_processor_count)["parts"]
-             for B in UNPACK_BATCHES}
+    parts = {P2.unpack_plan(B, num_sms(0))["parts"] for B in UNPACK_BATCHES}
     if parts != set(P2.UNPACK_PARTS):
         raise AssertionError(f"P10's parity ran parts {parts}, not every "
                              f"one of {P2.UNPACK_PARTS}")
@@ -2350,7 +2346,7 @@ def chain_parity(check):
     where a form of the plan went unchecked."""
     from die_tpu_torch.tools import probes2 as P2
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     forms = set()
     for B in CHAIN_BATCHES:
         for tag, shape in P2.CHAIN_SHAPES.items():
@@ -2374,7 +2370,7 @@ def funnel_parity(check):
     plan went unchecked."""
     from die_tpu_torch.tools import probes2 as P2
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
     lanes = set()
     for B in FUNNEL_BATCHES:
         lanes.add(P2.funnel_plan(B, sms)["lanes"])
@@ -2459,10 +2455,10 @@ def pack_sass_check() -> dict:
 def kernel_registers(lib: str) -> str:
     """Registers and spills of each kernel of ``lib`` from this process's
     build log (``-Xptxas=-v``), or why there is none."""
-    from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.utils import kernels
 
     out, name = [], None
-    for line in cuda_step.build_log.get(lib, "").splitlines():
+    for line in kernels.build_log.get(lib, "").splitlines():
         if "Compiling entry function" in line:
             name, spill = line.split("'")[1], ""
         elif name and "spill" in line:
@@ -4017,10 +4013,11 @@ def _mesh_rank(rank: int, world: int, init: str, backend: str, refs,
     from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.parallel.distributed import initialize
     from die_tpu_torch.parallel.mesh import env_mesh
+    from die_tpu_torch.utils import kernels
 
     initialize(init, world, rank, backend=backend, device="cuda:0",
                timeout_s=900)
-    cuda_step.build()  # built by the parent: loads the libraries
+    kernels.build(*kernels.LIBRARIES)  # built by the parent: loads them
     mesh = env_mesh(device="cuda:0")
     torch.cuda.reset_peak_memory_stats()
     rec = {"rank": rank, "world": world, "backend": dist.get_backend()}
@@ -4183,15 +4180,21 @@ def main():
     log(f"device {kind} (count {torch.cuda.device_count()}); nvidia-smi: "
         f"{smi}")
 
-    # ---- 2. build
-    secs = cuda_step.build()
-    log(f"build: {secs:.1f} s")
-    for name, out in cuda_step.build_log.items():
+    # ---- 2. build every library the registry holds
+    from die_tpu_torch.ops import draws, gather  # noqa: F401 (declare)
+    from die_tpu_torch.tools import probes, probes2  # noqa: F401
+    from die_tpu_torch.utils import kernels
+
+    secs = kernels.build(*kernels.LIBRARIES)
+    log(f"build: {secs:.1f} s, {len(kernels.LIBRARIES)} libraries")
+    for name, lib in kernels.LIBRARIES.items():
+        out = kernels.build_log.get(name, "")
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", out)]
         spills = sum(int(n) > 0
                      for n in re.findall(r"(\d+) bytes spill stores", out))
-        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers, {spills} with spills")
+        log(f"  {name} ({lib.source}): " + (
+            f"{len(regs)} kernels, at most {max(regs, default=0)} registers, "
+            f"{spills} with spills" if out else "cached, not built here"))
 
     if args.only_exact:
         phase_gather_parity()
@@ -4531,15 +4534,14 @@ def time_learned(B, rate, serve_counts, train_counts, k3_err):
         bound, by = bound_ms(cells, nbytes, ops, rate)
         key = f"lattice_step_learned_{fam}"
         launches = serve_counts[key] + train_counts[key]
-        plan, turn = cuda_step.launch_plans(
-            dyn, (B, *shape), torch.cuda.get_device_properties(
-                0).multi_processor_count, tuple(params.shape))
+        plan, turn = cuda_step.launch_plans(dyn, (B, *shape), num_sms(0),
+                                            tuple(params.shape))
         log(f"{key} ({name}, {ops} ops/cell): {ms:.4f} ms/launch at "
             f"{B} x {shape[0]}x{shape[1]}, {plan_text(plan, turn)} (bound "
             f"{bound:.4f} ms by {by}); plain {plain:.3f} ms; learned-path "
             f"launches {launches}")
         out.append({"name": key, "route": "cuda",
-                    "source": "die_tpu_torch/csrc/lattice_step_learned.cu",
+                    "source": "die_tpu_torch/csrc/lattice_step.cu",
                     "replaces": "die_tpu/fast/pallas_step.py:199",
                     "launches": launches, "match": True,
                     "max_abs_err": k3_err, "ms": ms, "plain_ms": plain,
@@ -4595,9 +4597,7 @@ def time_perlin(rate, state, perlin_counts, err):
             f"{field_ms:.4f} ms a step (eager torch); plain {plain:.3f} ms; "
             f"perlin-path launches {perlin_counts[key]}")
         out.append({"name": key, "route": "cuda",
-                    "source": "die_tpu_torch/csrc/" + (
-                        "lattice_step.cu" if params is None
-                        else "lattice_step_learned.cu"),
+                    "source": "die_tpu_torch/csrc/lattice_step.cu",
                     "replaces": "die_tpu/fast/pallas_step.py:" + (
                         "180" if params is None else "224"),
                     "launches": perlin_counts[key], "match": True,

@@ -1,12 +1,11 @@
 // lattice_persistent.cuh: the one step kernel of every step form, for a
 // lockstep batch of envs, f32 [B, W, H] per state field (W, H powers of 2),
 // templated on the lattice (N directions) and the turn rule (FAM), with
-// p.K inner steps an item.  Its four entry points, one translation unit
-// each (nvcc builds them in parallel), instantiate what they launch:
-//   lattice_step.cu                K1: the Jones step, K = 1
-//   lattice_step_learned.cu        K3: a learned rule, K = 1
-//   lattice_step_fused.cu          K4: the Jones step, K >= 1
-//   lattice_step_fused_learned.cu  K4: a learned rule, K >= 1
+// p.K inner steps an item.  Its one entry point (lattice_step.cu) takes
+// the rule from the launch's family word and launches every form:
+//   K1: the Jones step, K = 1
+//   K3: a learned rule, K = 1 (wide and ctx: a turn pass, then the step)
+//   K4: the Jones step or a learned rule, K >= 1
 // At K = 1 the fused form runs K1's schedule exactly; the one-step forms
 // are the fused form's layout at K = 1 (keys [B, 1, 2], flow_t [B, 1], the
 // gain [1, B, W, H], the count [B, 1]).
@@ -62,7 +61,7 @@
 //   rows are padded to 4 floats, so an MLP unit's weights are 16-byte loads.
 // - The wide and ctx rules reach twice as far as the others, so at halo 17
 //   (16 directions) only a 32x32 tile fits and the turn phase runs their
-//   MLP on 2.4 times the tile's cells.  Their one-step entry (K3) launches
+//   MLP on 2.4 times the tile's cells.  Their one step (K3) launches
 //   a turn pass (MODE kTurnPass: the tile's turned headings to a scratch
 //   field, the halo the rule's reach) and then the step (kTurned) reading
 //   the turned heading in place of the heading, at the later phases' halo
@@ -458,51 +457,44 @@ cudaError_t launch_step(const Launch& l, const Buffers& q, cudaStream_t st) {
 }
 
 // The rule's whole step for the lattice: kJones, or the learned family;
-// with a turn pass (TURN: the learned one-step entry; wide and ctx), that
-// pass, then the step after it, which reads the turned heading in place of
-// the heading.
-template <int N, bool JONES, bool TURN>
+// with a turn pass (a learned rule's one step; wide and ctx), that pass,
+// then the step after it, which reads the turned heading in place of the
+// heading.
+template <int N>
 cudaError_t launch_rule(int family, const Launch& l, const Launch* turn,
                         const Buffers& q, cudaStream_t st) {
-  if constexpr (JONES) {
-    return launch_step<N, kJones, kWhole>(l, q, st);
-  } else {
-    if constexpr (TURN) {
-      if (turn) {
-        const cudaError_t e =
-            family == kWide ? launch_step<N, kWide, kTurnPass>(*turn, q, st)
-                            : launch_step<N, kCtx, kTurnPass>(*turn, q, st);
-        if (e != cudaSuccess) return e;
-        Buffers after = q;
-        after.dir = q.dirt_o;
-        return launch_step<N, kJones, kTurned>(l, after, st);
-      }
-    }
-    switch (family) {
-      case kLinear: return launch_step<N, kLinear, kWhole>(l, q, st);
-      case kMlp: return launch_step<N, kMlp, kWhole>(l, q, st);
-      case kWide: return launch_step<N, kWide, kWhole>(l, q, st);
-      default: return launch_step<N, kCtx, kWhole>(l, q, st);
-    }
+  if (turn) {
+    const cudaError_t e =
+        family == kWide ? launch_step<N, kWide, kTurnPass>(*turn, q, st)
+                        : launch_step<N, kCtx, kTurnPass>(*turn, q, st);
+    if (e != cudaSuccess) return e;
+    Buffers after = q;
+    after.dir = q.dirt_o;
+    return launch_step<N, kJones, kTurned>(l, after, st);
+  }
+  switch (family) {
+    case kJones: return launch_step<N, kJones, kWhole>(l, q, st);
+    case kLinear: return launch_step<N, kLinear, kWhole>(l, q, st);
+    case kMlp: return launch_step<N, kMlp, kWhole>(l, q, st);
+    case kWide: return launch_step<N, kWide, kWhole>(l, q, st);
+    default: return launch_step<N, kCtx, kWhole>(l, q, st);
   }
 }
 
-// The entry points' common body: unpack, check the plans, launch the Jones
-// kernel (JONES) or the learned family's.  ONE_STEP: K must be 1.  In the
-// learned one-step entry, ip[28] > 0 (wide and ctx) says the plan
-// ip[20..27] is the step after a turn pass whose plan is ip[28..35], and
-// ptrs[17] is the turned heading's buffer [B, W, H].
-template <bool JONES, bool ONE_STEP>
-int run_entry(const long long* ptrs, const int* ip, const float* fp,
-              void* stream) {
-  constexpr bool kTurn = !JONES && ONE_STEP;
+// The entry point's body: unpack, check the plans, launch the family's
+// kernel.  ip[28] > 0 (a learned rule's one step; wide and ctx) says the
+// plan ip[20..27] is the step after a turn pass whose plan is ip[28..35],
+// and ptrs[17] is the turned heading's buffer [B, W, H]; plan_from refuses
+// either plan at K != 1.
+inline int run_entry(const long long* ptrs, const int* ip, const float* fp,
+                     void* stream) {
   Launch l, t;
   Buffers q;
   int n_dirs, family;
-  if (!unpack(ptrs, ip, fp, &l.p, &q, &n_dirs, &family) ||
-      (JONES ? family != kJones : (family < kLinear || family > kCtx)))
+  if (!unpack(ptrs, ip, fp, &l.p, &q, &n_dirs, &family) || family < kJones ||
+      family > kCtx)
     return (int)cudaErrorInvalidValue;
-  const bool split = kTurn && ip[28] > 0;
+  const bool split = ip[28] > 0;
   if (split) {
     if ((family != kWide && family != kCtx) || !q.dirt_o)
       return (int)cudaErrorInvalidValue;
@@ -515,16 +507,14 @@ int run_entry(const long long* ptrs, const int* ip, const float* fp,
       return (int)cudaErrorInvalidValue;
   }
   if (!plan_from(ip + 20, family, n_dirs, split ? kTurned : kWhole, &l.p,
-                 &l.g, &l.threads, &l.blocks, &l.smem) ||
-      (ONE_STEP && l.p.K != 1))
+                 &l.g, &l.threads, &l.blocks, &l.smem))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const Launch* turn = split ? &t : nullptr;
   switch (n_dirs) {
-    case 4: return (int)launch_rule<4, JONES, kTurn>(family, l, turn, q, st);
-    case 8: return (int)launch_rule<8, JONES, kTurn>(family, l, turn, q, st);
-    case 16:
-      return (int)launch_rule<16, JONES, kTurn>(family, l, turn, q, st);
+    case 4: return (int)launch_rule<4>(family, l, turn, q, st);
+    case 8: return (int)launch_rule<8>(family, l, turn, q, st);
+    case 16: return (int)launch_rule<16>(family, l, turn, q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

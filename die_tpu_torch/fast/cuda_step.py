@@ -1,24 +1,25 @@
-"""Hand-written Hopper kernels of the lattice step: build, wrappers, counts.
+"""Hand-written Hopper kernels of the lattice step: wrappers, plans, counts.
 
 Counterpart of the JAX package's ``fast/pallas_step.py``.  Its kernels, in
-CUDA C++ under ``die_tpu_torch/csrc/``:
+CUDA C++ under ``die_tpu_torch/csrc/``, declared in ``utils/kernels.py``'s
+registry (built at their first launch):
 
-- The step kernel of ``lattice_persistent.cuh``, one persistent grid whose
-  blocks walk the (tile, env) items and load the next item's region (and
-  its env's rule params) by ``cp.async`` while they compute the current
-  one, ``K`` steps an item; :func:`step_plan` is the one launch plan of its
-  four entries:
-  - ``lattice_step`` (``lattice_step.cu``, K1): one step with the Jones
-    rule; replaces ``_multi_step_kernel`` at K = 1 and, given a flow field,
+- ``lattice_step`` (``lattice_step.cu``): the step kernel of
+  ``lattice_persistent.cuh``, one persistent grid whose blocks walk the
+  (tile, env) items and load the next item's region (and its env's rule
+  params) by ``cp.async`` while they compute the current one, ``K`` steps
+  an item, behind one entry that reads the rule from its words;
+  :func:`step_plan` is its one launch plan.  Its wrappers:
+  - :func:`lattice_step` (K1): one step with the Jones rule; replaces
+    ``_multi_step_kernel`` at K = 1 and, given a flow field,
     ``_multi_step_kernel_perlin`` (B3);
-  - ``lattice_step_learned`` (``lattice_step_learned.cu``, K3): one step
-    with a learned turn rule, each env with its own params; replaces
-    ``_multi_step_kernel_learned`` (B2) and, given a flow field,
-    ``_multi_step_kernel_perlin_learned`` (B3);
-  - ``lattice_steps`` / ``learned_lattice_steps``
-    (``lattice_step_fused.cu``, ``lattice_step_fused_learned.cu``, K4):
-    ``K`` fused steps per launch with a ``K * halo`` margin, for fields of
-    any power-of-two size; replaces the banded large-field kernel of
+  - :func:`learned_lattice_step` (K3): one step with a learned turn rule,
+    each env with its own params; replaces ``_multi_step_kernel_learned``
+    (B2) and, given a flow field, ``_multi_step_kernel_perlin_learned``
+    (B3);
+  - :func:`lattice_steps` / :func:`learned_lattice_steps` (K4): ``K`` fused
+    steps per launch with a ``K * halo`` margin, for fields of any
+    power-of-two size; replaces the banded large-field kernel of
     ``make_pallas_banded_step`` (B4).  :func:`step_plan` and
     :func:`check_kernel_supported` stand where the JAX package has
     ``choose_bands`` and the banded constructor's refusals: a (config, K,
@@ -31,45 +32,18 @@ CUDA C++ under ``die_tpu_torch/csrc/``:
   and Perlin gradients drawn on the card; replaces no TPU kernel (XLA
   fused the JAX package's init).  :func:`check_init_supported` is its
   refusals; its plain version is ``fast/init.py::fast_init_plain``.
-- ``gather_fields`` (``gather_fields.cu``, K5) is built and counted here
-  too (by field count and by route); its wrapper and launch plan are
-  ``ops/gather.py``.
-- ``policy_draws`` (``policy_draws.cu``): the gradient policies' turn
-  signs and momentum noise, one launch a draw, the key folded with the
-  draw's tag on the card; replaces no TPU kernel (XLA fused the JAX
-  package's draws).  Built and counted here (``policy_draws_signs``,
-  ``policy_draws_normals``); its wrapper and plain versions are
-  ``ops/draws.py``.
-- The on-card probes of the step's phases (``probe_alu.cu``,
-  ``probe_shift.cu``, ``probe_diffuse.cu``; ``PROBE_KERNELS``) and of
-  gathers and bit-plane words (``probe_gather.cu``, ``probe_bits.cu``;
-  ``PROBE2_KERNELS``) are built and counted here too; their wrappers are
-  ``tools/probes.py`` and ``tools/probes2.py``.
-
-Each source is built by its own ``nvcc`` (all started together) into a
-shared library with a plain C interface under ``build/die_tpu_torch/``,
-keyed by a hash of the sources and flags, at the first CUDA call, and
-loaded with ``ctypes``.  Flags: ``-gencode arch=compute_90a,code=sm_90a
--std=c++17 -O3 --fmad=false``; never fast math, and denormals are kept.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``fast/env.py``, ``fast/learned.py``, ``fast/tiled.py``); given CUDA
 tensors it launches the kernel or raises (``lattice_init`` takes CUDA
-alone: ``fast/init.py::fast_init`` routes the CPU to its plain version).  Each launch adds one to ``launches[name]`` of what it
-launched (``*_perlin`` when the step read a flow field), and nothing else
-does.
+alone: ``fast/init.py::fast_init`` routes the CPU to its plain version).
+Each launch adds one to ``launches[name]`` of what it launched
+(``*_perlin`` when the step read a flow field), and nothing else does;
+``launches`` is the registry's one dict of every library's counters.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -88,197 +62,33 @@ from die_tpu_torch.fast.rollout import step_bits
 from die_tpu_torch.fast.tiled import tiled_steps_plain
 from die_tpu_torch.ops.gaussian import gaussian_taps
 from die_tpu_torch.ops.waves import flow_time
+from die_tpu_torch.utils import kernels
+from die_tpu_torch.utils.kernels import (  # noqa: F401 (counters, reset)
+    FLT, INT, UINT, VP, launches, reset_launches)
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "die_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
-SOURCES = {"lattice_step": "lattice_step.cu",
-           "lattice_step_learned": "lattice_step_learned.cu",
-           "lattice_step_fused": "lattice_step_fused.cu",
-           "lattice_step_fused_learned": "lattice_step_fused_learned.cu",
-           "tree_sum_2d": "tree_sum_2d.cu",
-           "lattice_init": "lattice_init.cu",
-           "gather_fields": "gather_fields.cu",
-           "policy_draws": "policy_draws.cu",
-           "probe_alu": "probe_alu.cu",
-           "probe_shift": "probe_shift.cu",
-           "probe_diffuse": "probe_diffuse.cu",
-           "probe_gather": "probe_gather.cu",
-           "probe_bits": "probe_bits.cu"}
-# counters of the probes' kernels, one per case (tools/probes.py KERNEL_INFO)
-PROBE_KERNELS = (
-    *(f"probe_alu_{c}" for c in ("fma_float32", "fma_bfloat16",
-                                 "cmpsel_float32", "cmpsel_bfloat16",
-                                 "intops_int32", "intops_int16",
-                                 "intops_int8")),
-    *(f"probe_roll_ax{a}_s{s}" for a in (0, 1) for s in (1, 3)),
-    "probe_rollk_alu", "probe_rollk_smem", "probe_rollk_shfl",
-    "probe_roll_kernel_shift",
-    *(f"probe_diffuse_{leg}_s{s}" for s in (0.5, 1.25)
-      for leg in ("stencil", "tc_tf32", "tc_bf16")),
-    "probe_roll_kernel_tc")
-# counters of the gather and bit-plane probes (tools/probes2.py KERNEL_INFO)
-PROBE2_KERNELS = (
-    "probe_gather_cluster", "probe_gather_l2", "probe_onehot_bf16x3",
-    "probe_onehot_tf32", "probe_chain_packed", "probe_chain_full",
-    "probe_chain_packed_x8envs", "probe_pack", "probe_unpack",
-    "probe_funnel")
-KERNELS = ("lattice_step", "lattice_step_perlin",
-           "lattice_step_learned_linear", "lattice_step_learned_mlp",
-           "lattice_step_learned_wide", "lattice_step_learned_ctx",
-           "lattice_step_learned_perlin",
-           "lattice_steps_fused", "lattice_steps_fused_perlin",
-           "lattice_steps_fused_learned_linear",
-           "lattice_steps_fused_learned_mlp",
-           "lattice_steps_fused_learned_wide",
-           "lattice_steps_fused_learned_ctx",
-           "lattice_steps_fused_learned_perlin", "tree_sum_2d",
-           "lattice_init",
-           "gather_fields_f1", "gather_fields_f2", "gather_fields_f3",
-           "gather_fields_f4", "gather_fields_staged", "gather_fields_l2",
-           "policy_draws_signs", "policy_draws_normals",
-           *PROBE_KERNELS, *PROBE2_KERNELS)
+FAMILY_CODE = {"linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
+FLOW_CODE = {"none": 0, "wave": 1, "perlin": 2}
+# ptrs, ip, fp, the stream; a counter a form and rule (``*_perlin`` with a
+# flow field)
+_STEP = kernels.declare(
+    "lattice_step", "lattice_step.cu", {"die_lattice_step": [VP] * 4},
+    [form + rule for form in ("lattice_step", "lattice_steps_fused")
+     for rule in ("", "_perlin", *(f"_learned_{f}" for f in FAMILY_CODE),
+                  "_learned_perlin")])
+# field, column sums, out, B, W, H, the plan's words, the stream
+_FOLD = kernels.declare("tree_sum_2d", "tree_sum_2d.cu",
+                        {"die_tree_sum_2d": [VP] * 3 + [INT] * 3 + [VP] * 2},
+                        ("tree_sum_2d",))
+# keys, the five fields, B, W, H, octaves, the axes' steps, the threshold
+# and ratio, the heading mask, the four tags, the stream
+_INIT = kernels.declare("lattice_init", "lattice_init.cu",
+                        {"die_lattice_init": [VP] * 6 + [INT] * 4 + [FLT] * 4
+                         + [UINT] * 5 + [VP]}, ("lattice_init",))
+KERNELS = (*_STEP.counters, *_FOLD.counters, *_INIT.counters)
 MAX_TAPS = 33
 MAX_PARAMS = 1024  # floats of one env's rule params (csrc kMaxParams)
 MAX_SMEM = 232448 - 1024  # bytes of a block's region (csrc kMaxSmem)
 MAX_CELLS = 2 ** 31 - 1
-FAMILY_CODE = {"linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
-FLOW_CODE = {"none": 0, "wave": 1, "perlin": 2}
-
-launches = {name: 0 for name in KERNELS}
-build_log = {}  # name -> nvcc's output of the last build (registers, smem)
-_libs = {}
-_lock = threading.Lock()
-
-
-def reset_launches():
-    for name in launches:
-        launches[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build() -> float:
-    """Build (or find cached) every kernel library and load it; returns the
-    seconds spent.  Raises with nvcc's output if a build fails."""
-    with _lock:
-        if len(_libs) == len(SOURCES):
-            return 0.0
-        t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = _digest()
-        procs = {}
-        for name, src in SOURCES.items():
-            lib = BUILD_DIR / f"{name}-{tag}.so"
-            if lib.exists():
-                continue
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
-        failed = []
-        for name, (proc, tmp, lib) in procs.items():
-            out, _ = proc.communicate()
-            build_log[name] = out
-            if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-            else:
-                os.replace(tmp, lib)
-        if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for name in SOURCES:
-            _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"{name}-{tag}.so"))
-        vp, ip = ctypes.c_void_p, ctypes.c_int
-        for name in SOURCES:
-            if name in ("tree_sum_2d", "gather_fields", "lattice_init",
-                        "policy_draws") or \
-                    name.startswith("probe_"):
-                continue
-            step = getattr(_libs[name], "die_" + name)
-            step.argtypes = [vp, vp, vp, vp]
-            step.restype = ip
-        _libs["lattice_step"].die_error_string.argtypes = [ip]
-        _libs["lattice_step"].die_error_string.restype = ctypes.c_char_p
-        fold = _libs["tree_sum_2d"].die_tree_sum_2d
-        fold.argtypes = [vp, vp, vp, ip, ip, ip, vp, vp]
-        fold.restype = ip
-        fp, lp, up = ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
-        # keys, the five fields, B, W, H, octaves, the axes' steps, the
-        # threshold and ratio, the heading mask, the four tags, the stream
-        init = _libs["lattice_init"].die_lattice_init
-        init.argtypes = [vp] * 6 + [ip] * 4 + [fp] * 4 + [up] * 5 + [vp]
-        init.restype = ip
-        # four field pointers and batch strides, idx, out, the plan's
-        # words (ops/gather.py::GatherPlan.words), the stream
-        gather = _libs["gather_fields"].die_gather_fields
-        gather.argtypes = [vp] * 4 + [lp] * 4 + [vp, vp, vp, vp]
-        gather.restype = ip
-        # keys, out, B, n, the tag, normals (0 or 1), the scale, the stream
-        draws = _libs["policy_draws"].die_policy_draws
-        draws.argtypes = [vp, vp, ip, ip, up, ip, fp, vp]
-        draws.restype = ip
-        for lib, fn, args in (
-                ("probe_alu", "die_probe_alu",
-                 [vp, vp, lp, ip, ip, ip, vp]),
-                ("probe_shift", "die_probe_roll",
-                 [vp, vp, ip, ip, ip, ip, ip]),
-                ("probe_shift", "die_probe_neighbour",
-                 [vp, vp, ip, ip, ip, vp]),
-                ("probe_diffuse", "die_probe_stencil",
-                 [vp, vp, ip, ip, vp, ip, fp]),
-                ("probe_diffuse", "die_probe_tc",
-                 [vp, vp, vp, ip, ip, ip, ip, fp, fp, ip]),
-                ("probe_gather", "die_probe_gather",
-                 [vp, vp, vp, ip, ip, ip, ip, ip, ip]),
-                ("probe_gather", "die_probe_onehot",
-                 [vp, vp, vp, vp, ip, ip, ip, ip]),
-                ("probe_bits", "die_probe_chain",
-                 [vp, vp, lp, ip, ip, ip]),
-                ("probe_bits", "die_probe_pack", [vp, vp, ip, ip, ip]),
-                ("probe_bits", "die_probe_unpack", [vp, vp, ip, ip, ip]),
-                ("probe_bits", "die_probe_funnel", [vp, vp, ip, ip, ip]),
-                ("probe_bits", "die_probe_int_latency",
-                 [vp, vp, ip, ip, ip, ip])):
-            entry_fn = getattr(_libs[lib], fn)
-            entry_fn.argtypes = args + [vp]  # the stream last
-            entry_fn.restype = ip
-        for lib, fn in (("probe_diffuse", "die_probe_stencil_clusters"),
-                        ("probe_shift", "die_probe_neighbour_clusters")):
-            fit = getattr(_libs[lib], fn)
-            fit.argtypes, fit.restype = [ip], ip
-        return time.perf_counter() - t0
-
-
-def check_launch(rc: int, name: str):
-    """Raise if a kernel entry point returned a CUDA error code."""
-    if rc != 0:
-        msg = _libs["lattice_step"].die_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-
-
-def entry(lib: str, fn: str):
-    """The C entry point ``fn`` of the library built from ``SOURCES[lib]``
-    (after :func:`build`)."""
-    return getattr(_libs[lib], fn)
 
 
 def _stream_ptr() -> int:
@@ -325,7 +135,7 @@ def fused_margin(dyn: FastDynamics, params_shape=None,
 
 class StepPlan(NamedTuple):
     """A launch of the step kernel (``lattice_persistent.cuh``), the one
-    plan of all four entries: the tile, the margin ``h`` (``num_inner``
+    plan of every step form: the tile, the margin ``h`` (``num_inner``
     one-step halos) and the column margin ``hc`` (``h`` rounded up to
     ``cw``, the floats of one copy), the rounded region ``rows x cols``,
     the input buffers (each holding the five inputs and then, 16-byte
@@ -355,7 +165,7 @@ class StepPlan(NamedTuple):
             fields, self.rows, self.cols, stages, self.params))
 
     def words(self) -> np.ndarray:
-        """The plan as the entry points read it (ip[20..27])."""
+        """The plan as the entry point reads it (ip[20..27])."""
         return np.array([*self.tile, self.hc, self.cw, self.threads,
                          self.grid, self.stages, self.num_inner],
                         dtype=np.int32)
@@ -469,8 +279,8 @@ TURN_PASS_FAMILIES = ("wide", "ctx")
 def launch_plans(dyn: FastDynamics, shape, num_sms: int, params_shape=None,
                  num_inner: int = 1, aligned: bool = True, tile=None,
                  fused: bool = False):
-    """(plan, turn plan or None): what one call of an entry launches.  The
-    one-step learned entry of a rule of ``TURN_PASS_FAMILIES`` launches a
+    """(plan, turn plan or None): what one call of the entry launches.  One
+    step (not ``fused``) of a rule of ``TURN_PASS_FAMILIES`` launches a
     turn pass (its plan second), then the step after it (first); every
     other call one kernel under :func:`step_plan`'s plan."""
     if not fused and num_inner == 1 and tile is None and \
@@ -588,13 +398,13 @@ def _aligned(state: FastEnvState) -> bool:
 
 def _launch(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
             params, flow, plan: StepPlan, fused: bool, turn=None):
-    """One call of a step entry under ``plan`` (and, for the learned
-    one-step entry, a turn pass under ``turn``, :func:`launch_plans`):
+    """One call of the step entry under ``plan`` (and, for a learned rule's
+    one step, a turn pass under ``turn``, :func:`launch_plans`):
     ``keys`` int64 ``[B, K, 2]`` (fused) or ``[B, 2]``; ``flow`` (perlin):
     the K steps' fields, ``[K, W, H]`` / ``[B, K, W, H]`` (fused) or ``[W,
     H]`` / ``[B, W, H]``, computed per env from ``state.flow_step`` when
     None.  Returns (state, num i32 ``[B, K]``, gained f32 ``[K, B, W, H]``)
-    and counts the call under the entry's name (``*_perlin`` with a flow
+    and counts the call under its form's name (``*_perlin`` with a flow
     field)."""
     B, W, H = state.occ.shape
     K = plan.num_inner
@@ -605,7 +415,6 @@ def _launch(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
     _require_cuda(state.flow_step, torch.int32, (B,), "flow_step")
     _require_cuda(keys, torch.int64, (B, K, 2) if fused else (B, 2), "keys")
     params, member = _member_params(params, B, dev)
-    build()
     outs = [torch.empty_like(state.occ) for _ in range(5)]
     gained = torch.empty((K, B, W, H), dtype=torch.float32, device=dev)
     num = torch.zeros((B, K), dtype=torch.int32, device=dev)
@@ -643,11 +452,9 @@ def _launch(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
                      None if not learned else tuple(params.shape))
     ip = np.concatenate([ip, plan.words(), np.zeros(8, np.int32)
                          if turn is None else turn.words()])
-    lib = ("lattice_step_fused" if fused else "lattice_step") + \
-        ("_learned" if learned else "")
-    rc = getattr(_libs[lib], "die_" + lib)(
+    rc = (_STEP.dll or _STEP.load()).die_lattice_step(
         ptrs.ctypes.data, ip.ctypes.data, fp.ctypes.data, _stream_ptr())
-    check_launch(rc, lib)
+    kernels.check_launch(rc, "lattice_step")
     name = ("lattice_steps_fused" if fused else "lattice_step") + \
         ("_learned" if learned else "")
     if dyn.flow.kind == "perlin":
@@ -668,8 +475,8 @@ def _step(dyn: FastDynamics, state: FastEnvState, keys_t: torch.Tensor,
     pshape = None if params is None else tuple(params.shape)
     shape = tuple(state.occ.shape)
     check_kernel_supported(dyn, shape, pshape)
-    plan, turn = launch_plans(dyn, shape, _num_sms(state.occ.device), pshape,
-                              1, aligned=_aligned(state))
+    plan, turn = launch_plans(dyn, shape, kernels.num_sms(state.occ.device),
+                              pshape, 1, aligned=_aligned(state))
     new_state, num, gained = _launch(dyn, state, keys_t, params, flow_field,
                                      plan, fused=False, turn=turn)
     return new_state, num.view(shape[0]), gained.view(shape)
@@ -705,8 +512,9 @@ def _steps(dyn: FastDynamics, state: FastEnvState, keys: torch.Tensor,
     if state.occ.device.type == "cpu":
         return tiled_steps_plain(dyn, state, keys, plan.tile, plan.h,
                                  params=params, flow_stack=flow_stack)
-    plan, _ = launch_plans(dyn, shape, _num_sms(state.occ.device), pshape,
-                           K, aligned=_aligned(state), tile=tile, fused=True)
+    plan, _ = launch_plans(dyn, shape, kernels.num_sms(state.occ.device),
+                           pshape, K, aligned=_aligned(state), tile=tile,
+                           fused=True)
     return _launch(dyn, state, keys, params, flow_stack, plan, fused=True)
 
 
@@ -803,11 +611,6 @@ def _fold_vector(t: torch.Tensor, H: int) -> int:
     return 1
 
 
-@functools.lru_cache(maxsize=16)
-def _num_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
     """Pinned-order fp32 sum of each ``[W, H]`` field of ``[B, W, H]``.
     ``launches["tree_sum_2d"]`` counts calls: one C entry, whose launches
@@ -822,16 +625,15 @@ def tree_sum_2d(field: torch.Tensor) -> torch.Tensor:
     if (W & (W - 1)) or (H & (H - 1)):
         raise ValueError(f"tree_sum_2d kernel needs pow2 W, H, got {W}x{H}")
     _require_cuda(field, torch.float32, (B, W, H), "field")
-    n, words = _fold_words(B, W, H, _num_sms(field.device),
+    n, words = _fold_words(B, W, H, kernels.num_sms(field.device),
                            _fold_vector(field, H))
-    build()
     out = torch.empty(B, dtype=torch.float32, device=field.device)
     colsum = out if n == 1 else torch.empty(
         (B, H), dtype=torch.float32, device=field.device)
-    rc = _libs["tree_sum_2d"].die_tree_sum_2d(
+    rc = (_FOLD.dll or _FOLD.load()).die_tree_sum_2d(
         field.data_ptr(), colsum.data_ptr(), out.data_ptr(), B, W, H,
         words.ctypes.data, _stream_ptr())
-    check_launch(rc, "tree_sum_2d")
+    kernels.check_launch(rc, "tree_sum_2d")
     launches["tree_sum_2d"] += 1
     return out
 
@@ -880,16 +682,15 @@ def lattice_init(keys, field_size, dyn: FastDynamics,
     flow_step = torch.zeros(lead, dtype=torch.int32, device=dev)
     if B == 0:
         return FastEnvState(*fields, flow_step=flow_step)
-    build()
     flat = keys.reshape(B, 2).contiguous()
     o = int(dyn.init_food_octaves)
-    rc = _libs["lattice_init"].die_lattice_init(
+    rc = (_INIT.dll or _INIT.load()).die_lattice_init(
         flat.data_ptr(), *(f.data_ptr() for f in fields), B, W, H, o,
         f32(o / (W - 1)), f32(o / (H - 1)), f32(dyn.init_food_threshold),
         f32(dyn.init_agent_ratio), dyn.num_dirs - 1, ch.TAG_INIT_PERLIN,
         ch.TAG_INIT_OCCUPANCY, ch.TAG_INIT_FOOD_GRID, ch.TAG_INIT_DIR,
         _stream_ptr())
-    check_launch(rc, "lattice_init")
+    kernels.check_launch(rc, "lattice_init")
     launches["lattice_init"] += 1
     occ, dirf, agent_food, env_food, chem = fields
     return FastEnvState(occ=occ, dir=dirf, agent_food=agent_food,

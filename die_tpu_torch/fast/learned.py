@@ -412,8 +412,8 @@ def learned_fast_rollout_auto(dyn: FastDynamics, params,
                               num_steps: int, t0: int = 0, device="cuda",
                               num_inner: int = 1):
     """The learned path, for a batch ``[B, W, H]`` or one env ``[W, H]``.
-    On CUDA, fields up to 256 x 256 take one ``lattice_step_learned``
-    launch a step (the whole batch, each env with its own params when
+    On CUDA, fields up to 256 x 256 take one ``learned_lattice_step``
+    call a step (the whole batch, each env with its own params when
     ``params`` is ``[B, R, C]``) plus one ``tree_sum_2d`` launch; larger
     fields, or any field when ``num_inner > 1`` is asked for, take
     ``num_inner`` steps per launch of the fused tiled kernel, whose margin

@@ -4,15 +4,15 @@ signs and the momentum noise.
 Counterpart of what the JAX package's ``models/gradient.py`` draws in
 plain jnp (``random_bits`` of ``fold_in(key, tag)``, then the contract's
 sign or normal transform), which XLA fuses; it has no Pallas kernel.  Here
-the kernel is ``csrc/policy_draws.cu``, built with the other kernels by
-``fast/cuda_step.py::build`` at the first CUDA call: one launch a draw, the
-key folded with the tag on the card, each word's bits turned into float32
-in registers.
+the kernel is ``csrc/policy_draws.cu``, declared here in
+``utils/kernels.py``'s registry and built at its first launch: one launch a
+draw, the key folded with the tag on the card, each word's bits turned into
+float32 in registers.
 
 ``draw_signs`` and ``draw_normals`` on CPU keys run their plain versions,
 the eager composition of ``core/rng.py`` and ``core/mathx.py``; on CUDA
 keys they launch the kernel or raise.  Each launch adds one to
-``fast/cuda_step.py::launches["policy_draws_signs"]`` or
+``utils/kernels.py::launches["policy_draws_signs"]`` or
 ``["policy_draws_normals"]``, and nothing else does.
 """
 from __future__ import annotations
@@ -24,8 +24,15 @@ import torch
 from die_tpu_torch.core.mathx import normal_from_uniform
 from die_tpu_torch.core.rng import (MASK32, fold_in, random_bits,
                                     sign_from_bits, uniform01_from_bits)
+from die_tpu_torch.utils import kernels
+from die_tpu_torch.utils.kernels import FLT, INT, UINT, VP
 
 MAX_WORDS = 2 ** 31 - 1  # words a key the kernel draws (csrc INT_MAX)
+# keys, out, B, n, the tag, normals (0 or 1), the scale, the stream
+_LIB = kernels.declare(
+    "policy_draws", "policy_draws.cu",
+    {"die_policy_draws": [VP, VP, INT, INT, UINT, INT, FLT, VP]},
+    ("policy_draws_signs", "policy_draws_normals"))
 
 
 def draw_signs_plain(keys: torch.Tensor, tag: int, n: int) -> torch.Tensor:
@@ -76,21 +83,18 @@ def _draw(keys: torch.Tensor, tag: int, n: int, rows: int,
     if not keys.is_cuda:
         raise ValueError(f"policy draws run on cpu or cuda, got "
                          f"{keys.device}")
-    from die_tpu_torch.fast import cuda_step
-
     lead = tuple(keys.shape[:-1])
     out = torch.empty(lead + ((2, n) if rows == 2 else (n,)),
                       dtype=torch.float32, device=keys.device)
     B = math.prod(lead)
     if B == 0 or n == 0:
         return out
-    cuda_step.build()
     flat = keys.reshape(B, 2).to(torch.int64).contiguous()
     with torch.cuda.device(keys.device):   # the launch on the keys' card
-        rc = cuda_step.entry("policy_draws", "die_policy_draws")(
+        rc = (_LIB.dll or _LIB.load()).die_policy_draws(
             flat.data_ptr(), out.data_ptr(), B, n, int(tag) & MASK32,
             rows - 1, scale, torch.cuda.current_stream().cuda_stream)
-    cuda_step.check_launch(rc, "policy_draws")
-    cuda_step.launches["policy_draws_normals" if rows == 2
-                       else "policy_draws_signs"] += 1
+    kernels.check_launch(rc, "policy_draws")
+    kernels.launches["policy_draws_normals" if rows == 2
+                     else "policy_draws_signs"] += 1
     return out

@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``ops/pallas_gather.py``
 (``pallas_onehot_gather``) and of what its ``ops/mxu_gather.py`` computes.
 There the gather is byte planes through one-hot matrix products, the TPU's
 way around a slow indexed load; here it is a load.  The kernel is
-``csrc/gather_fields.cu``, built with the other kernels by
-``fast/cuda_step.py::build`` at the first CUDA call.  It has two routes,
+``csrc/gather_fields.cu``, declared here in ``utils/kernels.py``'s registry
+and built at its first launch.  It has two routes,
 which :func:`gather_plan` chooses from the shape before the launch (or a
 caller names):
 
@@ -20,7 +20,7 @@ caller names):
 
 ``gather_fields`` on CUDA tensors launches the kernel or raises; on CPU
 tensors it runs ``gather_fields_plain``.  Each launch of F fields adds one
-to ``fast/cuda_step.py::launches["gather_fields_f<F>"]`` (the kernel is
+to ``utils/kernels.py::launches["gather_fields_f<F>"]`` (the kernel is
 instantiated once per field count) and one to
 ``launches["gather_fields_<route>"]``, and nothing else does.
 """
@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from die_tpu_torch.utils import kernels
+from die_tpu_torch.utils.kernels import LL, VP
 from die_tpu_torch.utils.profiling import GATHER, annotate
 
 MAX_FIELDS = 4  # csrc kMaxFields
@@ -42,6 +44,13 @@ CLUSTERS = (1, 2, 4, 8)  # blocks a cluster the staged route may take
 BLOCK_SMEM = 232448  # dynamic shared bytes of a staged block (csrc kMaxSmem)
 SECTOR_WORDS = 8  # 4-byte words of a 32-byte sector: what the l2 route reads
 ROUTES = ("l2", "staged")  # plan route codes 0, 1 (csrc)
+# four field pointers and batch strides, idx, out, the plan's words
+# (GatherPlan.words), the stream
+_LIB = kernels.declare(
+    "gather_fields", "gather_fields.cu",
+    {"die_gather_fields": [VP] * 4 + [LL] * 4 + [VP] * 4},
+    (*(f"gather_fields_f{f}" for f in range(1, MAX_FIELDS + 1)),
+     *(f"gather_fields_{route}" for route in ROUTES)))
 
 
 class GatherPlan(NamedTuple):
@@ -178,21 +187,13 @@ def gather_fields_plain(fields, idx: torch.Tensor) -> torch.Tensor:
 
 
 class _Launcher:
-    """The C entry and what a launch needs besides its tensors, looked up
-    once: the kernels are built at the first CUDA call and the entry's
-    argument types are set there (``cuda_step.build``)."""
+    """The C entry, looked up once: the library is built and the entry's
+    argument types set at the first launch."""
     entry = None
-    launches = None
-    check_launch = None
 
     @classmethod
     def load(cls):
-        from die_tpu_torch.fast import cuda_step
-
-        cuda_step.build()
-        cls.launches = cuda_step.launches
-        cls.check_launch = cuda_step.check_launch
-        cls.entry = cuda_step.entry("gather_fields", "die_gather_fields")
+        cls.entry = _LIB.load().die_gather_fields
         return cls.entry
 
 
@@ -202,8 +203,7 @@ def _launch_plan(B: int, F: int, M: int, N: int, device: int, aligned: bool,
     """(plan, its int32 words, their address, the launch counters it adds
     to) on CUDA device ``device``: kept alive by the cache, so that a
     launch passes a pointer and builds no array."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = gather_plan(B, F, M, N, sms, aligned, route)
+    plan = gather_plan(B, F, M, N, kernels.num_sms(device), aligned, route)
     words = plan.words()
     return plan, words, words.ctypes.data, \
         (f"gather_fields_f{F}", f"gather_fields_{plan.route}")
@@ -267,7 +267,7 @@ def _gather_fields(fields, idx: torch.Tensor, route) -> torch.Tensor:
         if rc == -1:
             raise RuntimeError(f"gather_fields: launch of {B} x {F} x {N} "
                                f"refused ({plan})")
-        _Launcher.check_launch(rc, "gather_fields")
+        kernels.check_launch(rc, "gather_fields")
     for key in counters:
-        _Launcher.launches[key] += 1
+        kernels.launches[key] += 1
     return out[0] if single else out

@@ -43,6 +43,7 @@ from die_tpu_torch.fast.config import FastDynamics  # noqa: E402
 from die_tpu_torch.fast.init import fast_init  # noqa: E402
 from die_tpu_torch.fast.rollout import (banded_rollout_batch,  # noqa: E402
                                         kernel_rollout, step_keys)
+from die_tpu_torch.utils.kernels import num_sms  # noqa: E402
 
 
 def env_keys(seed: int, n: int):
@@ -104,9 +105,8 @@ def main():
         for K, tile in cases + cases[::-1]:
             key = (K, tile)
             try:
-                plan = cuda_step.step_plan(
-                    dyn, (B, W, H), torch.cuda.get_device_properties(
-                        dev).multi_processor_count, None, K, tile=tile)
+                plan = cuda_step.step_plan(dyn, (B, W, H), num_sms(dev),
+                                           None, K, tile=tile)
             except ValueError as e:
                 rows[key] = {"refused": str(e)}
                 continue

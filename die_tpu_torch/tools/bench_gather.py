@@ -53,13 +53,14 @@ def main():
     from die_tpu_torch.ops.gather import (gather_fields, gather_fields_plain,
                                           gather_plan)
     from die_tpu_torch.parallel.rollout import rollout
+    from die_tpu_torch.utils.kernels import num_sms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     B, N, side = args.envs, args.indices, args.side
     M = side * side
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = num_sms(0)
 
     def events_ms(fn, reps=20):
         for _ in range(2):

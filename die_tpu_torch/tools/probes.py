@@ -46,10 +46,11 @@ card, at the TPU probe's shape (64 blocks of one 256x256 field):
 
 Each wrapper given CPU tensors runs its plain version (``*_plain``); given
 CUDA tensors it launches its kernel or raises, and adds one to
-``cuda_step.launches[<its key>]``.  The ``measure_*`` functions run one
-probe item on the card at the TPU probe's shape: the kernel's output held
-against the plain version, CUDA-event times, the bound and, where one
-PyTorch call computes the same function, its time.  Inputs are made from a
+``utils/kernels.py::launches[<its key>]`` (``PROBE_KERNELS``).  The
+``measure_*`` functions run one probe item on the card at the TPU probe's
+shape: the kernel's output held against the plain version, CUDA-event
+times, the bound and, where one PyTorch call computes the same function,
+its time.  Inputs are made from a
 numpy seed (uniform in [0, 1) for floats, in [-8, 8) for integers) where the
 TPU tools take ``jr.uniform``, zeros or ones: the times do not depend on the
 values, and a comparison on distinct values shows more.
@@ -68,9 +69,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.fast.config import DIR_OFFSETS
 from die_tpu_torch.ops.gaussian import gaussian_taps, separable_gaussian_wrap
+from die_tpu_torch.utils import kernels
+from die_tpu_torch.utils.kernels import FLT, INT, LL, VP
 
 SIDE = 256  # a probe field is SIDE x SIDE f32 (the TPU probes' block)
 BLOCKS = 64  # fields a probe launch runs (the TPU tools' B and B_MICRO)
@@ -120,6 +122,30 @@ for _s in SIGMAS:
         KERNEL_INFO[f"probe_diffuse_tc_{_k}_s{_s}"] = ("probe_diffuse.cu",
                                                        _MXU + "127")
 KERNEL_INFO["probe_roll_kernel_tc"] = ("probe_diffuse.cu", _MXU + "180")
+PROBE_KERNELS = tuple(KERNEL_INFO)
+
+
+def _counters(source: str, info=KERNEL_INFO) -> list:
+    """The counters of ``info`` whose kernel is in ``source``."""
+    return [k for k, (src, _) in info.items() if src == source]
+
+
+# each entry's argument types, the stream last (the clusters' queries take
+# a case and return a count)
+kernels.declare("probe_alu", "probe_alu.cu",
+                {"die_probe_alu": [VP, VP, LL, INT, INT, INT, VP, VP]},
+                _counters("probe_alu.cu"))
+kernels.declare("probe_shift", "probe_shift.cu",
+                {"die_probe_roll": [VP, VP] + [INT] * 5 + [VP],
+                 "die_probe_neighbour": [VP, VP, INT, INT, INT, VP, VP],
+                 "die_probe_neighbour_clusters": [INT]},
+                _counters("probe_shift.cu"))
+kernels.declare("probe_diffuse", "probe_diffuse.cu",
+                {"die_probe_stencil": [VP, VP, INT, INT, VP, INT, FLT, VP],
+                 "die_probe_tc": [VP, VP, VP] + [INT] * 4 + [FLT, FLT, INT,
+                                                             VP],
+                 "die_probe_stencil_clusters": [INT]},
+                _counters("probe_diffuse.cu"))
 
 
 # ---- plain versions -------------------------------------------------------------
@@ -295,11 +321,10 @@ def _rounds(n: int, what: str):
 
 
 def _launch(lib: str, fn: str, key: str, *args):
-    cuda_step.build()
-    rc = cuda_step.entry(lib, fn)(*args, torch.cuda.current_stream()
-                                  .cuda_stream)
-    cuda_step.check_launch(rc, key)
-    cuda_step.launches[key] += 1
+    rc = getattr(kernels.LIBRARIES[lib].load(), fn)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch(rc, key)
+    kernels.launches[key] += 1
 
 
 def _word(v, dtype) -> int:
@@ -441,12 +466,13 @@ def alu_pair_counts(loop: collections.Counter) -> dict:
 
 
 def cuobjdump(lib: str, flag: str = "-sass") -> str:
-    """``cuobjdump flag`` of the built library ``lib`` of ``cuda_step``
-    (after :func:`cuda_step.build`); empty where the toolkit has none."""
+    """``cuobjdump flag`` of the registry's library ``lib``, built first
+    where it is not; empty where the toolkit has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return ""
-    path = cuda_step.BUILD_DIR / f"{lib}-{cuda_step._digest()}.so"
+    kernels.LIBRARIES[lib].load()
+    path = kernels.LIBRARIES[lib].path()
     return subprocess.run([tool, flag, str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
 
@@ -632,8 +658,7 @@ def stencil_placement(plan: dict) -> str:
 def stencil_clusters(sigma: float) -> int:
     """Clusters of the stencil's launch at ``sigma`` that fit card 0 at once
     (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
-    cuda_step.build()
-    n = cuda_step.entry("probe_diffuse", "die_probe_stencil_clusters")(
+    n = kernels.LIBRARIES["probe_diffuse"].load().die_probe_stencil_clusters(
         len(gaussian_taps(sigma)))
     if n < 1:
         raise RuntimeError(f"stencil_clusters: error {n}")
@@ -803,8 +828,7 @@ def neighbour_clusters(kind: str) -> int:
     """Clusters of the neighbour kernel's launch of ``kind`` (``smem`` or
     ``shfl``) that fit card 0 at once (``cudaOccupancyMaxActiveClusters``);
     raises on a CUDA error."""
-    cuda_step.build()
-    n = cuda_step.entry("probe_shift", "die_probe_neighbour_clusters")(
+    n = kernels.LIBRARIES["probe_shift"].load().die_probe_neighbour_clusters(
         _NEIGHBOUR_KIND[kind])
     if n < 1:
         raise RuntimeError(f"neighbour_clusters: error {n}")
@@ -975,7 +999,7 @@ def card_rates() -> dict:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60,
         check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = kernels.num_sms(0)
     lane = sms * mhz * 1e6
     hbm = next((r for k, r in MEM_RATE.items() if k in name), MEM_RATE["SXM"])
     return {"sms": sms, "clock_mhz": mhz, "float32": 128 * lane,

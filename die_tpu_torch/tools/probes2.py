@@ -66,11 +66,12 @@ xor-accumulated.
 
 Each wrapper given CPU tensors runs its plain version (``*_plain``); given
 CUDA tensors it launches its kernel or raises, and adds one to
-``cuda_step.launches[<its key>]`` (for :func:`onehot`, one call of its C
-entry: the split and the products, two launches).  The ``measure_*``
-functions run one item on the card: the kernel's output held against the
-plain version, CUDA-event times at the full and at one rep, the bound and,
-where one PyTorch call computes the same function, its time.
+``utils/kernels.py::launches[<its key>]`` (``PROBE2_KERNELS``; for
+:func:`onehot`, one call of its C entry: the split and the products, two
+launches).  The ``measure_*`` functions run one item on the card: the
+kernel's output held against the plain version, CUDA-event times at the
+full and at one rep, the bound and, where one PyTorch call computes the
+same function, its time.
 """
 from __future__ import annotations
 
@@ -80,8 +81,9 @@ import numpy as np
 import torch
 
 from die_tpu_torch.core.rng import MASK32
-from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.tools import probes as P
+from die_tpu_torch.utils import kernels
+from die_tpu_torch.utils.kernels import INT, LL, VP
 
 SIDE = P.SIDE  # a field is SIDE x SIDE (the TPU tool's W = H = 256)
 CELLS = SIDE * SIDE
@@ -128,6 +130,19 @@ for _s in CHAIN_SHAPES:
 KERNEL_INFO["probe_pack"] = ("probe_bits.cu", _M2 + "253")
 KERNEL_INFO["probe_unpack"] = ("probe_bits.cu", _M2 + "289")
 KERNEL_INFO["probe_funnel"] = ("probe_bits.cu", _M2 + "317")
+PROBE2_KERNELS = tuple(KERNEL_INFO)
+# each entry's argument types, the stream last
+kernels.declare("probe_gather", "probe_gather.cu",
+                {"die_probe_gather": [VP] * 3 + [INT] * 6 + [VP],
+                 "die_probe_onehot": [VP] * 4 + [INT] * 4 + [VP]},
+                P._counters("probe_gather.cu", KERNEL_INFO))
+kernels.declare("probe_bits", "probe_bits.cu",
+                {"die_probe_chain": [VP, VP, LL, INT, INT, INT, VP],
+                 "die_probe_pack": [VP, VP, INT, INT, INT, VP],
+                 "die_probe_unpack": [VP, VP, INT, INT, INT, VP],
+                 "die_probe_funnel": [VP, VP, INT, INT, INT, VP],
+                 "die_probe_int_latency": [VP, VP] + [INT] * 4 + [VP]},
+                P._counters("probe_bits.cu", KERNEL_INFO))
 
 
 # ---- plain versions -------------------------------------------------------------
@@ -521,10 +536,9 @@ def int_latency(op: str, chains: int = 1, threads: int = 128,
         raise RuntimeError("int_latency: needs a CUDA device")
     out = torch.empty(threads, dtype=torch.int32, device="cuda")
     clk = torch.zeros(threads // 32, dtype=torch.int64, device="cuda")
-    cuda_step.build()
-    entry = cuda_step.entry("probe_bits", "die_probe_int_latency")
+    entry = kernels.LIBRARIES["probe_bits"].load().die_probe_int_latency
     for _ in range(2):  # the first launch warms the instruction cache
-        cuda_step.check_launch(entry(
+        kernels.check_launch(entry(
             out.data_ptr(), clk.data_ptr(), INT_LATENCY_OPS.index(op), chains,
             iters, threads, torch.cuda.current_stream().cuda_stream),
             f"int_latency {op}")
@@ -601,7 +615,7 @@ def gather(field: torch.Tensor, cells: torch.Tensor, reps: int = GATHER_REPS,
     if field.device.type == "cpu":
         return gather_plain(field, cells, reps)
     n = cells.shape[1]
-    per_field, per_cluster = gather_plan(B, n, cuda_step._num_sms(
+    per_field, per_cluster = gather_plan(B, n, kernels.num_sms(
         field.device))
     out = torch.empty(cells.shape, dtype=torch.float32, device=field.device)
     P._launch("probe_gather", "die_probe_gather", f"probe_gather_{placement}",
@@ -632,7 +646,7 @@ def onehot(field: torch.Tensor, cells: torch.Tensor, leg: str,
     P._launch("probe_gather", "die_probe_onehot", f"probe_onehot_{leg}",
               field.data_ptr(), cells.data_ptr(), scratch.data_ptr(),
               out.data_ptr(), n, reps, _LEG[leg],
-              onehot_plan(n, cuda_step._num_sms(field.device)))
+              onehot_plan(n, kernels.num_sms(field.device)))
     return out
 
 
@@ -647,7 +661,7 @@ def chain(x: torch.Tensor, rounds: int = CHAIN) -> torch.Tensor:
     P._rounds(rounds, "chain")
     if x.device.type == "cpu":
         return chain_plain(x, rounds)
-    plan = chain_plan(B, CHAIN_SHAPES[tag], cuda_step._num_sms(x.device))
+    plan = chain_plan(B, CHAIN_SHAPES[tag], kernels.num_sms(x.device))
     out = torch.empty_like(x)
     P._launch("probe_bits", "die_probe_chain", f"probe_chain_{tag}",
               x.data_ptr(), out.data_ptr(), x.numel(), rounds,
@@ -662,7 +676,7 @@ def pack(x: torch.Tensor, reps: int = PACKREPS) -> torch.Tensor:
     P._rounds(reps, "pack")
     if x.device.type == "cpu":
         return pack_plain(x, reps)
-    plan = pack_plan(B, cuda_step._num_sms(x.device))
+    plan = pack_plan(B, kernels.num_sms(x.device))
     out = torch.empty((B, WORD_ROWS, SIDE), dtype=torch.int32,
                       device=x.device)
     P._launch("probe_bits", "die_probe_pack", "probe_pack", x.data_ptr(),
@@ -677,7 +691,7 @@ def unpack(w: torch.Tensor, reps: int = PACKREPS) -> torch.Tensor:
     P._rounds(reps, "unpack")
     if w.device.type == "cpu":
         return unpack_plain(w, reps)
-    plan = unpack_plan(B, cuda_step._num_sms(w.device))
+    plan = unpack_plan(B, kernels.num_sms(w.device))
     out = torch.empty((B, SIDE, SIDE), dtype=torch.int32, device=w.device)
     P._launch("probe_bits", "die_probe_unpack", "probe_unpack", w.data_ptr(),
               out.data_ptr(), B, reps, plan["parts"])
@@ -694,7 +708,7 @@ def funnel(x: torch.Tensor, steps: int = FREPS) -> torch.Tensor:
     out = torch.empty_like(x)
     P._launch("probe_bits", "die_probe_funnel", "probe_funnel", x.data_ptr(),
               out.data_ptr(), B, steps,
-              funnel_plan(B, cuda_step._num_sms(x.device))["lanes"])
+              funnel_plan(B, kernels.num_sms(x.device))["lanes"])
     return out
 
 
@@ -738,25 +752,25 @@ def device_ms(fn, calls: int = 20, reps: int = 3) -> float:
     µs, less than the host takes to launch a call, so ``probes.time_ms``
     would time the host.  Capture launches nothing: the counts the wrappers
     add while ``fn`` is captured are taken back, and added again at every
-    replay, so ``cuda_step.launches`` counts the kernels that ran."""
+    replay, so ``kernels.launches`` counts the kernels that ran."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    before = dict(cuda_step.launches)
+    before = dict(kernels.launches)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(calls):
             fn()
-    captured = {k: v - before[k] for k, v in cuda_step.launches.items()
+    captured = {k: v - before[k] for k, v in kernels.launches.items()
                 if v != before[k]}
-    cuda_step.launches.update(before)
+    kernels.launches.update(before)
 
     def replay():
         graph.replay()
         for k, n in captured.items():
-            cuda_step.launches[k] += n
+            kernels.launches[k] += n
 
     replay()
     torch.cuda.synchronize()

@@ -22,21 +22,20 @@ Jones) at 32 x 512x512 for ``num_inner`` 1 and 2.  Where a target's call
 launches a turn pass and the step after it (K3 wide and ctx), both are cut
 alike and the parts are the two launches' sums.
 
-The cut points are phase headings of the source (keep them).  A tree's
-layout is found by its files (``LAYOUTS``): one persistent kernel of every
-step form in ``lattice_persistent.cuh``, or the earlier one, K1's kernel in
-``lattice_step.cu`` beside the one-block-a-tile template of K3 and K4 in
-``lattice_step.cuh``.
+The cut points are phase headings of the source (keep them): the one
+persistent kernel of every step form in ``lattice_persistent.cuh``, built
+as the one step library (``lattice_step.cu``).
 
 ``--forms`` also times K1 under other launch plans, each held bitwise to
 the tree's own: ``ROWSxCOLS`` puts that tile first in
 ``cuda_step.STEP_TILES``, ``:s1`` or ``:s2`` forces one or two input
 buffers (where they fit), ``:tN`` runs blocks of N threads (a copy built
 with ``kStepThreads`` = N, its launch bounds with it); e.g. ``32x32:s2``,
-``32x64:s1``, ``32x64:t1024``.  (Trees of the persistent layout only.)
+``32x64:s1``, ``32x64:t1024``.
 
 ``--tree`` takes the die_tpu_torch under another source tree (a parent
-commit unpacked beside this one).
+commit unpacked beside this one) of the same layout and kernel registry
+(``utils/kernels.py``).
 """
 from __future__ import annotations
 
@@ -56,17 +55,15 @@ ROOT = Path(__file__).resolve().parents[2]
 class Layout(NamedTuple):
     """Where a tree's step kernel is cut: ``file`` (under ``csrc/``, holding
     ``marker``), the heading each cut build starts its cut at, the heading
-    the cut ends at, the stores put in place of what is cut, the libraries
-    (``cuda_step.SOURCES`` keys) built from it, and the ptxas name of the
-    kernel a (lattice, family, fused) target runs (a call with a turn pass
-    runs that pass, ``k_step<n,fam,1>``, and the step after it,
+    the cut ends at, the stores put in place of what is cut, and the ptxas
+    name of the kernel a (lattice, family) target runs (a call with a turn
+    pass runs that pass, ``k_step<n,fam,1>``, and the step after it,
     ``k_step<n,0,2>``)."""
     file: str
     marker: str
     cuts: dict
     end: str
     store: str
-    libs: tuple
     kernel: str
 
 
@@ -90,71 +87,20 @@ PERSISTENT_STORE = """  int alive_count = 0;
   __syncthreads();
   if (prefetch >= 0) load_region(p, q, g, prefetch, in);
 """
-# K1's own kernel in the earlier layout (one step an item)
-K1_STORE = """  int alive_count = 0;
-  for_rect(h, h + p.tr, h, h + p.tc, [&](int u, int v) {
-    const int e = E(u, v);
-    const long long gl = base + ((long long)grow(u) << p.lh) + gcol(v);
-    q.occ_o[gl] = R.occ[e];
-    q.dir_o[gl] = R.dir[e];
-    q.afood_o[gl] = R.af[e];
-    q.efood_o[gl] = R.ef[e];
-    q.chem_o[gl] = R.chem[e];
-    q.gained_o[gl] = 0.0f;
-    alive_count += R.occ[e] > 0.0f ? 1 : 0;
-  });
-"""
-# the one-block-a-tile template of the earlier layout (K3, K4)
-TEMPLATE_STORE = """    int alive_count = 0;
-    for_rect(p.halo, p.halo + p.tr, p.halo, p.halo + p.tc, [&](int u, int v) {
-      const int e = u * RH + v;
-      const long long cell =
-          ((long long)grow(p, t, u) << p.lh) + gcol(p, t, v);
-      if (last) {
-        q.occ_o[base + cell] = R.occ[e];
-        q.dir_o[base + cell] = R.dir[e];
-        q.afood_o[base + cell] = R.af[e];
-        q.efood_o[base + cell] = R.ef[e];
-        q.chem_o[base + cell] = R.chem[e];
-      }
-      q.gained_o[(FUSED ? ((long long)k * p.B + t.b) << (p.lw + p.lh)
-                        : base) + cell] = 0.0f;
-      alive_count += R.occ[e] > 0.0f ? 1 : 0;
-    });
-"""
-ALL_STEP_LIBS = ("lattice_step", "lattice_step_learned", "lattice_step_fused",
-                 "lattice_step_fused_learned")
-LAYOUTS = (
-    Layout("lattice_persistent.cuh", "step_pass",
-           {"a_loads_stores": "  // ---- 1. sense + turn",
-            "a1_turn": "  // ---- 2. move",
-            "b_phases_1_3": "  // ---- 2b. reproduction"},
-           "  // ---- count:", PERSISTENT_STORE, ALL_STEP_LIBS,
-           "k_step<{n},{fam},0>"),
-    Layout("lattice_step.cu", "k_jones_step",
-           {"a_loads_stores": "  // ---- 1. sense + turn",
-            "a1_turn": "  // ---- 2. move",
-            "b_phases_1_3": "  // ---- 2b. reproduction"},
-           "  // ---- count:", K1_STORE, ("lattice_step",),
-           "k_jones_step<{n}>"),
-    Layout("lattice_step.cuh", "k_lattice_step",
-           {"a_loads_stores": "    // ---- 1. sense + turn",
-            "a1_turn": "    // ---- 2. move",
-            "b_phases_1_3": "    // the margin this step's results"},
-           "    // exact agent count of this step", TEMPLATE_STORE,
-           ("lattice_step_learned", "lattice_step_fused"),
-           "k_lattice_step<{n},{fam},{fused}>"),
-)
+STEP_LIB = "lattice_step"  # the one step library of the registry
+LAYOUT = Layout("lattice_persistent.cuh", "step_pass",
+                {"a_loads_stores": "  // ---- 1. sense + turn",
+                 "a1_turn": "  // ---- 2. move",
+                 "b_phases_1_3": "  // ---- 2b. reproduction"},
+                "  // ---- count:", PERSISTENT_STORE, "k_step<{n},{fam},0>")
 CUT_NAMES = ("a_loads_stores", "a1_turn", "b_phases_1_3")
 FAMILY = {None: 0, "linear": 1, "mlp": 2, "wide": 3, "ctx": 4}
 
 
 class Target(NamedTuple):
-    """A kernel run the split times: the library (``cuda_step.SOURCES``
-    key), the config's name, the shape ``[B, W, H]`` (B None: ``--envs``),
-    the rule's artifact (None: Jones) and the inner steps (None: one-step
-    wrapper)."""
-    lib: str
+    """A kernel run the split times: the config's name, the shape ``[B, W,
+    H]`` (B None: ``--envs``), the rule's artifact (None: Jones) and the
+    inner steps (None: one-step wrapper)."""
     config: str
     shape: tuple
     artifact: str | None
@@ -162,38 +108,26 @@ class Target(NamedTuple):
 
 
 TARGETS = {
-    "default": Target("lattice_step", "FastDynamics()", (None, 256, 256),
-                      None, None),
-    "tuned16": Target("lattice_step", "tuned_dynamics(16)", (None, 256, 256),
-                      None, None),
-    **{f"k3_{fam}16": Target("lattice_step_learned",
-                             "eval_protocol_dynamics(16)", (1024, 64, 128),
+    "default": Target("FastDynamics()", (None, 256, 256), None, None),
+    "tuned16": Target("tuned_dynamics(16)", (None, 256, 256), None, None),
+    **{f"k3_{fam}16": Target("eval_protocol_dynamics(16)", (1024, 64, 128),
                              art, None)
        for fam, art in (("linear", "lattice16_linear"),
                         ("mlp", "lattice16_mlp"),
                         ("wide", "lattice16_mlp_wide"),
                         ("ctx", "lattice16_mlp_ctx"))},
-    "k4_jones_k1": Target("lattice_step_fused", "FastDynamics()",
-                          (32, 512, 512), None, 1),
-    "k4_jones_k2": Target("lattice_step_fused", "FastDynamics()",
-                          (32, 512, 512), None, 2),
+    "k4_jones_k1": Target("FastDynamics()", (32, 512, 512), None, 1),
+    "k4_jones_k2": Target("FastDynamics()", (32, 512, 512), None, 2),
 }
 
 
-def tree_layouts(csrc: Path):
-    """The layouts whose file (holding its marker) the tree has, each lib
-    under the first that builds it."""
-    found, libs = [], set()
-    for lay in LAYOUTS:
-        path = csrc / lay.file
-        if path.exists() and lay.marker in path.read_text():
-            mine = tuple(x for x in lay.libs if x not in libs)
-            if mine:
-                found.append(lay._replace(libs=mine))
-                libs.update(mine)
-    if not found:
+def tree_layout(csrc: Path) -> Layout:
+    """``LAYOUT``, where the tree's ``csrc`` has its file with its
+    marker."""
+    path = csrc / LAYOUT.file
+    if not path.exists() or LAYOUT.marker not in path.read_text():
         raise RuntimeError(f"no known step kernel layout under {csrc}")
-    return found
+    return LAYOUT
 
 
 def cut_source(src: str, lay: Layout, cut: str) -> str:
@@ -245,55 +179,52 @@ def parse_form(spec: str):
     return tile, opts.get("s"), opts.get("t")
 
 
-def build_cuts(libs, threads=()):
-    """Builds the cut copies of every library of ``libs``, an uncut copy
-    (for its ptxas usage: the package build may have been cached, without
-    its log), and copies whose blocks run each of ``threads`` threads, all
-    in parallel; returns ({(build, lib): entry}, {(build, lib): ptxas
-    usage})."""
-    from die_tpu_torch.fast import cuda_step
+def build_cuts(threads=()):
+    """Builds the cut copies of the step library, an uncut copy (for its
+    ptxas usage: the package build may have been cached, without its log),
+    and copies whose blocks run each of ``threads`` threads, all in
+    parallel; returns ({build: entry}, {build: ptxas usage})."""
+    from die_tpu_torch.utils import kernels
 
-    layouts = tree_layouts(cuda_step.CSRC)
+    lay = tree_layout(kernels.CSRC)
     builds = {}
     for name in (*CUT_NAMES, "c_whole"):
-        d = cuda_step.BUILD_DIR / "split" / name
+        d = kernels.BUILD_DIR / "split" / name
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(cuda_step.CSRC, d)
+        shutil.copytree(kernels.CSRC, d)
         if name != "c_whole":
-            for lay in layouts:
-                f = d / lay.file
-                f.write_text(cut_source(f.read_text(), lay, name))
+            f = d / lay.file
+            f.write_text(cut_source(f.read_text(), lay, name))
         builds[name] = d
     for n in threads:
-        d = cuda_step.BUILD_DIR / "split" / f"t{n}"
+        d = kernels.BUILD_DIR / "split" / f"t{n}"
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(cuda_step.CSRC, d)
+        shutil.copytree(kernels.CSRC, d)
         f = d / "lattice_persistent.cuh"
         src = f.read_text()
         i = src.index(THREADS_LINE) + len(THREADS_LINE)
         f.write_text(src[:i] + f"{n};" + src[src.index("\n", i):])
         builds[f"t{n}"] = d
+    step = kernels.LIBRARIES[STEP_LIB]
     procs = {}
     for name, d in builds.items():
-        for lib in (libs if not name.startswith("t") else ("lattice_step",)):
-            so = d / f"{lib}.so"
-            procs[(name, lib)] = (subprocess.Popen(
-                [cuda_step._nvcc(), *cuda_step.NVCC_FLAGS, "-o", str(so),
-                 str(d / cuda_step.SOURCES[lib])], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), so)
+        so = d / f"{STEP_LIB}.so"
+        procs[name] = (subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
+             str(d / step.source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
     fns, usage = {}, {}
-    for key, (proc, so) in procs.items():
+    for name, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{key}: nvcc failed\n{out}")
-        usage[key] = ptxas_usage(out)
-        if key[0] == "c_whole":
+            raise RuntimeError(f"{name}: nvcc failed\n{out}")
+        usage[name] = ptxas_usage(out)
+        if name == "c_whole":
             continue
-        fn = getattr(ctypes.CDLL(str(so)), "die_" + key[1])
-        fn.argtypes = [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-        fns[key] = fn
-    return fns, usage, layouts
+        fn = getattr(ctypes.CDLL(str(so)), "die_" + STEP_LIB)
+        fn.argtypes, fn.restype = step.entries["die_" + STEP_LIB], ctypes.c_int
+        fns[name] = fn
+    return fns, usage, lay
 
 
 def events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -399,21 +330,14 @@ def _target_run(target: Target, B: int):
 
 
 def _plans(cuda_step, dyn, state, params, num_inner):
-    """(plan, turn plan or None) of a target in the tree (``launch_plans``),
-    or (None, None) where the tree plans only the Jones step and the target
-    is another."""
-    import torch
+    """(plan, turn plan or None) of a target in the tree
+    (``launch_plans``)."""
+    from die_tpu_torch.utils import kernels
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shape = tuple(state.occ.shape)
     pshape = None if params is None else tuple(params.shape)
-    if hasattr(cuda_step, "launch_plans"):
-        return cuda_step.launch_plans(dyn, shape, sms, pshape,
-                                      num_inner or 1,
-                                      fused=num_inner is not None)
-    if params is None and num_inner is None:
-        return cuda_step.step_plan(dyn, shape, sms), None
-    return None, None
+    return cuda_step.launch_plans(dyn, tuple(state.occ.shape),
+                                  kernels.num_sms(0), pshape, num_inner or 1,
+                                  fused=num_inner is not None)
 
 
 def split_ms(B: int = 1024, forms=(), targets=("default", "tuned16")):
@@ -426,47 +350,43 @@ def split_ms(B: int = 1024, forms=(), targets=("default", "tuned16")):
     import torch
 
     from die_tpu_torch.fast import cuda_step
+    from die_tpu_torch.utils import kernels
 
-    shutil.rmtree(cuda_step.BUILD_DIR / "split", ignore_errors=True)
-    cuda_step.build()
+    shutil.rmtree(kernels.BUILD_DIR / "split", ignore_errors=True)
+    lib = kernels.LIBRARIES[STEP_LIB].load()
     forms = [(spec, *parse_form(spec)) for spec in forms]
-    libs = tuple(dict.fromkeys(TARGETS[t].lib for t in targets))
-    fns, usage, layouts = build_cuts(
-        libs, sorted({t for *_, t in forms if t}))
-    owner = {lib: lay for lay in layouts for lib in lay.libs}
+    fns, usage, lay = build_cuts(sorted({t for *_, t in forms if t}))
     builds = (*CUT_NAMES, "c_whole")
+    entry = "die_" + STEP_LIB
+    own = getattr(lib, entry)
     out = {}
     for tname in targets:
         target = TARGETS[tname]
-        lib = cuda_step._libs[target.lib]
-        entry = "die_" + target.lib
-        own = getattr(lib, entry)
         dyn, state, keys, params, fn, kargs = _target_run(target, B)
         rec = {name: [] for name in builds}
         try:
             for name in builds + builds[::-1]:
-                setattr(lib, entry, fns.get((name, target.lib), own))
+                setattr(lib, entry, fns.get(name, own))
                 rec[name].append(events_ms(fn))
         finally:
             setattr(lib, entry, own)
         plan, turn = _plans(cuda_step, dyn, state, params, target.num_inner)
-        knames = [owner[target.lib].kernel.format(**kargs)]
+        knames = [lay.kernel.format(**kargs)]
         if turn is not None:
             n = kargs["n"]
             knames = [f"k_step<{n},{kargs['fam']},1>", f"k_step<{n},0,2>"]
         rec["kernel"] = " + ".join(knames)
-        rec["registers"] = {name: {k: usage[(name, target.lib)].get(k)
-                                   for k in knames} for name in builds}
+        rec["registers"] = {name: {k: usage[name].get(k) for k in knames}
+                            for name in builds}
         rec["shape"] = list(state.occ.shape)
-        rec["plan"] = None if plan is None else plan._asdict()
+        rec["plan"] = plan._asdict()
         rec["turn_plan"] = None if turn is None else turn._asdict()
-        if target.lib == "lattice_step" and forms:
+        if target.artifact is None and target.num_inner is None and forms:
             ref = fn()
             for spec, tile, stages, threads in forms:
                 rec[f"form {spec}"] = time_form(
-                    cuda_step, lib, fns.get((f"t{threads}", "lattice_step"),
-                                            own), dyn, state, keys, ref,
-                    tile, stages, threads)
+                    cuda_step, lib, fns.get(f"t{threads}", own), dyn, state,
+                    keys, ref, tile, stages, threads)
         out[tname] = rec
         del state
         torch.cuda.empty_cache()

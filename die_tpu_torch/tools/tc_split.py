@@ -132,23 +132,25 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-def build(cuda_step, name: str, text: str):
+def build(name: str, text: str):
     """(die_probe_tc of the built copy, ptxas usage)."""
+    from die_tpu_torch.utils import kernels
+
     out_dir = ROOT / "build" / "die_tpu_torch" / "tc_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
     if name == "whole":  # the query after the anonymous namespace
         text = text.replace("}  // namespace\n", "}  // namespace\n" + _FIT)
     src.write_text(text)
-    proc = subprocess.run([cuda_step._nvcc(), *cuda_step.NVCC_FLAGS,
+    proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS,
                            "-I", str(SOURCE.parent), "-o", str(lib), str(src)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     so = ctypes.CDLL(str(lib))
-    fn = so.die_probe_tc
-    vp, ip, fp = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, ip, ip, ip, ip, fp, fp, ip, vp]
+    fn = so.die_probe_tc  # declared by tools/probes.py
+    ip = ctypes.c_int
+    fn.argtypes = kernels.LIBRARIES["probe_diffuse"].entries["die_probe_tc"]
     fn.restype = ip
     usage = ptxas_usage(proc.stdout + proc.stderr)
     if name == "whole":
@@ -163,7 +165,6 @@ def build(cuda_step, name: str, text: str):
 def split_ms(calls: int = 2) -> list:
     import torch
 
-    from die_tpu_torch.fast import cuda_step
     from die_tpu_torch.tools import probes as P
     from die_tpu_torch.tools import probes2 as P2
 
@@ -171,7 +172,7 @@ def split_ms(calls: int = 2) -> list:
     builds = {"whole": text, **{c: cut_source(text, c) for c in CUTS}}
     fns, usage = {}, {}
     for name, src in builds.items():
-        fns[name], usage[name] = build(cuda_step, name, src)
+        fns[name], usage[name] = build(name, src)
     B = P.BLOCKS
     x = P.seeded((B, P.SIDE, P.SIDE), torch.float32, 5)
     out = torch.empty_like(x)

@@ -308,9 +308,10 @@ def gather_fields_ms() -> dict:
     import torch
 
     from die_tpu_torch.ops import gather as G
+    from die_tpu_torch.utils import kernels
 
     g = torch.Generator(device="cuda").manual_seed(16)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = kernels.num_sms(0)
     routed = "route" in inspect.signature(G.gather_fields).parameters
     out = {}
     launches = [("nca_f3", ([layout[:, f] for f in range(3)],
@@ -635,7 +636,6 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    cuda_step.build()
     if args.gather_probes:
         print(json.dumps({"tree": str(tree),
                           "gather_probes_ms": gather_probes_ms(),

@@ -23,6 +23,7 @@ from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
 from die_tpu_torch.fast.init import fast_init
 from die_tpu_torch.fast.rollout import (fast_rollout, fast_rollout_auto,
                                         step_bits, step_keys)
+from die_tpu_torch.utils import kernels
 
 SHAPE = (16, 128)
 
@@ -58,7 +59,12 @@ def test_lattice_step_wrapper_on_cpu_is_plain_step(dyn):
         assert torch.equal(a, b)
     assert torch.equal(num, rnum) and torch.equal(gained, rgained)
     assert torch.equal(cuda_step.tree_sum_2d(gained), rew)
-    assert set(cuda_step.launches) == set(cuda_step.KERNELS)
+    assert cuda_step.launches is kernels.launches
+    assert set(cuda_step.launches) == {
+        c for lib in kernels.LIBRARIES.values() for c in lib.counters}
+    assert set(cuda_step.KERNELS) == {
+        c for n in ("lattice_step", "tree_sum_2d", "lattice_init")
+        for c in kernels.LIBRARIES[n].counters}
     assert sum(cuda_step.launches.values()) == 0
 
 
@@ -168,10 +174,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
 # ---- import hygiene ---------------------------------------------------------------
 
 def test_port_imports_no_jax_and_nothing_of_die_tpu():
-    """Every module of the package and every tool is imported in a fresh
-    interpreter, which must then hold no module of jax or die_tpu; and no
-    source file of the port, nor ``chip_smoke.py``, names either in an
-    import statement (tools import inside ``main``)."""
+    """Every module of the package, every tool among them, is imported in a
+    fresh interpreter, which must then hold no module of jax or die_tpu;
+    and no source file of the port, nor ``chip_smoke.py``, names either in
+    an import statement (tools import inside ``main``).  (A tool is not run
+    again from its file under another name: the kernel libraries it
+    declares would be declared twice.)"""
     import re
     from pathlib import Path
 
@@ -187,15 +195,16 @@ def test_port_imports_no_jax_and_nothing_of_die_tpu():
                             re.M)
     for path in sources:
         assert not bad_import.search(path.read_text()), path
+    tool_modules = [f"die_tpu_torch.tools.{p.stem}".removesuffix(".__init__")
+                    for p in tools]
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import die_tpu_torch\n"
         "for m in pkgutil.walk_packages(die_tpu_torch.__path__, "
         "'die_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"for i, path in enumerate({[str(p) for p in tools]!r}):\n"
-        "    spec = importlib.util.spec_from_file_location(f'tool{i}', path)\n"
-        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for m in {tool_modules!r}:\n"
+        "    assert m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'die_tpu' or m.startswith('die_tpu.')]\n"

@@ -22,6 +22,7 @@ from die_tpu_torch.core.mathx import f32
 from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.fast.config import FastDynamics, tuned_dynamics
 from die_tpu_torch.fast.init import fast_init, fast_init_plain
+from die_tpu_torch.utils import kernels
 
 FIELDS = ("occ", "dir", "agent_food", "env_food", "chem")
 # every field size and init the port's callers run on the card
@@ -190,12 +191,14 @@ def test_kernel_order_twin_matches_plain_init(field, dyn):
 # ---- registration and refusals -------------------------------------------------------
 
 def test_lattice_init_is_registered_apart_from_the_step_entries():
-    assert cuda_step.SOURCES["lattice_init"] == "lattice_init.cu"
-    assert "lattice_init" in cuda_step.KERNELS
+    lib = kernels.LIBRARIES["lattice_init"]
+    assert lib.source == "lattice_init.cu"
+    assert lib.counters == ("lattice_init",) and "lattice_init" in \
+        cuda_step.KERNELS
     assert "lattice_init" in cuda_step.launches
     # a launch counted as a step entry would break the launch checks
     assert not "lattice_init".startswith("lattice_step")
-    src = (cuda_step.CSRC / "lattice_init.cu").read_text()
+    src = (kernels.CSRC / "lattice_init.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kVec"]) == cuda_step.INIT_VEC
     assert int(consts["kMaxOctaves"]) == cuda_step.INIT_MAX_OCTAVES

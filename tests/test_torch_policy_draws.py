@@ -25,10 +25,11 @@ from die_tpu_torch.core.rng import as_key_tensor
 from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.models.gradient import NOISE_SCALE
 from die_tpu_torch.ops import draws
+from die_tpu_torch.utils import kernels
 
 from helpers.torch_exact import assert_bits
 
-SOURCE = cuda_step.CSRC / "policy_draws.cu"
+SOURCE = kernels.CSRC / "policy_draws.cu"
 TAGS = (ch.TAG_DRAW_0, ch.TAG_DRAW_1)
 
 
@@ -214,9 +215,10 @@ def test_the_source_constants_are_mathx_constants():
 
 
 def test_policy_draws_is_registered_apart_from_the_counted_prefixes():
-    assert cuda_step.SOURCES["policy_draws"] == "policy_draws.cu"
+    lib = kernels.LIBRARIES["policy_draws"]
+    assert lib.source == "policy_draws.cu" and lib is draws._LIB
     for name in ("policy_draws_signs", "policy_draws_normals"):
-        assert name in cuda_step.KERNELS and name in cuda_step.launches
+        assert name in lib.counters and name in cuda_step.launches
         # the exact cell's launch check counts these two prefixes
         assert not name.startswith(("lattice_step", "gather_fields_f"))
     src = SOURCE.read_text()

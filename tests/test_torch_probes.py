@@ -41,6 +41,7 @@ import die_tpu.utils.cache as jax_cache
 from die_tpu.ops.gaussian import separable_gaussian
 from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.tools import probes as P
+from die_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -401,7 +402,7 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     ]
     for got, want in pairs:
         assert torch.equal(got, want)
-    assert not any(cuda_step.launches[k] for k in cuda_step.PROBE_KERNELS)
+    assert not any(cuda_step.launches[k] for k in P.PROBE_KERNELS)
 
 
 def test_wrappers_refuse_cases_they_have_no_kernel_for():
@@ -417,11 +418,13 @@ def test_wrappers_refuse_cases_they_have_no_kernel_for():
 
 
 def test_probe_counters_are_registered():
-    assert set(P.KERNEL_INFO) == set(cuda_step.PROBE_KERNELS)
-    assert set(cuda_step.PROBE_KERNELS) <= set(cuda_step.launches)
-    assert {"probe_alu", "probe_shift", "probe_diffuse"} <= set(
-        cuda_step.SOURCES)
+    libs = {n: kernels.LIBRARIES[n]
+            for n in ("probe_alu", "probe_shift", "probe_diffuse")}
+    assert set(P.KERNEL_INFO) == set(P.PROBE_KERNELS) == {
+        c for lib in libs.values() for c in lib.counters}
+    assert set(P.PROBE_KERNELS) <= set(cuda_step.launches)
     for key, (src, rep) in P.KERNEL_INFO.items():
+        assert key in libs[src.removesuffix(".cu")].counters, key
         assert (ROOT / "die_tpu_torch" / "csrc" / src).exists(), key
         path, line = rep.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]

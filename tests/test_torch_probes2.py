@@ -31,7 +31,9 @@ from jax.experimental import pallas as pl
 
 import die_tpu.utils.cache as jax_cache
 from die_tpu_torch.fast import cuda_step
+from die_tpu_torch.tools import probes as P
 from die_tpu_torch.tools import probes2 as P2
+from die_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL_N = 8192  # gathered cells in interpret mode (the tool's N is 65,536)
@@ -320,7 +322,7 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     ]
     for got, want in pairs:
         assert torch.equal(got, want)
-    assert not any(cuda_step.launches[k] for k in cuda_step.PROBE2_KERNELS)
+    assert not any(cuda_step.launches[k] for k in P2.PROBE2_KERNELS)
 
 
 def test_wrappers_refuse_cases_they_have_no_kernel_for():
@@ -347,11 +349,13 @@ def test_wrappers_refuse_cases_they_have_no_kernel_for():
 
 
 def test_probe2_counters_are_registered():
-    assert set(P2.KERNEL_INFO) == set(cuda_step.PROBE2_KERNELS)
-    assert set(cuda_step.PROBE2_KERNELS) <= set(cuda_step.launches)
-    assert not set(cuda_step.PROBE2_KERNELS) & set(cuda_step.PROBE_KERNELS)
-    assert {"probe_gather", "probe_bits"} <= set(cuda_step.SOURCES)
+    libs = {n: kernels.LIBRARIES[n] for n in ("probe_gather", "probe_bits")}
+    assert set(P2.KERNEL_INFO) == set(P2.PROBE2_KERNELS) == {
+        c for lib in libs.values() for c in lib.counters}
+    assert set(P2.PROBE2_KERNELS) <= set(cuda_step.launches)
+    assert not set(P2.PROBE2_KERNELS) & set(P.PROBE_KERNELS)
     for key, (src, rep) in P2.KERNEL_INFO.items():
+        assert key in libs[src.removesuffix(".cu")].counters, key
         assert (ROOT / "die_tpu_torch" / "csrc" / src).exists(), key
         path, line = rep.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
@@ -498,7 +502,7 @@ def test_wrappers_on_cpu_keep_the_plain_twins_at_any_batch(B):
     for leg in P2.ONEHOT_LEGS:
         assert P2.onehot(fields[0], one, leg, 2).view(torch.int32).equal(
             P2.onehot_plain(fields[0], one, leg, 2).view(torch.int32))
-    assert not any(cuda_step.launches[k] for k in cuda_step.PROBE2_KERNELS)
+    assert not any(cuda_step.launches[k] for k in P2.PROBE2_KERNELS)
 
 
 class _FakeGraph:
@@ -546,16 +550,16 @@ def test_device_ms_counts_the_launches_that_ran(monkeypatch):
                         ("graph", lambda g, **kw: nullcontext()),
                         ("Event", _Event), ("synchronize", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, value)
-    monkeypatch.setattr(cuda_step, "launches", dict(cuda_step.launches))
-    cuda_step.reset_launches()
+    monkeypatch.setattr(kernels, "launches", dict(kernels.launches))
+    kernels.reset_launches()
 
     def call():
-        cuda_step.launches["probe_funnel"] += 1
+        kernels.launches["probe_funnel"] += 1
 
     assert P2.device_ms(call, calls=5, reps=3) == 6.0 / 15
     assert graphs[0].replays == 4
-    assert cuda_step.launches["probe_funnel"] == 1 + 5 * 4
-    assert sum(cuda_step.launches.values()) == 21
+    assert kernels.launches["probe_funnel"] == 1 + 5 * 4
+    assert sum(kernels.launches.values()) == 21
 
 
 def test_rows_name_their_own_kernel_and_bound():

@@ -24,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.tools import probes as P
+from die_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "die_tpu_torch" / "csrc"
@@ -134,11 +134,11 @@ def test_roll_refuses_a_placement_and_unknown_cases():
     for axis, shift in ((0, 2), (2, 1), (1, 0), (0, 4)):
         with pytest.raises(ValueError):
             P.roll(x, axis, shift)
-    assert set(P.KERNEL_INFO) == set(cuda_step.PROBE_KERNELS)
-    assert {f"probe_roll_ax{a}_s{s}" for a, s in P.ROLL_CASES} <= \
-        set(cuda_step.PROBE_KERNELS)
+    shift = kernels.LIBRARIES["probe_shift"].counters
+    assert set(P.KERNEL_INFO) == set(P.PROBE_KERNELS)
+    assert {f"probe_roll_ax{a}_s{s}" for a, s in P.ROLL_CASES} <= set(shift)
     assert not any("cluster" in k or k.endswith("_l2")
-                   for k in cuda_step.PROBE_KERNELS if "probe_roll_ax" in k)
+                   for k in P.PROBE_KERNELS if "probe_roll_ax" in k)
 
 
 # ---- P1: the packed int16 and int8 sequence ------------------------------------

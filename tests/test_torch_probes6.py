@@ -31,6 +31,7 @@ import torch
 from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.tools import probes as P
 from die_tpu_torch.tools import probes2 as P2
+from die_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = (ROOT / "die_tpu_torch" / "csrc" / "probe_bits.cu").read_text()
@@ -332,25 +333,21 @@ def test_entries_refuse_plan_values_without_an_instance():
 
 
 def test_ctypes_signatures_match_the_entries():
-    """``cuda_step.build`` sets each entry's argument types; the two that
+    """``probes2.py`` declares each entry's argument types; the two that
     gained a plan value take it as an int, the stream last."""
-    text = (ROOT / "die_tpu_torch" / "fast" / "cuda_step.py").read_text()
-
-    def args(fn):
-        m = re.search(rf'"{fn}",\s*\[([^\]]*)\]', text)
-        return [a.strip() for a in m[1].split(",")]
+    entries = kernels.LIBRARIES["probe_bits"].entries
+    vp, ip, lp = kernels.VP, kernels.INT, kernels.LL
 
     def c_args(fn):
         m = re.search(rf"int {fn}\(([^)]*)\)", SRC)
-        return [a.strip() for a in m[1].split(",")][:-1]  # the stream last
+        return [a.strip() for a in m[1].split(",")]
 
-    assert args("die_probe_chain") == ["vp", "vp", "lp", "ip", "ip", "ip"]
-    assert args("die_probe_funnel") == ["vp", "vp", "ip", "ip", "ip"]
-    assert args("die_probe_int_latency") == ["vp", "vp", "ip", "ip", "ip",
-                                             "ip"]
-    for fn in ("die_probe_chain", "die_probe_funnel",
-               "die_probe_int_latency"):
-        assert len(c_args(fn)) == len(args(fn))
+    assert entries["die_probe_chain"] == [vp, vp, lp, ip, ip, ip, vp]
+    assert entries["die_probe_funnel"] == [vp, vp, ip, ip, ip, vp]
+    assert entries["die_probe_int_latency"] == [vp, vp, ip, ip, ip, ip, vp]
+    for fn, args in entries.items():
+        assert len(c_args(fn)) == len(args), fn
+        assert "stream" in c_args(fn)[-1], fn
 
 
 # ---- the SASS readers and the chain's floor --------------------------------------

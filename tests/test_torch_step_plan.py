@@ -17,6 +17,7 @@ import pytest
 from die_tpu_torch.core.config import FlowConfig
 from die_tpu_torch.fast import cuda_step
 from die_tpu_torch.fast import learned as L
+from die_tpu_torch.utils import kernels
 from die_tpu_torch.fast.config import (FastDynamics, eval_protocol_dynamics,
                                        tuned_dynamics)
 
@@ -142,16 +143,12 @@ def test_step_plan_of_the_main_path():
 def test_step_split_cuts_the_kernel_at_its_phase_headings():
     # the tool's cut copies replace the phases between a heading and the
     # count with the tile's stores; the headings stand once, in that order,
-    # in the one kernel every step library builds
+    # in the one kernel the one step library builds
     from die_tpu_torch.tools import step_split
 
-    layouts = step_split.tree_layouts(cuda_step.CSRC)
-    assert [lay.file for lay in layouts] == ["lattice_persistent.cuh"]
-    lay = layouts[0]
-    assert set(lay.libs) == {"lattice_step", "lattice_step_learned",
-                             "lattice_step_fused",
-                             "lattice_step_fused_learned"}
-    src = (cuda_step.CSRC / lay.file).read_text()
+    lay = step_split.tree_layout(kernels.CSRC)
+    assert lay.file == "lattice_persistent.cuh"
+    src = (kernels.CSRC / lay.file).read_text()
     end = src.index(lay.end)
     starts = [src.index(lay.cuts[c]) for c in step_split.CUT_NAMES]
     assert starts == sorted(starts) and starts[-1] < end
@@ -163,9 +160,12 @@ def test_step_split_cuts_the_kernel_at_its_phase_headings():
                  "R.dir", "R.af", "R.ef", "R.chem", "alive_count", "last",
                  "gained_base", "base"):
         assert name in lay.store and name in src[:starts[0]] + lay.store
-    for lib in lay.libs:
-        assert '#include "lattice_persistent.cuh"' in (
-            cuda_step.CSRC / cuda_step.SOURCES[lib]).read_text()
+    step = kernels.LIBRARIES[step_split.STEP_LIB]
+    assert list(step.entries) == ["die_lattice_step"]
+    assert '#include "lattice_persistent.cuh"' in (
+        kernels.CSRC / step.source).read_text()
+    with pytest.raises(RuntimeError, match="no known step kernel layout"):
+        step_split.tree_layout(kernels.CSRC / "missing")
 
 
 def test_step_split_refuses_to_measure_without_cuda():
@@ -173,7 +173,7 @@ def test_step_split_refuses_to_measure_without_cuda():
     import subprocess
     import sys
 
-    tool = cuda_step.CSRC.parent / "tools" / "step_split.py"
+    tool = kernels.CSRC.parent / "tools" / "step_split.py"
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, str(tool), "--help"],
                          capture_output=True, text=True, timeout=120, env=env)
@@ -206,7 +206,7 @@ def test_step_split_reads_the_step_kernels_registers():
         "k_jones_step<16>": {"registers": 96, "spill_bytes": 4},
         "k_step<16,3,1>": {"registers": 112, "spill_bytes": None}}
     # the kernel a target runs (its whole step), by its layout's name
-    lay = step_split.tree_layouts(cuda_step.CSRC)[0]
+    lay = step_split.tree_layout(kernels.CSRC)
     assert lay.kernel.format(n=16, fam=2, fused=0) == "k_step<16,2,0>"
 
 

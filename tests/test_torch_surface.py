@@ -196,12 +196,20 @@ def test_no_twin_list_is_pinned():
 
 
 def test_import_builds_nothing_and_touches_no_cuda():
-    code = ("import torch, die_tpu_torch, die_tpu_torch.fast, "
+    code = ("import subprocess, torch\n"
+            "def no_nvcc(*a, **k):\n"
+            "    raise AssertionError(f'started at import: {a}')\n"
+            "subprocess.Popen = no_nvcc\n"
+            "import die_tpu_torch, die_tpu_torch.fast, "
             "die_tpu_torch.learn, die_tpu_torch.ops\n"
             "from die_tpu_torch.fast import cuda_step\n"
-            "from die_tpu_torch.ops import gather\n"
+            "from die_tpu_torch.ops import draws, gather\n"
+            "from die_tpu_torch.tools import probes, probes2\n"
+            "from die_tpu_torch.utils import kernels\n"
             "assert not torch.cuda.is_initialized()\n"
-            "assert not cuda_step._libs, cuda_step._libs\n"
+            "assert len(kernels.LIBRARIES) == 10, list(kernels.LIBRARIES)\n"
+            "assert not [n for n, lib in kernels.LIBRARIES.items()\n"
+            "            if lib.dll is not None]\n"
             "assert gather._Launcher.entry is None\n"
             "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
