@@ -91,14 +91,20 @@ Phases (any failure exits non-zero):
      bitwise.  Last: ``init_env_state`` + ``PhysarumPolicy.init_state`` +
      ``parallel.rollout.rollout`` at the JAX benchmark's exact defaults
      (256x256, 65,536 slots, 1024 envs, T = 32), counts read around it
-     (K5's and the draws' launches), bitwise against the same rollout with
-     the plain gather and the plain draws, ``check_env_state``,
+     (K5's, the draws' and the policy kernels' launches), bitwise against
+     the same rollout with the plain gather, the plain draws and the
+     policy's eager route, ``check_env_state``,
      env-steps/s, each piece of a step alone, and K5 at F = 1 and F = 2
      (events, and device time by route) beside its bound, its plain
      version and ``torch.gather``; then the policy draws' kernel
      (``policy_draws``): both entries word for word against their plain
      versions at 1024 x 65,536 and at ragged shapes, one launch a call,
      each timed beside its bound (the ALU and FMA pipes' operations) and
+     the plain version; then the Physarum policy's kernels
+     (``physarum_policy``: the angle field, the sense cells, the turn):
+     each entry word for word against its plain version (the eager route)
+     at 1024 envs of 256x256 with 65,536 slots and at ragged shapes, one
+     launch a call, each timed beside its bytes and operations bounds and
      the plain version
      (``--only-exact`` runs this phase alone);
  10. the probes (``die_tpu_torch/tools/probes.py``, the counterparts of the
@@ -1702,22 +1708,27 @@ def phase_exact_cpu():
 
 
 class plain_kernels:
-    """Within the block the exact engine's gathers run ``gather_fields_plain``
-    and the policies' draws ``draw_signs_plain`` and ``draw_normals_plain``
-    on the card: the rollout the kernels' rollout is held against."""
+    """Within the block the exact engine's gathers run ``gather_fields_plain``,
+    the policies' draws ``draw_signs_plain`` and ``draw_normals_plain``, and
+    Physarum its eager route, on the card: the rollout the kernels' rollout
+    is held against."""
 
     def __enter__(self):
         from die_tpu_torch.core import env as env_mod
+        from die_tpu_torch.models.gradient import PhysarumPolicy
         from die_tpu_torch.ops import draws
         from die_tpu_torch.ops.gather import gather_fields_plain
 
         self._kept = [(env_mod, "gather_fields", env_mod.gather_fields),
                       (draws, "draw_signs", draws.draw_signs),
-                      (draws, "draw_normals", draws.draw_normals)]
+                      (draws, "draw_normals", draws.draw_normals),
+                      (PhysarumPolicy, "_kernel_route",
+                       PhysarumPolicy._kernel_route)]
         env_mod.gather_fields = \
             lambda fields, idx, route=None: gather_fields_plain(fields, idx)
         draws.draw_signs = draws.draw_signs_plain
         draws.draw_normals = draws.draw_normals_plain
+        PhysarumPolicy._kernel_route = lambda self, medium: False
 
     def __exit__(self, *exc):
         for mod, name, fn in self._kept:
@@ -1729,10 +1740,10 @@ def exact_breakdown(dyn, policy, state, pstate, rkeys):
     CUDA events, on the main path's state.  Returns {piece: ms}."""
     from die_tpu_torch.core import channels as ch
     from die_tpu_torch.core import env as E
-    from die_tpu_torch.core.mathx import atan2
+    from die_tpu_torch.core.mathx import f32
     from die_tpu_torch.core.rng import fold_in
-    from die_tpu_torch.models.gradient import NOISE_SCALE
-    from die_tpu_torch.ops import draws
+    from die_tpu_torch.models.gradient import GradientPolicy, NOISE_SCALE
+    from die_tpu_torch.ops import draws, physarum
 
     N = state.agents.shape[-1]
     k_pol = fold_in(fold_in(rkeys, 0), ch.TAG_POLICY)
@@ -1743,20 +1754,32 @@ def exact_breakdown(dyn, policy, state, pstate, rkeys):
     agents = E._move(dyn, state.agents, action)
     medium = E._deposit_and_layout(dyn, state.medium, agents, action)
     chem = state.medium[:, ch.CH_MED_CHEM]
-    gx, gy = policy._gradient_field(chem)
+    field = physarum.angle_field(chem, f32(policy._grad_clip))
+    cell = physarum.sense_cells(state.agents, pstate.direction_rads,
+                                f32(policy._sense_offset), state.field_size)
+    (drads,) = E.gather_cells((field,), cell)
+    signs = draws.draw_signs(k_pol, ch.TAG_DRAW_0, N)
+    noise = draws.draw_normals(k_pol, ch.TAG_DRAW_1, N, NOISE_SCALE)
     pieces = {
         "policy.forward (whole)": lambda: policy.forward(
             None, pstate, obs, k_pol, sensed_food=sensed),
+        "policy.forward, eager route (plain)": lambda: GradientPolicy.forward(
+            policy, None, pstate, obs, k_pol, sensed_food=sensed),
         "env_step_carry (whole)": lambda: E.env_step_carry(dyn, state,
                                                            action),
         "draws: noise normals (2, N) (policy_draws)":
             lambda: draws.draw_normals(k_pol, ch.TAG_DRAW_1, N, NOISE_SCALE),
         "draws: turn signs (N) (policy_draws)":
             lambda: draws.draw_signs(k_pol, ch.TAG_DRAW_0, N),
-        "gradient field (central diff, norm, clip)":
-            lambda: policy._gradient_field(chem),
-        "atan2 on the field": lambda: atan2(gy, gx),
-        "atan2 per slot": lambda: atan2(action[:, 1], action[:, 0]),
+        "angle field (physarum_field)":
+            lambda: physarum.angle_field(chem, f32(policy._grad_clip)),
+        "sense cells (physarum_cells)": lambda: physarum.sense_cells(
+            state.agents, pstate.direction_rads, f32(policy._sense_offset),
+            state.field_size),
+        "the angle gathered (K5 F=1)": lambda: E.gather_cells((field,), cell),
+        "turn, heading, action (physarum_turn)": lambda: physarum.turn(
+            drads, pstate.direction_rads, signs, pstate.prev_grad, noise,
+            sensed, policy._turn_constants()),
         "move": lambda: E._move(dyn, state.agents, action),
         "deposit + layout (scatter-max, K5 F=1)":
             lambda: E._deposit_and_layout(dyn, state.medium, agents, action),
@@ -1829,7 +1852,8 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
         f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
         f"{peak_gb:.2f} GB")
     want = {"gather_fields_f1": 2 * T + 1, "gather_fields_f2": T,
-            "policy_draws_signs": T, "policy_draws_normals": T}
+            "policy_draws_signs": T, "policy_draws_normals": T,
+            "physarum_field": T, "physarum_cells": T, "physarum_turn": T}
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{name}: {counts[name]} launches on the "
@@ -1848,7 +1872,8 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     diff = rollout_differences(res, ref)
     if diff:
         raise AssertionError(f"exact main path differs from the plain "
-                             f"rollout (plain gather and draws): {diff}")
+                             f"rollout (plain gather, draws and policy): "
+                             f"{diff}")
     tot_err = float((res.total_reward - ref.total_reward).abs().max())
     del ref
     if tuple(res.rewards.shape) != (B, T) or \
@@ -1859,7 +1884,8 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     violations = check_env_state(res.state, dyn)
     if violations:
         raise AssertionError(f"check_env_state: {violations}")
-    log(f"exact main path ok: bitwise == plain rollout (state, policy "
+    log(f"exact main path ok: bitwise == plain rollout (plain gather, "
+        f"draws and policy; state, policy "
         f"state, rewards, counts; total_reward max abs diff {tot_err:g}), "
         f"check_env_state clean, mean reward/step "
         f"{float(res.rewards.mean()):.6f}, agents/env "
@@ -1873,7 +1899,7 @@ def phase_exact_main(B: int, T: int, kind: str, smi: str, rate: float,
     log(f"exact rollout: {B} envs x {T} steps in {secs:.4f} s = "
         f"{B * T / secs:.1f} env-steps/s, {secs / T * 1e3:.3f} ms a step "
         f"({kind}, {smi}); the rollout it was held against, with the plain "
-        f"gather and draws: {plain_secs:.4f} s = "
+        f"gather, draws and policy: {plain_secs:.4f} s = "
         f"{B * T / plain_secs:.1f} env-steps/s (record only)")
 
     pieces = exact_breakdown(dyn, policy, res.state, res.pstate, rkeys)
@@ -2013,6 +2039,124 @@ def phase_draws(rate: float, exact_launches: dict) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations",
             "library_ms": None, "shapes": shapes}
+
+
+# the Physarum policy's kernels at ragged shapes (envs, W, H, slots)
+PHYSARUM_RAGGED = (((), 64, 32, 4099), ((3,), 37, 45, 1001),
+                   ((2, 2), 5, 7, 77), ((1,), 2, 2, 1))
+# each entry's bytes and fp32 operations a unit (a cell of the field, a
+# slot of the others): the field reads and writes a word a cell and
+# computes about 107 operations (the gradient, the contract's sqrt and
+# two recips, the clip, the atan polynomial); the slot kernels are bound by
+# their words (x, y, heading in, the cell out; six rows in, six out)
+PHYSARUM_WORK = {"field": (8, 107), "cells": (16, 0), "turn": (56, 0)}
+
+
+def physarum_entries(lead, W, H, N, seed: int):
+    """{entry: (kernel, plain, counter, units)} of the policy's kernels on
+    random inputs (a chem field with a band of zero gradients, dead slots'
+    NaN and out-of-range coordinates) of ``lead`` envs; the plain turn is
+    ``_act_from_rads``, the draws' two launches in it."""
+    from die_tpu_torch.core import channels as ch
+    from die_tpu_torch.core.mathx import f32
+    from die_tpu_torch.models.gradient import (NOISE_SCALE, GradientState,
+                                               PhysarumPolicy)
+    from die_tpu_torch.ops import draws, physarum
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    med = torch.rand(lead + (3, W, H), generator=g, device="cuda")
+    chem = med[..., ch.CH_MED_CHEM, :, :]
+    chem[..., : max(2, W // 8), :] = 0.5
+    agents = torch.rand(lead + (4, N), generator=g, device="cuda") * 1.2 - 0.1
+    for k, v in enumerate((float("nan"), float("inf"), 3e9, -3e9)):
+        agents.view(-1, 4, N)[:, k % 2, k % N] = v
+    heading = (torch.rand(lead + (N,), generator=g, device="cuda") - 0.5) * 7
+    prev = torch.randn(lead + (2, N), generator=g, device="cuda")
+    ps = GradientState(prev_grad=prev, direction_rads=heading)
+    pol = PhysarumPolicy(max_agents=N, scale=0.007, turn_angle=30,
+                         sense_offset=0.04)
+    key = session_keys(max(1, math.prod(lead)), seed=seed)[2].cuda()
+    key = key.reshape(lead + (2,))
+    cells = pol._sense_cells(agents, heading, (W, H)).long()
+    drads = torch.gather(pol._angle_field_plain(chem), -1, cells)
+    food = torch.gather(med[..., ch.CH_MED_FOOD, :, :].flatten(-2), -1, cells)
+    signs = draws.draw_signs(key, ch.TAG_DRAW_0, N)
+    noise = draws.draw_normals(key, ch.TAG_DRAW_1, N, NOISE_SCALE)
+    obs = (agents, med)
+
+    def plain_turn():
+        action, state = pol._act_from_rads(drads, ps, obs, key, food)
+        return action, state.prev_grad, state.direction_rads
+
+    clip, offset = f32(pol._grad_clip), f32(pol._sense_offset)
+    B = math.prod(lead)
+    return {
+        "field": (lambda: physarum.angle_field(chem, clip),
+                  lambda: pol._angle_field_plain(chem), "physarum_field",
+                  B * W * H),
+        "cells": (lambda: physarum.sense_cells(agents, heading, offset,
+                                               (W, H)),
+                  lambda: pol._sense_cells(agents, heading, (W, H)),
+                  "physarum_cells", B * N),
+        "turn": (lambda: physarum.turn(drads, heading, signs, prev, noise,
+                                       food, pol._turn_constants()),
+                 plain_turn, "physarum_turn", B * N)}
+
+
+def phase_physarum(rate: float, exact_launches: dict) -> list:
+    """``physarum_policy`` (``ops/physarum.py``): each entry against its
+    plain version on the card, word for word, at 1024 envs of 256x256 with
+    65,536 slots and at ragged shapes, one launch a call; then each timed
+    at full width (CUDA events over 20 calls) beside its bound
+    (``PHYSARUM_WORK``: bytes at the memory rate, operations at the fp32
+    lane rate under ``--fmad=false``) and the plain version.  Returns a row
+    for each kernel."""
+    from die_tpu_torch.fast import cuda_step
+
+    shapes = [((1024,), EXACT_FIELD[0], EXACT_FIELD[1], EXACT_SLOTS)]
+    shapes += list(PHYSARUM_RAGGED)
+    timed = {}
+    for k, (lead, W, H, N) in enumerate(shapes):
+        entries = physarum_entries(lead, W, H, N, seed=27 + k)
+        for what, (kernel, plain, counter, units) in entries.items():
+            before = cuda_step.launches[counter]
+            got = kernel()
+            launched = cuda_step.launches[counter] - before
+            want = plain()
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            if launched != 1 or not all(map(same_words, got, want)):
+                raise AssertionError(f"physarum_{what} at {lead} x {W}x{H}, "
+                                     f"{N} slots: {launched} launches, or "
+                                     f"differs from its plain version")
+        if k == 0:
+            timed = entries
+    log(f"physarum_policy: every entry bitwise its plain version at "
+        f"1024 x {EXACT_FIELD[0]}x{EXACT_FIELD[1]}, {EXACT_SLOTS} slots and "
+        f"at {len(PHYSARUM_RAGGED)} ragged shapes")
+    rows = []
+    for what, (kernel, plain, counter, units) in timed.items():
+        ms = time_ms(kernel, 20)
+        plain_ms = time_ms(plain, 3, warmup=1)
+        nbytes, ops = PHYSARUM_WORK[what]
+        by = {"bytes": units * nbytes / rate,
+              "operations": units * ops / (FP32_RATE / 2)}
+        bound = max(by.values()) * 1e3
+        bound_by = max(by, key=by.get)
+        log(f"{counter} at {units} units: {ms:.4f} ms/launch (bound "
+            f"{bound:.4f} ms by {bound_by}: bytes {by['bytes'] * 1e3:.4f}, "
+            f"operations {by['operations'] * 1e3:.4f}); plain {plain_ms:.3f} "
+            f"ms" + (" (the draws' two launches in it)" if what == "turn"
+                     else "") + f"; exact-path launches "
+            f"{exact_launches.get(counter, 0)}")
+        rows.append({"name": counter, "route": "cuda",
+                     "source": "die_tpu_torch/csrc/physarum_policy.cu",
+                     "replaces": None,
+                     "launches": exact_launches.get(counter, 0),
+                     "match": True, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows
 
 
 # ---- the probes of the step's phases -------------------------------------------
@@ -3732,7 +3876,8 @@ MESH_SPATIAL = ((4096, 4096), 8)  # one field, steps
 MESH_BANDED = (32, (512, 512), 32)  # envs, field, steps
 MESH_KERNELS = {  # path -> kernels it must launch on every rank
     "fast": ("lattice_step", "tree_sum_2d"),
-    "exact": ("gather_fields_f1", "gather_fields_f2"),
+    "exact": ("gather_fields_f1", "gather_fields_f2", "physarum_field",
+              "physarum_cells", "physarum_turn"),
     "wide": ("lattice_step_learned_wide", "tree_sum_2d"),
     "nca": ("gather_fields_f3", "gather_fields_f1"),
     "spatial": (),
@@ -4181,7 +4326,7 @@ def main():
         f"{smi}")
 
     # ---- 2. build every library the registry holds
-    from die_tpu_torch.ops import draws, gather  # noqa: F401 (declare)
+    from die_tpu_torch.ops import draws, gather, physarum  # noqa: F401
     from die_tpu_torch.tools import probes, probes2  # noqa: F401
     from die_tpu_torch.utils import kernels
 
@@ -4202,6 +4347,7 @@ def main():
         rows, rec = phase_exact_main(args.exact_envs, args.exact_steps, kind,
                                      smi, mem_rate(kind), args.profile)
         rows.append(phase_draws(mem_rate(kind), rec["launches"]))
+        rows += phase_physarum(mem_rate(kind), rec["launches"])
         log(json.dumps({"kernels": rows, "exact": rec}))
         log(smi)
         return 0
@@ -4397,6 +4543,7 @@ def main():
         args.exact_envs, args.exact_steps, kind, smi, rate, args.profile)
     kernels += exact_rows
     kernels.append(phase_draws(rate, exact_record["launches"]))
+    kernels += phase_physarum(rate, exact_record["launches"])
 
     # ---- 10. the probes of the step's phases
     kernels += phase_probes(smi)

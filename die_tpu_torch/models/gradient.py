@@ -19,6 +19,12 @@ Draw sites fold from the step's policy key:
 Both draws go through ``ops/draws.py``: on CUDA one kernel launch each
 (the key folded with the tag on the card), on the CPU the eager
 composition.
+
+Physarum with normalized gradients on a CUDA medium runs its float32 math
+as the ``ops/physarum.py`` kernels (the angle field, the sense cells, the
+turn), with K5's gather and the draws between them.  The eager body,
+``GradientPolicy.forward``, is their plain version and the route of the
+CPU, of ``GradientPolicy`` and of Physarum with ``normalized_grad=False``.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from die_tpu_torch.core.mathx import (atan2, discretize, f32, hypot2,
                                       polar2xy, recip, renormalize_radians)
 from die_tpu_torch.core.rng import as_key_tensor
 from die_tpu_torch.models.base import Policy, register
-from die_tpu_torch.ops import draws
+from die_tpu_torch.ops import draws, physarum
 from die_tpu_torch.ops.gaussian import central_gradient
 from die_tpu_torch.utils.profiling import EXACT_DRAWS, annotate
 
@@ -139,24 +145,52 @@ class GradientPolicy(Policy):
                 sensed_food=None):
         agents, medium = obs
         W, H = medium.shape[-2], medium.shape[-1]
-        gx, gy = self._gradient_field(medium[..., ch.CH_MED_CHEM, :, :])
-
+        chem = medium[..., ch.CH_MED_CHEM, :, :]
         # per-agent gather at coords + polar sense offset
-        off_x, off_y = polar2xy(f32(self._sense_offset),
-                                pstate.direction_rads)
+        cell = self._sense_cells(agents, pstate.direction_rads, (W, H))
+        if self._uses_direction_only():
+            (drads,) = gather_cells((self._angle_field_plain(chem),), cell)
+            return self._act_from_rads(drads, pstate, obs, key, sensed_food)
+        gx, gy = self._gradient_field(chem)
+        gpx, gpy = gather_cells((gx.flatten(-2), gy.flatten(-2)), cell)
+        return self._act(self._process_gradient(
+            (gpx, gpy), pstate.direction_rads, key), pstate, obs, key,
+            sensed_food)
+
+    def _sense_cells(self, agents, direction, field_size):
+        """int32 ``[..., N]``: each slot's flat cell at its coordinates plus
+        the polar sense offset along its heading (``k_physarum_cells``'
+        plain version)."""
+        W, H = field_size
+        off_x, off_y = polar2xy(f32(self._sense_offset), direction)
         cx = coords_to_cells(agents[..., ch.CH_AGT_X, :] + off_x, W)
         cy = coords_to_cells(agents[..., ch.CH_AGT_Y, :] + off_y, H)
-        cell = cx * H + cy
-        if self._uses_direction_only():
-            (drads,) = gather_cells((atan2(gy, gx).flatten(-2),), cell)
-            (gpx, gpy), direction, deposit_mask = \
-                self._process_gradient_rads(drads, pstate.direction_rads,
-                                            key)
-        else:
-            gpx, gpy = gather_cells((gx.flatten(-2), gy.flatten(-2)), cell)
-            (gpx, gpy), direction, deposit_mask = self._process_gradient(
-                (gpx, gpy), pstate.direction_rads, key)
+        return cx * H + cy
 
+    def _angle_field_plain(self, chem):
+        """f32 ``[..., W*H]``: ``atan2(gy, gx)`` of the field's gradient
+        (``k_physarum_field``'s plain version)."""
+        gx, gy = self._gradient_field(chem)
+        return atan2(gy, gx).flatten(-2)
+
+    def _act_from_rads(self, drads, pstate: GradientState, obs, key,
+                       sensed_food=None):
+        """The action and next state from the gathered angles
+        (``k_physarum_turn``'s plain version, the draws' launches in it)."""
+        return self._act(self._process_gradient_rads(
+            drads, pstate.direction_rads, key), pstate, obs, key, sensed_food)
+
+    def _sensed_food(self, obs):
+        """The food at each slot's unoffset cell."""
+        agents, medium = obs
+        ix, iy = agent_cells(agents, medium.shape[-2:])
+        return gather_field(medium[..., ch.CH_MED_FOOD, :, :], ix, iy)
+
+    def _act(self, turned, pstate: GradientState, obs, key, sensed_food):
+        """Momentum, noise, the new heading and the deposit, after the turn
+        ``turned`` = ((gpx, gpy), direction, deposit_mask)."""
+        (gpx, gpy), _direction, deposit_mask = turned
+        agents = obs[0]
         # momentum + noise
         inertia = f32(self._inertia)
         lead = f32(f32(1.0) - inertia)
@@ -175,9 +209,7 @@ class GradientPolicy(Policy):
         # deposit relative to the food sensed at the unoffset coords; a
         # fused-sense rollout passes the carried value, the same bits
         if sensed_food is None:
-            ix, iy = agent_cells(agents, (W, H))
-            sensed_food = gather_field(medium[..., ch.CH_MED_FOOD, :, :],
-                                       ix, iy)
+            sensed_food = self._sensed_food(obs)
         deposit = self._process_deposit(sensed_food, deposit_mask)
 
         action = torch.stack([gpx * f32(self._scale), gpy * f32(self._scale),
@@ -217,6 +249,46 @@ class PhysarumPolicy(GradientPolicy):
                   "sense_angle": self._sense_angle,
                   "turn_tolerance": self._rtol})
         return p
+
+    def forward(self, params, pstate: GradientState, obs, key,
+                sensed_food=None):
+        """On the card, where only the gradient's angle is read, the
+        ``ops/physarum.py`` kernels with K5's gather and the draws' kernel
+        between them; else :meth:`GradientPolicy.forward`, the kernels'
+        plain version, bit for bit the same."""
+        agents, medium = obs
+        if not self._kernel_route(medium):
+            return super().forward(params, pstate, obs, key, sensed_food)
+        W, H = medium.shape[-2], medium.shape[-1]
+        N = agents.shape[-1]
+        clip = None if self._grad_clip is None else f32(self._grad_clip)
+        field = physarum.angle_field(medium[..., ch.CH_MED_CHEM, :, :], clip)
+        cell = physarum.sense_cells(agents, pstate.direction_rads,
+                                    f32(self._sense_offset), (W, H))
+        (drads,) = gather_cells((field,), cell)
+        with annotate(EXACT_DRAWS):
+            signs = draws.draw_signs(key, ch.TAG_DRAW_0, N)
+        with annotate(EXACT_DRAWS):
+            noise = draws.draw_normals(key, ch.TAG_DRAW_1, N, NOISE_SCALE)
+        if sensed_food is None:
+            sensed_food = self._sensed_food(obs)
+        action, prev_grad, direction = physarum.turn(
+            drads, pstate.direction_rads, signs, pstate.prev_grad, noise,
+            sensed_food, self._turn_constants())
+        return action, GradientState(prev_grad=prev_grad,
+                                     direction_rads=direction)
+
+    def _kernel_route(self, medium) -> bool:
+        """The kernels take a CUDA medium where only the angle is read."""
+        return medium.is_cuda and self._uses_direction_only()
+
+    def _turn_constants(self) -> physarum.TurnConstants:
+        inertia = f32(self._inertia)
+        return physarum.TurnConstants(
+            atol=self._atol, sense_radians=self._sense_radians,
+            turn_radians=self._turn_radians, lead=f32(f32(1.0) - inertia),
+            inertia=inertia, noise_scale=f32(self._noise_scale),
+            scale=f32(self._scale), deposit=f32(self._deposit))
 
     def _init_direction(self, direction):
         """The heading starts discretized to the turn lattice."""

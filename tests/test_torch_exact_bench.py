@@ -223,6 +223,10 @@ MUL32 = ("void at::native::vectorized_elementwise_kernel<4, at::native::"
          "MulFunctor<float> >, std::array<char*, 3ul> >(...)")
 DRAWS = ("void (anonymous namespace)::k_policy_draws<true, true>(long long "
          "const*, float*, int, int, unsigned int, float)")
+FIELD = ("void (anonymous namespace)::k_physarum_field<true, true>(float "
+         "const*, long long, float*, int, int, int, int, float)")
+TURN = ("void (anonymous namespace)::k_physarum_turn<true>(float const*, "
+        "...)")
 
 
 def hand_built(spans: bool = True, kernels: bool = True) -> TraceRecord:
@@ -238,7 +242,8 @@ def hand_built(spans: bool = True, kernels: bool = True) -> TraceRecord:
     device = [(K5, 200, 300), (L2, 400, 450), (ADD64, 500, 2500),
               (XOR64, 2500, 3000), (WIDEN, 3000, 3100), (MUL32, 3100, 4000),
               (SHR64, 5000, 8000), (MUL32, 8000, 8500),
-              (DRAWS, 9200, 9300)]                  # outside the spans
+              (DRAWS, 9200, 9300),                  # outside the spans
+              (FIELD, 9300, 9330), (TURN, 9330, 9450)]
     if not kernels:
         device = [d for d in device if d[0] == MUL32]
     return TraceRecord((0.0, 10000.0), device, host, 2, {}, dict(MODEL),
@@ -256,13 +261,15 @@ def expected(name: str) -> float:
             m["envs"], m["gathers"], rate) / 150e-6,
         "eager_rng_ms.exact": 5.5 / 16,    # the add, xor and shift; no copy
         "draws_ms.exact": 0.1 / 16,        # the kernel's 100 us
+        "policy_ms.exact": 0.15 / 16,      # the two policy kernels' 150 us
         "host_syncs.exact": 2 / 16,
         # idle inside the spans: 350 us in the first, 500 in the second
         "step_idle_ms.exact": 0.85 / 16}[name]
 
 
 NEW = ("step_mfu.exact", "gather_roofline.exact", "eager_rng_ms.exact",
-       "host_syncs.exact", "step_idle_ms.exact", "draws_ms.exact")
+       "host_syncs.exact", "step_idle_ms.exact", "draws_ms.exact",
+       "policy_ms.exact")
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -9,7 +9,7 @@ import subprocess
 import pytest
 
 from die_tpu_torch.fast import cuda_step
-from die_tpu_torch.ops import draws, gather
+from die_tpu_torch.ops import draws, gather, physarum
 from die_tpu_torch.tools import probes, probes2  # noqa: F401 (declares)
 from die_tpu_torch.utils import kernels
 
@@ -17,6 +17,7 @@ DECLARED = {"lattice_step": "fast/cuda_step.py",
             "tree_sum_2d": "fast/cuda_step.py",
             "lattice_init": "fast/cuda_step.py",
             "gather_fields": "ops/gather.py", "policy_draws": "ops/draws.py",
+            "physarum_policy": "ops/physarum.py",
             "probe_alu": "tools/probes.py", "probe_shift": "tools/probes.py",
             "probe_diffuse": "tools/probes.py",
             "probe_gather": "tools/probes2.py",
@@ -44,8 +45,9 @@ def test_every_library_is_declared_by_the_module_that_launches_it():
     assert cuda_step.launches is kernels.launches
     assert gather._LIB is kernels.LIBRARIES["gather_fields"]
     assert draws._LIB is kernels.LIBRARIES["policy_draws"]
+    assert physarum._LIB is kernels.LIBRARIES["physarum_policy"]
     text = (root / "fast" / "cuda_step.py").read_text()
-    for word in ("probe_", "gather_fields", "policy_draws"):
+    for word in ("probe_", "gather_fields", "policy_draws", "physarum"):
         assert word not in text, word
 
 
